@@ -7,12 +7,23 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 It builds the hand-written kernels from `onephase_tpu_torch/csrc/`, holds
 each against its plain PyTorch version on the card, then drives the port's
-main path (`NLPSpec -> canonicalize -> OnePhaseKernel (dense Schur) ->
-one_phase_solve / BatchSolver`) on the `pallas` lane: HS071 in float64, the
-bench configuration (n=256, m=128, batch 16, float32) and the n=1024, m=512,
-batch 64 configuration.  Every phase raises on failure, so the script exits
-nonzero and never prints the final line; without a CUDA card it refuses to
-run.  The last line is `{"ok": true, "device": {...}}`.
+two paths on the `pallas` lane:
+
+- the dense path (`NLPSpec -> canonicalize -> OnePhaseKernel (dense Schur)
+  -> one_phase_solve / BatchSolver`): HS071 in float64, the bench
+  configuration (n=256, m=128, batch 16, float32) and the n=1024, m=512,
+  batch 64 configuration (kernels K1-K3);
+- the chain path (`chain_ocp -> ChainKernel (block-tridiagonal Schur) ->
+  run_chunk`): chain_ocp(K=400, nx=32, mc=16) in float32, the JAX
+  package's large-instance configuration (scripts/bench_large.py), on the
+  `pallas` lane (kernels K5 and K7) and on the `xla` lane for comparison.
+
+Every phase raises on failure, so the script exits nonzero and never prints
+the final line; without a CUDA card it refuses to run.  The line before
+the last lists every kernel with its launches on its path, its error
+against the plain version, its time, the plain version's, a library
+call's where one PyTorch call computes the same function, and its bound.
+The last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -36,8 +47,30 @@ BENCH_OPTIONS = {
     "history_capacity": 2,
     "kkt.it_refine_highprec": True,
 }
+# scripts/bench_large.py:49-52 options (the chain configuration)
+CHAIN_OPTIONS = {
+    "output_level": 0,
+    "term.max_it": 200,
+    "term.tol_opt": 1e-4,
+    "chunk_size": 25,
+    "history_capacity": 2,
+}
+CHAIN_SHAPE = {"K": 400, "nx": 32, "mc": 16}
 TOL = {"float32": 1e-4, "float64": 1e-10}   # max error / max |reference|
 REPS = 20
+# H100 SXM (NVIDIA's data sheet, dense, at 700 W): HBM3 bytes/s, and the
+# FLOP/s outside the tensor cores for each type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+
+
+def _bound(nbytes, flops, dname="float32"):
+    """(bound_ms, bound_by): the least time for `nbytes` moved (each input
+    read once, each output written once) and `flops` done, the larger of
+    bytes over the memory rate and operations over the peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dname] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _card_line() -> str:
@@ -85,8 +118,8 @@ def _time_ms(fn) -> float:
 def kernel_parity(dev):
     """K1-K4 against their plain versions, f32 and f64, at the main path's
     shapes, a ragged n, m = 0, n = 2048 and a non-PD Q.  Returns, per
-    kernel, (max abs error, kernel ms, plain ms) at the largest main-path
-    shape in float32."""
+    kernel, its record (max abs error, kernel, plain and library ms, bound)
+    at the largest main-path shape in float32."""
     import torch
     from onephase_tpu_torch.ops import cholesky as ch
     from onephase_tpu_torch.ops import schur
@@ -118,7 +151,15 @@ def kernel_parity(dev):
                 pms = _time_ms(lambda: schur.xla_fused_q(Jc, w, H, bnd))
                 line += f" kernel {ms:.4f} ms plain {pms:.4f} ms"
                 if n == 1024 and dtype == torch.float32:
-                    record["fused_q"] = (ea, ms, pms)
+                    # reads Jc (shared), w, H (shared), bnd once, writes Q;
+                    # Q is symmetric, so its n (n + 1) / 2 distinct entries
+                    # of length m take B m n (n + 1) operations (the kernel
+                    # forms the full Q, 2 B m n^2)
+                    el = Jc.element_size()
+                    nbytes = el * (m * n + B * m + n * n + B * n + B * n * n)
+                    record["fused_q"] = dict(
+                        max_abs_err=ea, ms=ms, plain_ms=pms, library_ms=None,
+                        **_kv(_bound(nbytes, B * m * n * (n + 1))))
             print(line, flush=True)
             if not e <= tol:
                 raise RuntimeError(f"K1 disagrees: {line}")
@@ -155,8 +196,24 @@ def kernel_parity(dev):
                 line += (f" | chol {t2:.4f} ms plain {p2:.4f} ms"
                          f" | tri_inv_gram {t3:.4f} ms plain {p3:.4f} ms")
                 if n == 1024 and dtype == torch.float32:
-                    record["chol"] = (e2a, t2, p2)
-                    record["tri_inv_gram"] = (e3a, t3, p3)
+                    # library yardsticks, never called by the port:
+                    # cuSOLVER's batched Cholesky, and cholesky_inverse
+                    # (M = (L L^T)^-1 from L)
+                    l2 = _time_ms(lambda: torch.linalg.cholesky_ex(Q))
+                    l3 = _time_ms(lambda: torch.cholesky_inverse(Lr))
+                    el = Q.element_size()
+                    # K2 reads Q, writes L, d, ok: B n^3 / 3 operations;
+                    # K3 reads L, writes M: L^-1 (n^3 / 3) + the Gram
+                    # product (n^3 / 3)
+                    record["chol"] = dict(
+                        max_abs_err=e2a, ms=t2, plain_ms=p2, library_ms=l2,
+                        **_kv(_bound(el * (2 * B * n * n + B * n) + 4 * B,
+                                     B * n ** 3 / 3)))
+                    record["tri_inv_gram"] = dict(
+                        max_abs_err=e3a, ms=t3, plain_ms=p3, library_ms=l3,
+                        **_kv(_bound(el * 2 * B * n * n, 2 * B * n ** 3 / 3)))
+                    line += (f" | cholesky_ex {l2:.4f} ms"
+                             f" cholesky_inverse {l3:.4f} ms")
             print(line, flush=True)
             if not (e2 <= tol and e3 <= tol and e4 <= tol):
                 raise RuntimeError(f"K2/K3/K4 disagree: {line}")
@@ -171,6 +228,141 @@ def kernel_parity(dev):
         print(f"K2 chol {dname} non-PD n=130 B=4: ok = 0 for every instance",
               flush=True)
     return record
+
+
+def _kv(bound):
+    return {"bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def _band(rng, B, K, nb, dtype, device):
+    """Block-tridiagonal SPD band from the seeded numpy generator:
+    A_k = G G^T + 3 I, B_k = 0.3 N(0, 1) (formed in float64)."""
+    import torch
+    G = rng.normal(size=(B, K, nb, nb))
+    Ad = G @ G.transpose(0, 1, 3, 2) + 3.0 * np.eye(nb)
+    Bs = rng.normal(size=(B, max(K - 1, 0), nb, nb)) * 0.3
+    return (torch.as_tensor(Ad, dtype=dtype, device=device),
+            torch.as_tensor(Bs, dtype=dtype, device=device))
+
+
+def tridiag_parity(dev):
+    """K7 (tridiag_factor) and K5 (tridiag_solve) against their plain
+    versions, f32 and f64: at the chain path's shape (B=1, K=400, nb=32), a
+    ragged nb=30 with K=7, K=1, and a non-PD band (ok False from both).
+    Returns, per kernel, its record at the chain path's shape in float32."""
+    import torch
+    from onephase_tpu_torch.ops import tridiag_pallas as tp
+
+    rng = np.random.default_rng(2)
+    record = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        tol = TOL[dname]
+        for B, K, nb in ((1, 400, 32), (2, 7, 30), (2, 1, 32)):
+            Ad, Bs = _band(rng, B, K, nb, dtype, dev)
+            delta = torch.full((B,), 1e-4, dtype=dtype, device=dev)
+            Ck, Ci, Ek, ok = tp.pallas_tridiag_factor(Ad, Bs, delta)
+            Ckr, Cir, Ekr, okr = tp.xla_tridiag_factor_inv(Ad, Bs, delta)
+            b = torch.as_tensor(rng.normal(size=(B, K, nb)), dtype=dtype,
+                                device=dev)
+            x = tp.pallas_tridiag_solve(Ci, Ek, b)
+            xr = tp.xla_tridiag_solve_inv(Cir, Ekr, b)
+            torch.cuda.synchronize()
+            if not (bool(ok.all()) and bool(okr.all())):
+                raise RuntimeError(f"K7 rejected an SPD band (K={K})")
+            errs = [_err(Ck, Ckr), _err(Ci, Cir)]
+            if K > 1:
+                errs.append(_err(Ek, Ekr))
+            e7, e7a = max(e for e, _ in errs), max(a for _, a in errs)
+            e5, e5a = _err(x, xr)
+            line = (f"K7 tridiag_factor {dname} B={B} K={K} nb={nb}: err "
+                    f"{e7:.3e} | K5 tridiag_solve err {e5:.3e}")
+            if K == CHAIN_SHAPE["K"]:
+                t7 = _time_ms(lambda: tp.pallas_tridiag_factor(Ad, Bs, delta))
+                p7 = _time_ms(lambda: tp.xla_tridiag_factor_inv(Ad, Bs,
+                                                                delta))
+                t5 = _time_ms(lambda: tp.pallas_tridiag_solve(Ci, Ek, b))
+                p5 = _time_ms(lambda: tp.xla_tridiag_solve_inv(Ci, Ek, b))
+                line += (f" | factor {t7:.4f} ms plain {p7:.4f} ms"
+                         f" | solve {t5:.4f} ms plain {p5:.4f} ms"
+                         " | no library call computes either")
+                if dtype == torch.float32:
+                    el = Ad.element_size()
+                    blk = nb * nb
+                    # K7 reads Ad, Bs, delta, writes Ck, Ci, Ek, ok; per
+                    # stage E E^T and E_k = B_k Ci^T on nb (nb + 1) / 2
+                    # entries of length nb (k >= 1, k < K-1), Cholesky and
+                    # triangular inverse nb^3 / 3 each
+                    f7 = B * ((K - 1) * 2 * 2 * blk * (nb + 1) / 2
+                              + K * 2 * nb ** 3 / 3)
+                    b7 = (el * B * (3 * K * blk + 2 * (K - 1) * blk + 1)
+                          + 4 * B)
+                    # K5 reads Ci, Ek, b, writes x; two nb x nb matvecs a
+                    # stage in each sweep (one at the chain's ends)
+                    f5 = B * 2 * 2 * blk * (2 * K - 1)
+                    b5 = el * B * (K * blk + (K - 1) * blk + 2 * K * nb)
+                    record["tridiag_factor"] = dict(
+                        max_abs_err=e7a, ms=t7, plain_ms=p7, library_ms=None,
+                        **_kv(_bound(b7, f7)))
+                    record["tridiag_solve"] = dict(
+                        max_abs_err=e5a, ms=t5, plain_ms=p5, library_ms=None,
+                        **_kv(_bound(b5, f5)))
+            print(line, flush=True)
+            if not (e7 <= tol and e5 <= tol):
+                raise RuntimeError(f"K5/K7 disagree: {line}")
+        # non-PD band: ok must be False from both, for that instance only
+        Ad, Bs = _band(rng, 3, 8, 30, dtype, dev)
+        Ad[1, 3] -= 50.0 * torch.eye(30, dtype=dtype, device=dev)
+        ok = tp.pallas_tridiag_factor(Ad, Bs, 0.0)[3]
+        okr = tp.xla_tridiag_factor_inv(Ad, Bs, 0.0)[3]
+        if not ok.tolist() == okr.tolist() == [True, False, True]:
+            raise RuntimeError(f"K7 inertia flag {ok.tolist()} vs plain "
+                               f"{okr.tolist()} on a non-PD band")
+        print(f"K7 tridiag_factor {dname} non-PD band: ok = "
+              f"{ok.tolist()} from both", flush=True)
+    return record
+
+
+def chain_run(dev, lane):
+    """scripts/bench_large.py:54-67 on the port: chain_ocp(K=400, nx=32,
+    mc=16) in float32 through ChainKernel on `lane`; one warm-up chunk,
+    then a timed run from a fresh state to termination.  Launches are
+    counted from the fresh state's init on.  Returns (summary, final x)."""
+    import torch
+    from onephase_tpu_torch import ops
+    from onephase_tpu_torch.config import Params
+    from onephase_tpu_torch.ipm.state import RUNNING, STATUS_NAMES
+    from onephase_tpu_torch.models.examples import chain_ocp
+    from onephase_tpu_torch.parallel.chain import ChainKernel
+
+    pars = Params().with_overrides(
+        dict(CHAIN_OPTIONS, **{"kkt.linear_solver_type": lane}))
+    spec = chain_ocp(**CHAIN_SHAPE, device=dev)
+    ck = ChainKernel(spec, pars, dtype=torch.float32, device=dev)
+    ck.run_chunk(ck.initial_state())
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    st = ck.initial_state()
+    torch.cuda.synchronize()
+    ck.host_syncs = 0
+    t0 = time.perf_counter()
+    while int(st.status[0]) == RUNNING:
+        st = ck.run_chunk(st)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    summary = {
+        "lane": lane, "status": STATUS_NAMES[int(st.status[0])],
+        "outer_its": int(st.t[0]) - 1, "cum_fac": int(st.cum_fac[0]),
+        "obj": float(st.cache.fval[0]), "seconds": dt,
+        "host_syncs": ck.host_syncs, "launches": ops.launch_counts()}
+    print(f"chain K={CHAIN_SHAPE['K']} nx={CHAIN_SHAPE['nx']} "
+          f"mc={CHAIN_SHAPE['mc']} f32 {lane}: {summary['status']} obj "
+          f"{summary['obj']:.6f} in {summary['outer_its']} outer its, "
+          f"{summary['cum_fac']} factorizations, {dt:.4f} s, host_syncs "
+          f"{ck.host_syncs}, launches {summary['launches']}", flush=True)
+    if summary["status"] != "Optimal":
+        raise RuntimeError(f"chain {lane}: {summary['status']}")
+    return summary, st.p.x[0]
 
 
 def hs071(dev):
@@ -271,6 +463,7 @@ def main() -> int:
             print(f"  ptxas: {ln.strip()}", flush=True)
 
     record = kernel_parity(dev)
+    record.update(tridiag_parity(dev))
     torch.cuda.synchronize()
     hs071(dev)
     torch.cuda.synchronize()
@@ -301,11 +494,21 @@ def main() -> int:
               extra={"kkt.it_refine_adaptive": True})
     torch.cuda.synchronize()
 
-    launches = main_path["launches"]
-    for name in ("fused_q", "chol", "tri_inv_gram"):
-        if launches[name] <= 0:
-            raise RuntimeError(f"kernel {name} was not launched by the main "
-                               "path")
+    # the chain path: pallas lane (K5, K7), then the xla lane
+    chain, x_chain = chain_run(dev, "pallas")
+    chain_xla, x_xla = chain_run(dev, "xla")
+    xdiff = float((x_chain - x_xla).abs().max() / x_xla.abs().max())
+    print(f"chain argmin: pallas vs xla lane max rel diff {xdiff:.3e}; "
+          f"outer its {chain['outer_its']} vs {chain_xla['outer_its']}",
+          flush=True)
+    if not xdiff < 1e-3:
+        raise RuntimeError("the chain lanes' argmins disagree")
+
+    # launches of each kernel on its own path: K1-K3 on the dense bench
+    # run, K5 and K7 on the chain run
+    launches = {**main_path["launches"],
+                **{k: chain["launches"][k]
+                   for k in ("tridiag_factor", "tridiag_solve")}}
     sources = {
         "fused_q": ("onephase_tpu_torch/csrc/fused_q.cuh",
                     "onephase_tpu/ops/schur.py:51"),
@@ -313,13 +516,19 @@ def main() -> int:
                  "onephase_tpu/ops/cholesky.py:176"),
         "tri_inv_gram": ("onephase_tpu_torch/csrc/tri_inv.cu",
                          "onephase_tpu/ops/cholesky.py:208"),
+        "tridiag_solve": ("onephase_tpu_torch/csrc/tridiag.cu",
+                          "onephase_tpu/ops/tridiag_pallas.py:194"),
+        "tridiag_factor": ("onephase_tpu_torch/csrc/tridiag.cu",
+                           "onephase_tpu/ops/tridiag_pallas.py:95"),
     }
     kernels = []
     for name, (src, rep) in sources.items():
-        err, ms, pms = record[name]
+        if launches[name] <= 0:
+            raise RuntimeError(f"kernel {name} was not launched by its "
+                               "path")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": pms})
+                        **record[name]})
     print(f"card: {_card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,10 @@ Field names are those of ipm/state.py in both packages.
   1 in the port).
 - The JAX package's (0, 0) placeholders (folded-constant Jacobian/Hessian,
   the dense path's Q) become ``None``, as the port carries them.
+- A structured kernel's tuple-valued Factor fields (the chain's
+  Jc=(Ja, Jb), H=(Hd, Hs), Q=(Qd, Qs), L=(Ci or Ck, Ek)) are carried
+  element by element.  A named tuple there (the partitioned chain factor)
+  is not carried and raises.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 
 from .ipm.state import (Cache, Dir, Factor, Filter, History, LSInfo, Point,
                         State)
+from .nlp import resolve_device
 
 _TYPES = {"p": Point, "cache": Cache, "fact": Factor, "dir": Dir,
           "filt": Filter, "hist": History, "ls": LSInfo}
@@ -38,6 +43,16 @@ def _to_tensor(a, dtype, device, add_batch):
     return torch.as_tensor(arr, dtype=dt, device=device)
 
 
+def _leaf(v, dtype, device, add_batch):
+    """A tensor, or a tuple of them converted element by element."""
+    if not isinstance(v, tuple):
+        return _to_tensor(v, dtype, device, add_batch)
+    if hasattr(v, "_fields"):
+        raise TypeError(f"state_from_numpy does not carry a "
+                        f"{type(v).__name__}")
+    return tuple(_leaf(x, dtype, device, add_batch) for x in v)
+
+
 def _convert(tree, cls, dtype, device, add_batch):
     vals = {}
     for name in cls._fields:
@@ -50,18 +65,20 @@ def _convert(tree, cls, dtype, device, add_batch):
             vals[name] = {k: _to_tensor(x, dtype, device, add_batch)
                           for k, x in v.items()}
         elif (cls is Factor and name in _PLACEHOLDERS
+              and not isinstance(v, tuple)
               and np.asarray(v).shape[-2:] == (0, 0)):
             vals[name] = None
         else:
-            vals[name] = _to_tensor(v, dtype, device, add_batch)
+            vals[name] = _leaf(v, dtype, device, add_batch)
     return cls(**vals)
 
 
 def state_from_numpy(tree, dtype=torch.float64, device=None) -> State:
     """The port's `State` from a JAX `State` whose leaves are numpy arrays
-    (batched or not); float leaves take `dtype`, on `device`."""
+    (batched or not); float leaves take `dtype`, on `device` (default: the
+    CUDA card)."""
     add_batch = np.asarray(tree.p.x).ndim == 1
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    dev = resolve_device(device)
     return _convert(tree, State, dtype, dev, add_batch)
 
 
@@ -73,4 +90,5 @@ def state_to_numpy(st):
         return st.detach().cpu().numpy()
     if isinstance(st, dict):
         return {k: state_to_numpy(v) for k, v in st.items()}
-    return type(st)(*[state_to_numpy(v) for v in st])
+    vals = [state_to_numpy(v) for v in st]
+    return type(st)(*vals) if hasattr(st, "_fields") else tuple(vals)

@@ -17,9 +17,12 @@ loop (δ search, step attempts, backtracking, adaptive refinement) reads
 once per outer iteration.  Nothing else inside `_run_chunk` reads a device
 value on the host.  `OnePhaseKernel.host_syncs` counts those reads.
 
-Only the dense `schur` KKT path is ported.  Options outside it (the
-symmetric paths, the Mehrotra init, the mixed-precision knobs) raise
-`NotImplementedError` instead of quietly running the default.
+Only the `schur` KKT path is ported: dense here, block-tridiagonal in
+the structured subclass of parallel/chain.py, whose Factor fields (Jc, H,
+Q, L) are tuples of block tensors -- every select over the factor goes
+through `tree_select`.  Options outside it (the symmetric paths, the
+Mehrotra init, the mixed-precision knobs) raise `NotImplementedError`
+instead of quietly running the default.
 """
 
 from __future__ import annotations
@@ -157,6 +160,14 @@ class OnePhaseKernel:
                           if spec.constant_jac else None)
         self._H_const = (nlp.lag_hess(x0, self._full((1, m), 0.0))[0]
                          .contiguous() if chess else None)
+
+        # the dense path carries no Q: it is cheap to rebuild from the J/H at
+        # the factor point (_fact_q), and carrying it doubles the factor
+        # state.  Structured subclasses (parallel/chain.py) keep their own Q
+        # representation in the Factor (onephase_tpu/ipm/core.py:228-233).
+        self._q_store_placeholder = (
+            type(self).form_factor is OnePhaseKernel.form_factor
+            and type(self).factor is OnePhaseKernel.factor)
 
     # ------------------------------------------------------------------
     def _full(self, shape, val, dtype=None):
@@ -333,9 +344,17 @@ class OnePhaseKernel:
     def _store_h(self, H):
         return None if (self._H_zero or self._H_const is not None) else H
 
+    def _store_q(self, Q):
+        """Value carried in Factor.Q: None on the dense path (see
+        __init__), the structured kernel's own Q otherwise."""
+        return None if self._q_store_placeholder else Q
+
     def _fact_q(self, fact: Factor):
-        """Q rebuilt at the factorization point (the carried Factor holds no
-        Q: it is a temporary of the factor search, see form_factor)."""
+        """Q at the factorization point: rebuilt from the factor-point J/H
+        on the dense path (the carried Factor holds no Q), the carried Q of
+        a structured kernel."""
+        if not self._q_store_placeholder:
+            return fact.Q
         return self._form_q(self._fact_jc(fact), self._fact_h(fact),
                             fact.y_f / fact.s_f)
 
@@ -504,9 +523,9 @@ class OnePhaseKernel:
     # ==================================================================
     def ipopt_strategy(self, fact: Factor, iter_delta, active=None):
         """Returns (success, num_fac, new_delta, (L, D)).  `active` limits
-        the δ-search trips to the instances whose result is kept."""
+        the δ-search trips to the instances whose result is kept.  L may be
+        a tuple of tensors (a structured kernel's block factor)."""
         pars = self.pars
-        dt = self.dtype
         B = iter_delta.shape[0]
         if active is None:
             active = torch.ones(B, dtype=torch.bool, device=self.device)
@@ -515,8 +534,8 @@ class OnePhaseKernel:
         try_zero = tau > 0.0
         # both cond branches: the zero-delta attempt runs for every instance
         LD0, ok0 = self.factor(fact.Q, self._full((B,), pars.delta.zero))
-        L = torch.where(try_zero[:, None, None], LD0[0], fact.L.to(dt))
-        D = torch.where(try_zero[:, None], LD0[1], fact.D)
+        L = tree_select(try_zero, LD0[0], fact.L)
+        D = tree_select(try_zero, LD0[1], fact.D)
         ok0 = try_zero & ok0
         nfac = try_zero.to(INT)
         tau_eff = torch.where(try_zero, torch.zeros_like(tau), tau)
@@ -535,8 +554,8 @@ class OnePhaseKernel:
                 break
             (Lc, Dc), okc = self.factor(fact.Q, delta)
             upd = trip & okc       # keep the stale factor on failure
-            L = torch.where(upd[:, None, None], Lc, L)
-            D = torch.where(upd[:, None], Dc, D)
+            L = tree_select(upd, Lc, L)
+            D = tree_select(upd, Dc, D)
             next_delta = torch.where(okc, delta, delta * pars.delta.inc)
             delta = torch.where(trip, next_delta, delta)
             ok = torch.where(trip, okc, ok)
@@ -1054,9 +1073,9 @@ class OnePhaseKernel:
         nd = torch.where(can_escalate, nd, delta)
         (Lc, Dc), okc = self.factor(self._fact_q(st_c.fact), nd)
         Lc = self.finalize_solver(Lc)
-        fact = st_c.fact._replace(
-            L=torch.where(okc[:, None, None], Lc, st_c.fact.L),
-            D=torch.where(okc[:, None], Dc, st_c.fact.D), delta=nd)
+        fact = st_c.fact._replace(L=tree_select(okc, Lc, st_c.fact.L),
+                                  D=tree_select(okc, Dc, st_c.fact.D),
+                                  delta=nd)
         st2 = st_c._replace(delta=nd, fact=fact,
                             tot_num_fac=st_c.tot_num_fac + 1,
                             cum_fac=st_c.cum_fac + 1,
@@ -1118,9 +1137,11 @@ class OnePhaseKernel:
             fact = self.form_factor(st.p, st.cache, st.fact)
             success, nfac_inertia, new_delta, LD = self.ipopt_strategy(
                 fact, st.delta, active=do)
-            # the freshly-formed Q was a temporary of the factor search
+            # on the dense path the freshly-formed Q was a temporary of the
+            # factor search
             fact = fact._replace(L=self.finalize_solver(LD[0]), D=LD[1],
-                                 delta=new_delta, ok=success, Q=None)
+                                 delta=new_delta, ok=success,
+                                 Q=self._store_q(fact.Q))
             old_delta = st.delta
             st = st._replace(fact=fact, delta=new_delta,
                              num_fac_inertia=nfac_inertia,
@@ -1285,7 +1306,7 @@ class OnePhaseKernel:
         p = Point(x=x, y=y, s=s, mu=mu, beta=self._full((B,), 1.0))
         cache = self.make_cache(x, y, bvals)
         r0 = cache.a - s
-        fact = fact._replace(Q=None)
+        fact = fact._replace(Q=self._store_q(fact.Q))
 
         def ints(v):
             return torch.full((B,), v, dtype=INT, device=self.device)

@@ -8,10 +8,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..nlp import NLPSpec
+from ..nlp import NLPSpec, resolve_device
 
 
-class _Data:
+class Data:
     """A float64 host array as device tensors in float32 and float64 (the
     solve dtype in the loop, float64 in the `_hi` oracles).  Both copies
     are made here, outside any `torch.func` transform."""
@@ -25,11 +25,13 @@ class _Data:
 
 
 def make_qp(n=256, m=128, seed=0, device=None):
-    """min 0.5 ||A x||^2 + b.x  s.t.  -1 <= C x <= 1,  -10 <= x <= 10."""
+    """min 0.5 ||A x||^2 + b.x  s.t.  -1 <= C x <= 1,  -10 <= x <= 10.
+    The data lives on `device` (default: the CUDA card)."""
     rng = np.random.default_rng(seed)
-    A = _Data(rng.normal(size=(n, n)) / np.sqrt(n), device)
-    b = _Data(rng.normal(size=n), device)
-    C = _Data(rng.normal(size=(m, n)) / np.sqrt(n), device)
+    device = resolve_device(device)
+    A = Data(rng.normal(size=(n, n)) / np.sqrt(n), device)
+    b = Data(rng.normal(size=n), device)
+    C = Data(rng.normal(size=(m, n)) / np.sqrt(n), device)
     return NLPSpec(
         f=lambda x: 0.5 * torch.sum((A(x.dtype) @ x) ** 2)
         + torch.dot(b(x.dtype), x),

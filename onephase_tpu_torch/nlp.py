@@ -31,7 +31,20 @@ import numpy as np
 import torch
 from torch.func import grad, hessian, jacfwd, jacrev, jvp, vjp, vmap
 
-__all__ = ["NLPSpec", "CanonNLP", "canonicalize"]
+__all__ = ["NLPSpec", "CanonNLP", "canonicalize", "resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `device` when given, else the
+    CUDA card.  Without a card the CPU must be asked for by name: there is
+    no quiet fallback."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: onephase_tpu_torch runs on the card unless "
+            "asked otherwise; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
 
 
 @dataclass
@@ -107,8 +120,7 @@ class CanonNLP:
         self.spec = spec
         self.name = spec.name
         self.dtype = dtype
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        self.device = resolve_device(device)
         self.parametric = False
 
         lvar, uvar = spec.lvar, spec.uvar
@@ -410,6 +422,7 @@ class CanonNLP:
 
 
 def canonicalize(spec: NLPSpec, dtype=torch.float64, device=None) -> CanonNLP:
-    """Canonicalize `spec` for solves in `dtype` on `device` (default CPU).
-    float64 is the default, as in the JAX package under x64."""
+    """Canonicalize `spec` for solves in `dtype` on `device` (default: the
+    CUDA card; without one, pass device="cpu").  float64 is the default
+    dtype, as in the JAX package under x64."""
     return CanonNLP(spec, dtype=dtype, device=device)

@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of `csrc/`.
 
-The sources are compiled with nvcc for Hopper (`sm_90a`) into one shared
-library with a plain C interface, loaded with `ctypes` (no PyTorch headers:
-a build takes seconds, not minutes).  The build runs at the first CUDA call,
-never at import, into `onephase_tpu_torch/build/`; the library's name
-carries a hash of the sources, so an edited source triggers a rebuild.
+The sources are compiled with nvcc for Hopper (`sm_90a`), one nvcc process
+per source, all started together, and linked into one shared library with
+a plain C interface, loaded with `ctypes` (no PyTorch headers: a build
+takes seconds, not minutes).  The build runs at the first CUDA call, never
+at import, into `onephase_tpu_torch/build/`; the library's name carries a
+hash of the sources, so an edited source triggers a rebuild.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIB = None
 # wall seconds of the build step in this process (0-ish when the library
@@ -44,6 +45,10 @@ _SIGNATURES = {
     "op_chol": [_P, _P, _P, _P, _I, _I, _P],
     # L, Li, B, n, stream
     "op_tri_inv": [_P, _P, _I, _I, _P],
+    # Ad, Bs, delta, Ck, Ci, Ek, ok, B, K, nb, stream
+    "op_tridiag_factor": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # Ci, Ek, b, x, B, K, nb, stream
+    "op_tridiag_solve": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -75,13 +80,30 @@ def library():
     t0 = time.perf_counter()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+        nvcc = _nvcc()
+        tag = f"{so.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
+        procs = [(src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for src, obj in zip(srcs, objs)]
+        logs, failed = [], []
+        for src, proc in procs:
+            out = proc.communicate()[0]
+            logs.append(f"{src.name}:\n{out}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        BUILD_LOG = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{BUILD_LOG}")
+        tmp = so.with_name(f"{tag}.so.tmp")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
+            raise RuntimeError(f"nvcc link failed ({' '.join(cmd)}):\n"
                                f"{proc.stdout}\n{proc.stderr}")
-        BUILD_LOG = proc.stdout + proc.stderr
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, so)
     BUILD_SECONDS = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))

@@ -61,7 +61,8 @@ def one_phase_solve(problem, pars: Optional[Params] = None,
                     kernel: Optional[OnePhaseKernel] = None) -> Result:
     """Solve ``min f(x) s.t. lcon<=c(x)<=ucon, lvar<=x<=uvar``.
 
-    `problem` is an `NLPSpec` (canonicalized in float64 on the CPU) or a
+    `problem` is an `NLPSpec` (canonicalized in float64 on the CUDA card;
+    without a card this raises: canonicalize with device="cpu" first) or a
     `CanonNLP` (its dtype and device are used).  `options` are string-path
     overrides (``"term!max_it"`` / ``"term.max_it"``).
     """

@@ -1,6 +1,7 @@
 """The port's framework-free pieces against the JAX package: the parameter
-tree, the status codes, and the package's import hygiene (no JAX, no
-triton, no nvcc needed to import)."""
+tree, the status codes, the package's import hygiene (no JAX, no triton,
+no nvcc needed to import) and its entry points' default device (the CUDA
+card, or an error that says to pass device="cpu")."""
 
 import ast
 import importlib
@@ -8,6 +9,7 @@ import pkgutil
 from pathlib import Path
 
 import pytest
+import torch
 
 import onephase_tpu.config as jcfg
 import onephase_tpu.ipm.state as jstate
@@ -81,7 +83,7 @@ def test_every_module_imports_without_nvcc_or_gpu():
 def test_unported_options_raise():
     from onephase_tpu_torch.ipm.core import make_kernel
     from onephase_tpu_torch.models import zoo
-    nlp = onephase_tpu_torch.canonicalize(zoo.circle1())
+    nlp = onephase_tpu_torch.canonicalize(zoo.circle1(), device="cpu")
     for over in ({"kkt.kkt_solver_type": "symmetric"},
                  {"kkt.kkt_solver_type": "schur_dual"},
                  {"kkt.factor_precision": "f32"},
@@ -91,3 +93,42 @@ def test_unported_options_raise():
                  {"init.init_style": "mehrotra"}):
         with pytest.raises(NotImplementedError):
             make_kernel(nlp, tcfg.Params().with_overrides(over))
+
+
+def _entry_call(entry):
+    """A call of the entry point `entry` that gives it no device."""
+    from onephase_tpu_torch.interop import state_from_numpy, state_to_numpy
+    from onephase_tpu_torch.ipm.core import OnePhaseKernel
+    from onephase_tpu_torch.models import zoo
+    from onephase_tpu_torch.models.examples import chain_ocp
+    from onephase_tpu_torch.models.qp import make_qp
+    from onephase_tpu_torch.parallel.chain import ChainKernel
+    pars = tcfg.Params().with_overrides({"output_level": 0})
+    if entry == "ChainKernel":
+        spec = chain_ocp(K=4, nx=2, mc=1, device="cpu")
+        return lambda: ChainKernel(spec, pars)
+    if entry == "state_from_numpy":
+        k = OnePhaseKernel(onephase_tpu_torch.canonicalize(
+            zoo.circle1(), device="cpu"), pars)
+        tree = state_to_numpy(k.initial_state())
+        return lambda: state_from_numpy(tree)
+    return {
+        "canonicalize": lambda: onephase_tpu_torch.canonicalize(
+            zoo.circle1()),
+        "one_phase_solve": lambda: onephase_tpu_torch.one_phase_solve(
+            zoo.circle1(), pars),
+        "make_qp": lambda: make_qp(8, 4),
+        "chain_ocp": lambda: chain_ocp(K=4, nx=2, mc=1),
+    }[entry]
+
+
+@pytest.mark.parametrize("entry", [
+    "canonicalize", "one_phase_solve", "make_qp", "chain_ocp",
+    "ChainKernel", "state_from_numpy"])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """Without a device and without a card every entry point raises and
+    says how to ask for the CPU; it never carries on quietly there."""
+    call = _entry_call(entry)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()

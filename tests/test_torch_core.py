@@ -15,45 +15,15 @@ from onephase_tpu_torch.config import Params as TParams
 from onephase_tpu_torch.interop import state_from_numpy, state_to_numpy
 from onephase_tpu_torch.ipm.core import OnePhaseKernel as TKernel
 from onephase_tpu_torch.nlp import canonicalize as tcanon
-from test_torch_twins import qp_pair, zoo_pair
+from test_torch_twins import (assert_close as _assert_close,
+                              compare_states as _compare_states, qp_pair,
+                              zoo_pair)
 
 OPTS = {"term!max_it": 81, "a_norm_penalty": 1e-4, "output_level": 0}
 
 
 def _np_tree(t):
     return jax.tree_util.tree_map(np.asarray, t)
-
-
-def _assert_close(got, want, tol, path=""):
-    got = np.asarray(got)
-    want = np.asarray(want)
-    assert got.shape == want.shape, (path, got.shape, want.shape)
-    if want.dtype.kind in "biu":
-        np.testing.assert_array_equal(got, want, err_msg=path)
-        return
-    finite = np.isfinite(want)
-    np.testing.assert_array_equal(np.isfinite(got), finite, err_msg=path)
-    if finite.any():
-        scale = max(1.0, float(np.abs(want[finite]).max()))
-        np.testing.assert_allclose(got[finite], want[finite], rtol=0,
-                                   atol=tol * scale, err_msg=path)
-
-
-def _compare_states(port, jx, tol, path="state"):
-    """Leaf-by-leaf: the port's batch-first numpy tree vs an unbatched JAX
-    numpy tree (placeholders carried as None in the port are skipped)."""
-    if port is None:
-        return
-    if isinstance(port, dict):
-        for k in port:
-            _compare_states(port[k], jx[k], tol, f"{path}.{k}")
-        return
-    if isinstance(port, tuple):
-        for name in port._fields:
-            _compare_states(getattr(port, name), getattr(jx, name), tol,
-                            f"{path}.{name}")
-        return
-    _assert_close(port[0], jx, tol, path)
 
 
 def _problem(name):
@@ -74,7 +44,7 @@ def _kernels(name, lane):
     jspec, tspec = _problem(name)
     opts = dict(OPTS, **{"kkt.linear_solver_type": lane})
     jk = JKernel(jcanon(jspec), JParams().with_overrides(opts))
-    tk = TKernel(tcanon(tspec), TParams().with_overrides(opts))
+    tk = TKernel(tcanon(tspec, device="cpu"), TParams().with_overrides(opts))
     return jk, tk
 
 
@@ -90,7 +60,7 @@ def test_initial_state_matches(name, lane):
 def test_factor_and_direction_cycle_matches(name, lane):
     jk, tk = _kernels(name, lane)
     jst = jk.initial_state()
-    st = state_from_numpy(_np_tree(jst))
+    st = state_from_numpy(_np_tree(jst), device="cpu")
     assert st.p.x.shape == (1, tk.n)
 
     jf = jk.form_factor(jst.p, jst.cache, jst.fact, jst.pdata)
@@ -129,7 +99,7 @@ def test_one_chunk_from_carried_state_matches():
     tk.pars = tk.pars.with_overrides({"chunk_size": 5})
     jk.run_chunk = jax.jit(jk._run_chunk)
     jst = jk.initial_state()
-    st = state_from_numpy(_np_tree(jst))
+    st = state_from_numpy(_np_tree(jst), device="cpu")
     jst = _np_tree(jk.run_chunk(jst))
     st = state_to_numpy(tk.run_chunk(st))
     for k in ("status", "t", "cum_fac", "tot_num_fac"):

@@ -91,3 +91,48 @@ def test_chol_rejects_non_pd(cuda, dt):
     Q = Q - 1e3 * 130 * torch.eye(130, dtype=dt, device=cuda)
     assert not bool(ch.pallas_chol(Q)[2].any())
     assert not bool(ch.xla_chol(Q)[2].any())
+
+
+def _band(rng, B, K, nb, dt, dev, shift=3.0):
+    """Block-tridiagonal SPD band: A_k = G G^T + shift I, B_k ~ 0.3 N(0, 1)."""
+    G = rng.normal(size=(B, K, nb, nb))
+    Ad = G @ G.transpose(0, 1, 3, 2) + shift * np.eye(nb)
+    Bs = rng.normal(size=(B, max(K - 1, 0), nb, nb)) * 0.3
+    return (torch.as_tensor(Ad, dtype=dt, device=dev),
+            torch.as_tensor(Bs, dtype=dt, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B, K, nb", [(1, 400, 32), (3, 7, 30), (2, 1, 32),
+                                      (2, 12, 5), (1, 9, 64)])
+def test_tridiag_factor_and_solve_match_plain(cuda, dt, B, K, nb):
+    from onephase_tpu_torch.ops import tridiag_pallas as tp
+    rng = np.random.default_rng(K * 100 + nb)
+    Ad, Bs = _band(rng, B, K, nb, dt, cuda)
+    delta = torch.as_tensor(rng.uniform(0.0, 1e-3, size=B), dtype=dt,
+                            device=cuda)
+    before = ops.launch_counts()
+    Ck, Ci, Ek, ok = tp.pallas_tridiag_factor(Ad, Bs, delta)
+    Ckr, Cir, Ekr, okr = tp.xla_tridiag_factor_inv(Ad, Bs, delta)
+    assert bool(ok.all()) and bool(okr.all())
+    assert _rel_err(Ck, Ckr) <= TOL[dt] and _rel_err(Ci, Cir) <= TOL[dt]
+    if K > 1:
+        assert _rel_err(Ek, Ekr) <= TOL[dt]
+    b = torch.as_tensor(rng.normal(size=(B, K, nb)), dtype=dt, device=cuda)
+    x = tp.pallas_tridiag_solve(Ci, Ek, b)
+    assert _rel_err(x, tp.xla_tridiag_solve_inv(Cir, Ekr, b)) <= TOL[dt]
+    after = ops.launch_counts()
+    assert after["tridiag_factor"] == before["tridiag_factor"] + 1
+    assert after["tridiag_solve"] == before["tridiag_solve"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_tridiag_factor_rejects_non_pd(cuda, dt):
+    from onephase_tpu_torch.ops import tridiag_pallas as tp
+    Ad, Bs = _band(np.random.default_rng(5), 3, 8, 6, dt, cuda)
+    Ad[1, 3] -= 50.0 * torch.eye(6, dtype=dt, device=cuda)
+    ok = tp.pallas_tridiag_factor(Ad, Bs, 0.0)[3]
+    okr = tp.xla_tridiag_factor_inv(Ad, Bs, 0.0)[3]
+    assert ok.tolist() == okr.tolist() == [True, False, True]

@@ -36,7 +36,7 @@ def _close(got, want):
 def test_oracles_match_jax(name):
     jspec, tspec = _pair(name)
     J = jnlp.canonicalize(jspec, dtype=jnp.float64)
-    T = tnlp.canonicalize(tspec, dtype=torch.float64)
+    T = tnlp.canonicalize(tspec, dtype=torch.float64, device="cpu")
     assert (T.n, T.m, T.m_orig, T.m_cons) == (J.n, J.m, J.m_orig, J.m_cons)
     rng = np.random.default_rng(7)
     B = 2
@@ -82,7 +82,7 @@ def test_oracles_match_jax(name):
 def test_c_jtprod_matches_separate_products():
     """The line search's fused c + J^T products equal the separate VJPs."""
     _, tspec = zoo_pair("hs071")
-    T = tnlp.canonicalize(tspec)
+    T = tnlp.canonicalize(tspec, device="cpu")
     x = torch.tensor([[1.2, 4.1, 3.9, 1.3], [1.0, 4.7, 3.8, 1.4]],
                      dtype=torch.float64)
     w1 = torch.tensor([[0.5, -1.0], [2.0, 0.25]], dtype=torch.float64)
@@ -97,4 +97,4 @@ def test_unsupported_spec_fields_raise():
     _, tspec = zoo_pair("circle1")
     tspec.pdata = {"a": np.ones(2)}
     with pytest.raises(NotImplementedError):
-        tnlp.canonicalize(tspec)
+        tnlp.canonicalize(tspec, device="cpu")

@@ -118,8 +118,14 @@ def test_cpu_wrappers_launch_nothing():
     tschur.pallas_fused_q(torch.zeros(0, 8, dtype=torch.float64),
                           torch.zeros(1, 0, dtype=torch.float64), None,
                           torch.ones(1, 8, dtype=torch.float64))
+    from onephase_tpu_torch.ops import tridiag_pallas as ttp
+    Ad = torch.eye(3, dtype=torch.float64).expand(1, 4, 3, 3) * 2.0
+    _, Ci, Ek, _ = ttp.pallas_tridiag_factor(Ad, torch.zeros(1, 3, 3, 3,
+                                             dtype=torch.float64), 0.0)
+    ttp.pallas_tridiag_solve(Ci, Ek, torch.ones(1, 4, 3, dtype=torch.float64))
     assert tops.launch_counts() == {"fused_q": 0, "chol": 0,
-                                    "tri_inv_gram": 0}
+                                    "tri_inv_gram": 0, "tridiag_factor": 0,
+                                    "tridiag_solve": 0}
 
 
 # ---------------------------------------------------------------------------

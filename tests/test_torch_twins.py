@@ -67,10 +67,46 @@ def fixed_var_pair():
 
 
 def qp_pair(n, m, seed=0):
-    return bench.make_qp(n, m, seed), tqp.make_qp(n, m, seed)
+    return bench.make_qp(n, m, seed), tqp.make_qp(n, m, seed, device="cpu")
 
 
 ZOO_OPTS = {"term!max_it": 81, "a_norm_penalty": 1e-4, "output_level": 0}
+
+
+def assert_close(got, want, tol, path=""):
+    """Equal shapes, equal finiteness, and the finite entries within
+    tol * max(1, max |want|) (integers and booleans exactly)."""
+    got = np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape, (path, got.shape, want.shape)
+    if want.dtype.kind in "biu":
+        np.testing.assert_array_equal(got, want, err_msg=path)
+        return
+    finite = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), finite, err_msg=path)
+    if finite.any():
+        scale = max(1.0, float(np.abs(want[finite]).max()))
+        np.testing.assert_allclose(got[finite], want[finite], rtol=0,
+                                   atol=tol * scale, err_msg=path)
+
+
+def compare_states(port, jx, tol, path="state"):
+    """Leaf-by-leaf: the port's batch-first numpy tree vs an unbatched JAX
+    numpy tree (placeholders carried as None in the port are skipped;
+    plain tuples, a structured kernel's block factors, element by
+    element)."""
+    if port is None:
+        return
+    if isinstance(port, dict):
+        for k in port:
+            compare_states(port[k], jx[k], tol, f"{path}.{k}")
+        return
+    if isinstance(port, tuple):
+        names = getattr(port, "_fields", range(len(port)))
+        for i, name in enumerate(names):
+            compare_states(port[i], jx[i], tol, f"{path}.{name}")
+        return
+    assert_close(port[0], jx, tol, path)
 
 
 def check_zoo_case(name, lane, jax_results):
@@ -87,7 +123,8 @@ def check_zoo_case(name, lane, jax_results):
             jspec, options=ZOO_OPTS)
     rj = jax_results[name]
     rt = onephase_tpu_torch.one_phase_solve(
-        tspec, options=dict(ZOO_OPTS, **{"kkt.linear_solver_type": lane}))
+        tnlp.canonicalize(tspec, device="cpu"),
+        options=dict(ZOO_OPTS, **{"kkt.linear_solver_type": lane}))
     assert (rj.status, rj.iterations) == ZOO_FIGURES[name]
     assert (rt.status, rt.iterations) == ZOO_FIGURES[name]
     scale = np.maximum(1.0, np.abs(rj.x))
@@ -129,7 +166,7 @@ def check_batch_case(dtype):
         jst = js.solve(x0s)
     finally:
         jops.INTERPRET = False
-    ts = TBatch(tnlp.canonicalize(tspec, dtype=dtype),
+    ts = TBatch(tnlp.canonicalize(tspec, dtype=dtype, device="cpu"),
                 TParams().with_overrides(BENCH_OPTS))
     tst = ts.solve(x0s)
     assert js.statuses(jst) == ["Optimal"] * 4

@@ -24,13 +24,14 @@ def test_zoo_matches_jax(name, lane, jax_results):
 
 def test_hs071_objective():
     r = onephase_tpu_torch.one_phase_solve(
-        zoo.hs071(), options={"output_level": 0,
-                              "kkt.linear_solver_type": "pallas"})
+        onephase_tpu_torch.canonicalize(zoo.hs071(), device="cpu"),
+        options={"output_level": 0, "kkt.linear_solver_type": "pallas"})
     assert r.status == "Optimal"
     assert abs(r.obj - 17.0140173) < 1e-6
 
 
 def test_rosenbrook1_rejected():
     with pytest.raises(ValueError):
-        onephase_tpu_torch.one_phase_solve(zoo.rosenbrook1(),
-                                           options={"output_level": 0})
+        onephase_tpu_torch.one_phase_solve(
+            onephase_tpu_torch.canonicalize(zoo.rosenbrook1(), device="cpu"),
+            options={"output_level": 0})
