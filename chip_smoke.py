@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 It builds the hand-written kernels from `onephase_tpu_torch/csrc/`, holds
 each against its plain PyTorch version on the card, then drives the port's
-two paths on the `pallas` lane:
+three paths on the `pallas` lane:
 
 - the dense path (`NLPSpec -> canonicalize -> OnePhaseKernel (dense Schur)
   -> one_phase_solve / BatchSolver`): HS071 in float64, the bench
@@ -16,7 +16,16 @@ two paths on the `pallas` lane:
 - the chain path (`chain_ocp -> ChainKernel (block-tridiagonal Schur) ->
   run_chunk`): chain_ocp(K=400, nx=32, mc=16) in float32, the JAX
   package's large-instance configuration (scripts/bench_large.py), on the
-  `pallas` lane (kernels K5 and K7) and on the `xla` lane for comparison.
+  `pallas` lane (kernels K5 and K7) and on the `xla` lane for comparison;
+- the RCM-banded path (`NLPSpec -> canonicalize -> BandedKernel ->
+  run_chunk`): the same chain_ocp(K=400, nx=32, mc=16) as a flat NLP in
+  float32, matrix-free, with its block-tridiagonal pattern passed in
+  (bandwidth 63 after RCM: K5 and K7 at nb=63), held to the chain path's
+  argmin; then K=50 assembled against matrix-free and `pallas` against
+  `xla`.
+
+K6 (the triangle-tiled fused Q) lies on no path of either package: it is
+held in the kernel phase, against its plain version and against K1.
 
 Every phase raises on failure, so the script exits nonzero and never prints
 the final line; without a CUDA card it refuses to run.  The line before
@@ -56,12 +65,19 @@ CHAIN_OPTIONS = {
     "history_capacity": 2,
 }
 CHAIN_SHAPE = {"K": 400, "nx": 32, "mc": 16}
+# the banded path's reduced shape: small enough to detect the pattern from
+# dense samples and to assemble a dense J and H (n = 1,600)
+BANDED_SMALL_SHAPE = {"K": 50, "nx": 32, "mc": 16}
+# the block band RCM gives CHAIN_SHAPE (bandwidth 63, a ragged last block and
+# an identity tail); the banded run checks it, the kernel phase times it
+BANDED_BAND = {"K": 204, "nb": 63}
 TOL = {"float32": 1e-4, "float64": 1e-10}   # max error / max |reference|
 REPS = 20
 # H100 SXM (NVIDIA's data sheet, dense, at 700 W): HBM3 bytes/s, and the
 # FLOP/s outside the tensor cores for each type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+DNAME = {4: "float32", 8: "float64"}    # by element size
 
 
 def _bound(nbytes, flops, dname="float32"):
@@ -71,6 +87,15 @@ def _bound(nbytes, flops, dname="float32"):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dname] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _fused_q_bound(B, m, n, el):
+    """The bound of K1 and K6 with a shared Jc and H: Jc, w, H, bnd read
+    once, Q written once; Q is symmetric, so its n (n + 1) / 2 distinct
+    entries of length m take B m n (n + 1) operations (K1 forms the full Q,
+    2 B m n^2; K6 just the triangle)."""
+    nbytes = el * (m * n + B * m + n * n + B * n + B * n * n)
+    return _bound(nbytes, B * m * n * (n + 1), DNAME[el])
 
 
 def _card_line() -> str:
@@ -151,15 +176,9 @@ def kernel_parity(dev):
                 pms = _time_ms(lambda: schur.xla_fused_q(Jc, w, H, bnd))
                 line += f" kernel {ms:.4f} ms plain {pms:.4f} ms"
                 if n == 1024 and dtype == torch.float32:
-                    # reads Jc (shared), w, H (shared), bnd once, writes Q;
-                    # Q is symmetric, so its n (n + 1) / 2 distinct entries
-                    # of length m take B m n (n + 1) operations (the kernel
-                    # forms the full Q, 2 B m n^2)
-                    el = Jc.element_size()
-                    nbytes = el * (m * n + B * m + n * n + B * n + B * n * n)
                     record["fused_q"] = dict(
                         max_abs_err=ea, ms=ms, plain_ms=pms, library_ms=None,
-                        **_kv(_bound(nbytes, B * m * n * (n + 1))))
+                        **_kv(_fused_q_bound(B, m, n, Jc.element_size())))
             print(line, flush=True)
             if not e <= tol:
                 raise RuntimeError(f"K1 disagrees: {line}")
@@ -230,6 +249,83 @@ def kernel_parity(dev):
     return record
 
 
+def chain_pattern(K, nx):
+    """The structural pattern of H + J'J of chain_ocp(K, nx, .) as a flat
+    NLP: block tridiagonal with dense (nx, nx) blocks; (n, n) bool."""
+    blk = np.arange(K)
+    tri = np.abs(blk[:, None] - blk[None, :]) <= 1
+    return tri.repeat(nx, axis=0).repeat(nx, axis=1)
+
+
+def fused_q_tri_parity(dev):
+    """K6 against its plain version and against K1, f32 and f64: the dense
+    path's two shapes, a ragged n, one tile, m = 0, H = None, shared
+    (stride-0) and per-instance Jc and H, an unsymmetric H.  With a
+    bit-symmetric H (or none) Q must equal its transpose bit for bit.
+    Returns K6's record at n=1024, m=512, B=64 in float32, with the launches
+    of this phase (K6 is on no path)."""
+    import torch
+    from onephase_tpu_torch import ops
+    from onephase_tpu_torch.ops import schur
+
+    rng = np.random.default_rng(6)
+    before = ops.launch_counts()["fused_q_tri"]
+    record = None
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        tol = TOL[dname]
+        # (n, m, B, shared Jc/H, with H)
+        for n, m, B, shared, with_h in (
+                (1024, 512, 64, True, True), (256, 128, 16, True, True),
+                (130, 70, 3, False, True), (40, 30, 2, False, True),
+                (64, 0, 2, True, True), (200, 300, 2, True, False)):
+            jshape = (m, n) if shared else (B, m, n)
+            Jc = torch.as_tensor(rng.normal(size=jshape) / np.sqrt(n),
+                                 dtype=dtype, device=dev)
+            w = torch.as_tensor(rng.uniform(0.1, 10.0, size=(B, m)),
+                                dtype=dtype, device=dev)
+            bnd = torch.as_tensor(rng.uniform(0.0, 5.0, size=(B, n)),
+                                  dtype=dtype, device=dev)
+            H = None
+            if with_h:
+                H = _spd(rng, 1, n, dtype, dev)[0] if shared else \
+                    _spd(rng, B, n, dtype, dev)
+                H = (0.5 * (H + H.transpose(-1, -2))).contiguous()
+            got = schur.pallas_fused_q_tri(Jc, w, H, bnd)
+            ref = schur.xla_fused_q(Jc, w, H, bnd)
+            k1 = schur.pallas_fused_q(Jc, w, H, bnd)
+            torch.cuda.synchronize()
+            (e, ea), (e1, _) = _err(got, ref), _err(got, k1)
+            sym = torch.equal(got, got.transpose(-1, -2))
+            line = (f"K6 fused_q_tri {dname} n={n} m={m} B={B} "
+                    f"{'shared' if shared else 'batched'} "
+                    f"{'H' if with_h else 'H=None'}: err {e:.3e} vs K1 "
+                    f"{e1:.3e} symmetric {sym}")
+            if with_h:
+                # an unsymmetric H is added where it stands
+                Hu = H + torch.as_tensor(rng.normal(size=tuple(H.shape)),
+                                         dtype=dtype, device=dev)
+                eu, _ = _err(schur.pallas_fused_q_tri(Jc, w, Hu, bnd),
+                             schur.xla_fused_q(Jc, w, Hu, bnd))
+                line += f" unsymmetric-H err {eu:.3e}"
+                e = max(e, eu)
+            if n in (256, 1024):
+                ms = _time_ms(lambda: schur.pallas_fused_q_tri(Jc, w, H, bnd))
+                k1ms = _time_ms(lambda: schur.pallas_fused_q(Jc, w, H, bnd))
+                pms = _time_ms(lambda: schur.xla_fused_q(Jc, w, H, bnd))
+                line += (f" kernel {ms:.4f} ms K1 {k1ms:.4f} ms plain "
+                         f"{pms:.4f} ms")
+                if n == 1024 and dtype == torch.float32:
+                    record = dict(
+                        max_abs_err=ea, ms=ms, plain_ms=pms, library_ms=None,
+                        **_kv(_fused_q_bound(B, m, n, Jc.element_size())))
+            print(line, flush=True)
+            if not (e <= tol and e1 <= tol and sym):
+                raise RuntimeError(f"K6 disagrees: {line}")
+    record["launches"] = ops.launch_counts()["fused_q_tri"] - before
+    return record
+
+
 def _kv(bound):
     return {"bound_ms": bound[0], "bound_by": bound[1]}
 
@@ -245,11 +341,28 @@ def _band(rng, B, K, nb, dtype, device):
             torch.as_tensor(Bs, dtype=dtype, device=device))
 
 
+def _tridiag_bounds(B, K, nb, el):
+    """(K7's bound, K5's bound) at one shape, element size `el`."""
+    blk = nb * nb
+    # K7 reads Ad, Bs, delta, writes Ck, Ci, Ek, ok; per stage E E^T and
+    # E_k = B_k Ci^T on nb (nb + 1) / 2 entries of length nb (k >= 1,
+    # k < K-1), Cholesky and triangular inverse nb^3 / 3 each
+    f7 = B * ((K - 1) * 2 * 2 * blk * (nb + 1) / 2 + K * 2 * nb ** 3 / 3)
+    b7 = el * B * (3 * K * blk + 2 * (K - 1) * blk + 1) + 4 * B
+    # K5 reads Ci, Ek, b, writes x; two nb x nb matvecs a stage in each
+    # sweep (one at the chain's ends)
+    f5 = B * 2 * 2 * blk * (2 * K - 1)
+    b5 = el * B * (K * blk + (K - 1) * blk + 2 * K * nb)
+    return _bound(b7, f7, DNAME[el]), _bound(b5, f5, DNAME[el])
+
+
 def tridiag_parity(dev):
     """K7 (tridiag_factor) and K5 (tridiag_solve) against their plain
-    versions, f32 and f64: at the chain path's shape (B=1, K=400, nb=32), a
-    ragged nb=30 with K=7, K=1, and a non-PD band (ok False from both).
-    Returns, per kernel, its record at the chain path's shape in float32."""
+    versions, f32 and f64: at the chain path's shape (B=1, K=400, nb=32),
+    the banded path's (K=204, nb=63 and K=200, nb=64), a ragged nb=30 with
+    K=7, K=1, and a non-PD band (ok False from both).  Returns, per kernel,
+    its record at the chain path's shape in float32, with its times at the
+    banded path's shape beside it (`*_banded`)."""
     import torch
     from onephase_tpu_torch.ops import tridiag_pallas as tp
 
@@ -258,7 +371,9 @@ def tridiag_parity(dev):
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[-1]
         tol = TOL[dname]
-        for B, K, nb in ((1, 400, 32), (2, 7, 30), (2, 1, 32)):
+        band = (BANDED_BAND["K"], BANDED_BAND["nb"])
+        for B, K, nb in ((1, 400, 32), (1,) + band, (1, 200, 64), (2, 7, 30),
+                         (2, 1, 32)):
             Ad, Bs = _band(rng, B, K, nb, dtype, dev)
             delta = torch.full((B,), 1e-4, dtype=dtype, device=dev)
             Ck, Ci, Ek, ok = tp.pallas_tridiag_factor(Ad, Bs, delta)
@@ -277,36 +392,31 @@ def tridiag_parity(dev):
             e5, e5a = _err(x, xr)
             line = (f"K7 tridiag_factor {dname} B={B} K={K} nb={nb}: err "
                     f"{e7:.3e} | K5 tridiag_solve err {e5:.3e}")
-            if K == CHAIN_SHAPE["K"]:
+            if (K, nb) in ((CHAIN_SHAPE["K"], CHAIN_SHAPE["nx"]), band):
                 t7 = _time_ms(lambda: tp.pallas_tridiag_factor(Ad, Bs, delta))
                 p7 = _time_ms(lambda: tp.xla_tridiag_factor_inv(Ad, Bs,
                                                                 delta))
                 t5 = _time_ms(lambda: tp.pallas_tridiag_solve(Ci, Ek, b))
                 p5 = _time_ms(lambda: tp.xla_tridiag_solve_inv(Ci, Ek, b))
-                line += (f" | factor {t7:.4f} ms plain {p7:.4f} ms"
-                         f" | solve {t5:.4f} ms plain {p5:.4f} ms"
+                bd7, bd5 = _tridiag_bounds(B, K, nb, Ad.element_size())
+                line += (f" | factor {t7:.4f} ms plain {p7:.4f} ms bound "
+                         f"{bd7[0]:.4f} ms | solve {t5:.4f} ms plain "
+                         f"{p5:.4f} ms bound {bd5[0]:.4f} ms"
                          " | no library call computes either")
-                if dtype == torch.float32:
-                    el = Ad.element_size()
-                    blk = nb * nb
-                    # K7 reads Ad, Bs, delta, writes Ck, Ci, Ek, ok; per
-                    # stage E E^T and E_k = B_k Ci^T on nb (nb + 1) / 2
-                    # entries of length nb (k >= 1, k < K-1), Cholesky and
-                    # triangular inverse nb^3 / 3 each
-                    f7 = B * ((K - 1) * 2 * 2 * blk * (nb + 1) / 2
-                              + K * 2 * nb ** 3 / 3)
-                    b7 = (el * B * (3 * K * blk + 2 * (K - 1) * blk + 1)
-                          + 4 * B)
-                    # K5 reads Ci, Ek, b, writes x; two nb x nb matvecs a
-                    # stage in each sweep (one at the chain's ends)
-                    f5 = B * 2 * 2 * blk * (2 * K - 1)
-                    b5 = el * B * (K * blk + (K - 1) * blk + 2 * K * nb)
+                if dtype == torch.float32 and nb == CHAIN_SHAPE["nx"]:
                     record["tridiag_factor"] = dict(
                         max_abs_err=e7a, ms=t7, plain_ms=p7, library_ms=None,
-                        **_kv(_bound(b7, f7)))
+                        **_kv(bd7))
                     record["tridiag_solve"] = dict(
                         max_abs_err=e5a, ms=t5, plain_ms=p5, library_ms=None,
-                        **_kv(_bound(b5, f5)))
+                        **_kv(bd5))
+                elif dtype == torch.float32:
+                    record["tridiag_factor"].update(
+                        ms_banded=t7, plain_ms_banded=p7,
+                        bound_ms_banded=bd7[0])
+                    record["tridiag_solve"].update(
+                        ms_banded=t5, plain_ms_banded=p5,
+                        bound_ms_banded=bd5[0])
             print(line, flush=True)
             if not (e7 <= tol and e5 <= tol):
                 raise RuntimeError(f"K5/K7 disagree: {line}")
@@ -363,6 +473,119 @@ def chain_run(dev, lane):
     if summary["status"] != "Optimal":
         raise RuntimeError(f"chain {lane}: {summary['status']}")
     return summary, st.p.x[0]
+
+
+def banded_kernel(dev, shape, lane, matrix_free, pattern=None):
+    """chain_ocp(**shape) lowered to a flat NLP, in float32 through
+    BandedKernel on `lane` with CHAIN_OPTIONS; `pattern` None detects the
+    structure from dense samples.  Prints the host-side analysis (seconds
+    of the constructor: pattern, RCM, probes; bandwidth and block layout)
+    and returns the kernel."""
+    import torch
+    from onephase_tpu_torch import native
+    from onephase_tpu_torch.config import Params
+    from onephase_tpu_torch.models.examples import chain_ocp
+    from onephase_tpu_torch.nlp import canonicalize
+    from onephase_tpu_torch.parallel.banded import BandedKernel
+
+    pars = Params().with_overrides(
+        dict(CHAIN_OPTIONS, **{"kkt.linear_solver_type": lane}))
+    nlp = canonicalize(chain_ocp(**shape, device=dev).to_nlpspec(),
+                       dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    bk = BandedKernel(nlp, pars, matrix_free=matrix_free, pattern=pattern,
+                      device=dev)
+    torch.cuda.synchronize()
+    print(f"banded K={shape['K']} nx={shape['nx']} mc={shape['mc']} "
+          f"{'matrix-free' if matrix_free else 'assembled'} {lane}: "
+          f"constructor (pattern "
+          f"{'given' if pattern is not None else 'sampled'}, RCM on the "
+          f"{native.route()} route, probes) "
+          f"{time.perf_counter() - t0:.3f} s; n={nlp.n} bandwidth "
+          f"{bk.bandwidth} nb={bk.nb} K={bk.K} n_pad={bk.n_pad}", flush=True)
+    return bk
+
+
+def banded_run(dev, shape, lane, matrix_free, pattern=None):
+    """One warm-up chunk, then a timed run from a fresh state to
+    termination, as chain_run.  Returns (summary, final x)."""
+    import torch
+    from onephase_tpu_torch import ops
+    from onephase_tpu_torch.ipm.state import RUNNING, STATUS_NAMES
+
+    bk = banded_kernel(dev, shape, lane, matrix_free, pattern)
+    bk.run_chunk(bk.initial_state())
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    st = bk.initial_state()
+    torch.cuda.synchronize()
+    bk.host_syncs = 0
+    t0 = time.perf_counter()
+    while int(st.status[0]) == RUNNING:
+        st = bk.run_chunk(st)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    mode = "matrix-free" if matrix_free else "assembled"
+    summary = {
+        "lane": lane, "mode": mode, "band": {"K": bk.K, "nb": bk.nb},
+        "status": STATUS_NAMES[int(st.status[0])],
+        "outer_its": int(st.t[0]) - 1, "cum_fac": int(st.cum_fac[0]),
+        "obj": float(st.cache.fval[0]), "seconds": dt,
+        "host_syncs": bk.host_syncs, "launches": ops.launch_counts(),
+        "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+    print(f"banded K={shape['K']} nx={shape['nx']} mc={shape['mc']} f32 "
+          f"{mode} {lane}: {summary['status']} obj {summary['obj']:.6f} in "
+          f"{summary['outer_its']} outer its, {summary['cum_fac']} "
+          f"factorizations, {dt:.4f} s, host_syncs {bk.host_syncs}, peak "
+          f"device memory {summary['peak_mb']:.1f} MiB, launches "
+          f"{summary['launches']}", flush=True)
+    if summary["status"] != "Optimal":
+        raise RuntimeError(f"banded {mode} {lane}: {summary['status']}")
+    return summary, st.p.x[0]
+
+
+def _rel_diff(x, ref):
+    return float((x - ref).abs().max() / ref.abs().max())
+
+
+def banded_phase(dev, chain, x_chain):
+    """The banded path: full width, matrix-free, `pallas` lane, held to the
+    chain run's argmin; then the reduced shape, assembled against
+    matrix-free and `pallas` against `xla`.  Returns the full-width
+    summary."""
+    full, x_full = banded_run(dev, CHAIN_SHAPE, "pallas", True,
+                              chain_pattern(CHAIN_SHAPE["K"],
+                                            CHAIN_SHAPE["nx"]))
+    if full["band"] != BANDED_BAND:
+        raise RuntimeError(f"the band is {full['band']}, the kernel phase "
+                           f"timed {BANDED_BAND}")
+    xdiff = _rel_diff(x_full, x_chain)
+    print(f"banded argmin vs the chain path's: max rel diff {xdiff:.3e}; "
+          f"outer its {full['outer_its']} vs {chain['outer_its']}, obj "
+          f"{full['obj']:.6f} vs {chain['obj']:.6f}", flush=True)
+    if not xdiff < 1e-3:
+        raise RuntimeError("the banded and chain argmins disagree")
+    for k in ("tridiag_factor", "tridiag_solve"):
+        if full["launches"][k] <= 0:
+            raise RuntimeError(f"kernel {k} was not launched by the banded "
+                               "path")
+
+    small = BANDED_SMALL_SHAPE
+    mf, x_mf = banded_run(dev, small, "pallas", True)
+    asm, x_asm = banded_run(dev, small, "pallas", False)
+    xla, x_xla = banded_run(dev, small, "xla", False)
+    d_mode, d_lane = _rel_diff(x_mf, x_asm), _rel_diff(x_asm, x_xla)
+    print(f"banded K={small['K']} argmin: matrix-free vs assembled max rel "
+          f"diff {d_mode:.3e}, pallas vs xla {d_lane:.3e}; outer its "
+          f"{mf['outer_its']} / {asm['outer_its']} / {xla['outer_its']}",
+          flush=True)
+    if not (d_mode < 1e-3 and d_lane < 1e-3):
+        raise RuntimeError("the banded modes' or lanes' argmins disagree")
+    if not mf["outer_its"] == asm["outer_its"] == xla["outer_its"]:
+        raise RuntimeError("the banded modes or lanes took different "
+                           "numbers of outer iterations")
+    return full
 
 
 def hs071(dev):
@@ -463,6 +686,7 @@ def main() -> int:
             print(f"  ptxas: {ln.strip()}", flush=True)
 
     record = kernel_parity(dev)
+    record["fused_q_tri"] = fused_q_tri_parity(dev)
     record.update(tridiag_parity(dev))
     torch.cuda.synchronize()
     hs071(dev)
@@ -504,11 +728,20 @@ def main() -> int:
     if not xdiff < 1e-3:
         raise RuntimeError("the chain lanes' argmins disagree")
 
+    # the banded path: the other consumer of K5 and K7, at nb = 63
+    banded = banded_phase(dev, chain, x_chain)
+    torch.cuda.synchronize()
+
     # launches of each kernel on its own path: K1-K3 on the dense bench
-    # run, K5 and K7 on the chain run
+    # run, K5 and K7 on the chain run (with those of the banded run
+    # beside them); K6 lies on no path and carries its kernel phase's
     launches = {**main_path["launches"],
                 **{k: chain["launches"][k]
-                   for k in ("tridiag_factor", "tridiag_solve")}}
+                   for k in ("tridiag_factor", "tridiag_solve")},
+                "fused_q_tri": record["fused_q_tri"].pop("launches")}
+    for k in ("tridiag_factor", "tridiag_solve"):
+        record[k]["launches_banded"] = banded["launches"][k]
+    record["fused_q_tri"]["path"] = "none: launches of the kernel phase"
     sources = {
         "fused_q": ("onephase_tpu_torch/csrc/fused_q.cuh",
                     "onephase_tpu/ops/schur.py:51"),
@@ -516,6 +749,8 @@ def main() -> int:
                  "onephase_tpu/ops/cholesky.py:176"),
         "tri_inv_gram": ("onephase_tpu_torch/csrc/tri_inv.cu",
                          "onephase_tpu/ops/cholesky.py:208"),
+        "fused_q_tri": ("onephase_tpu_torch/csrc/fused_q_tri.cu",
+                        "onephase_tpu/ops/schur.py:110"),
         "tridiag_solve": ("onephase_tpu_torch/csrc/tridiag.cu",
                           "onephase_tpu/ops/tridiag_pallas.py:194"),
         "tridiag_factor": ("onephase_tpu_torch/csrc/tridiag.cu",

@@ -32,29 +32,22 @@ constexpr int FQ_TILE = 64;     // output tile edge
 constexpr int FQ_KC = 16;       // k rows staged per step
 constexpr int FQ_THREADS = 256; // 16 x 16 threads, 4 x 4 outputs each
 
+// The tile loop shared by the kernels of this header and of
+// fused_q_tri.cu: acc[r][c] = sum over k in [kbeg, m) of
+// (J[k, i0 + ty + 16 r] * w[k]) * J[k, j0 + tx + 16 c], staged through the
+// (FQ_KC, FQ_TILE) shared buffers As (the scaled i side) and Bs (the j side).
+// Columns past n read as zero.  Ends on a barrier when the loop ran.
 template <typename T>
-__global__ void __launch_bounds__(FQ_THREADS)
-fused_q_kernel(const T* __restrict__ Jc, long long jc_bs,
-               const T* __restrict__ w, const T* __restrict__ H,
-               long long h_bs, const T* __restrict__ bnd,
-               T* __restrict__ Q, int m, int n, int lower) {
-  __shared__ T As[FQ_KC][FQ_TILE];  // Jc[k, i0 + c] * w[k]
-  __shared__ T Bs[FQ_KC][FQ_TILE];  // Jc[k, j0 + c]
-  const int b = blockIdx.z;
-  const int i0 = blockIdx.y * FQ_TILE;
-  const int j0 = blockIdx.x * FQ_TILE;
+__device__ __forceinline__ void fq_tile_product(
+    const T* __restrict__ J, const T* __restrict__ wb, int m, int n, int i0,
+    int j0, int kbeg, T (*As)[FQ_TILE], T (*Bs)[FQ_TILE], T (&acc)[4][4]) {
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const T* J = Jc + (long long)b * jc_bs;
-  const T* wb = w ? w + (long long)b * m : nullptr;
-
-  T acc[4][4];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[r][c] = T(0);
 
-  const int kbeg = lower ? max(i0, j0) : 0;
   for (int k0 = kbeg; k0 < m; k0 += FQ_KC) {
     for (int e = tid; e < FQ_KC * FQ_TILE; e += FQ_THREADS) {
       const int kk = e / FQ_TILE, c = e % FQ_TILE;
@@ -85,6 +78,27 @@ fused_q_kernel(const T* __restrict__ Jc, long long jc_bs,
     }
     __syncthreads();
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(FQ_THREADS)
+fused_q_kernel(const T* __restrict__ Jc, long long jc_bs,
+               const T* __restrict__ w, const T* __restrict__ H,
+               long long h_bs, const T* __restrict__ bnd,
+               T* __restrict__ Q, int m, int n, int lower) {
+  __shared__ T As[FQ_KC][FQ_TILE];  // Jc[k, i0 + c] * w[k]
+  __shared__ T Bs[FQ_KC][FQ_TILE];  // Jc[k, j0 + c]
+  const int b = blockIdx.z;
+  const int i0 = blockIdx.y * FQ_TILE;
+  const int j0 = blockIdx.x * FQ_TILE;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const T* J = Jc + (long long)b * jc_bs;
+  const T* wb = w ? w + (long long)b * m : nullptr;
+
+  T acc[4][4];
+  fq_tile_product<T>(J, wb, m, n, i0, j0, lower ? max(i0, j0) : 0, As, Bs,
+                     acc);
 
   const T* Hb = H ? H + (long long)b * h_bs : nullptr;
 #pragma unroll

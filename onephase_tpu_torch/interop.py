@@ -12,8 +12,10 @@ Field names are those of ipm/state.py in both packages.
   the dense path's Q) become ``None``, as the port carries them.
 - A structured kernel's tuple-valued Factor fields (the chain's
   Jc=(Ja, Jb), H=(Hd, Hs), Q=(Qd, Qs), L=(Ci or Ck, Ek)) are carried
-  element by element.  A named tuple there (the partitioned chain factor)
-  is not carried and raises.
+  element by element; so are the banded kernel's Q=(Qd, Qs) and L, and in
+  its matrix-free mode the `Jc` slot holding x (n,) and the `H` slot
+  holding mu (a scalar), which become (B, n) and (B,).  A named tuple there
+  (a partitioned factor) is not carried and raises.
 """
 
 from __future__ import annotations

@@ -18,11 +18,11 @@ once per outer iteration.  Nothing else inside `_run_chunk` reads a device
 value on the host.  `OnePhaseKernel.host_syncs` counts those reads.
 
 Only the `schur` KKT path is ported: dense here, block-tridiagonal in
-the structured subclass of parallel/chain.py, whose Factor fields (Jc, H,
-Q, L) are tuples of block tensors -- every select over the factor goes
-through `tree_select`.  Options outside it (the symmetric paths, the
-Mehrotra init, the mixed-precision knobs) raise `NotImplementedError`
-instead of quietly running the default.
+the structured subclasses of parallel/chain.py and parallel/banded.py,
+whose Factor fields (Jc, H, Q, L) may be tuples of block tensors -- every
+select over the factor goes through `tree_select`.  Options outside it
+(the symmetric paths, the Mehrotra init, the mixed-precision knobs) raise
+`NotImplementedError` instead of quietly running the default.
 """
 
 from __future__ import annotations
@@ -154,10 +154,14 @@ class OnePhaseKernel:
         x0 = torch.as_tensor(nlp.x0, dtype=self.dtype,
                              device=self.device)[None]
         spec = nlp.spec
+        # a matrix-free structured kernel (BandedKernel) sets
+        # `_skip_const_fold` before this constructor runs: it never
+        # materializes J or H, not even as folded constants
+        fold = not getattr(self, "_skip_const_fold", False)
         self._H_zero = bool(spec.zero_hess)
-        chess = spec.constant_hess and not self._H_zero
+        chess = spec.constant_hess and not self._H_zero and fold
         self._Jc_const = (nlp.jac_orig(x0)[0].contiguous()
-                          if spec.constant_jac else None)
+                          if spec.constant_jac and fold else None)
         self._H_const = (nlp.lag_hess(x0, self._full((1, m), 0.0))[0]
                          .contiguous() if chess else None)
 

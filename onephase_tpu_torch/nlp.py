@@ -420,6 +420,16 @@ class CanonNLP:
         wc, _ = self.split_canonical(y)
         return vmap(hessian(self._lag1))(x, wc)
 
+    def hess_prod_fn(self, x, y, pdata=None):
+        """Returns v (B, n) -> H v, the Lagrangian-Hessian product at fixed
+        (x, y): forward-over-reverse, no (n, n) matrix."""
+        wc, _ = self.split_canonical(y)
+
+        def hv1(xx, ww, vv):
+            return jvp(grad(lambda z: self._lag1(z, ww)), (xx,), (vv,))[1]
+
+        return lambda v: vmap(hv1)(x, wc, v)
+
 
 def canonicalize(spec: NLPSpec, dtype=torch.float64, device=None) -> CanonNLP:
     """Canonicalize `spec` for solves in `dtype` on `device` (default: the

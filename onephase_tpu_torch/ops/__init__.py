@@ -7,8 +7,8 @@ entry of `LAUNCHES` where it launches its kernel, and nowhere else, so a run
 can show that the main path went through the kernels.
 """
 
-LAUNCHES = {"fused_q": 0, "chol": 0, "tri_inv_gram": 0, "tridiag_factor": 0,
-            "tridiag_solve": 0}
+LAUNCHES = {"fused_q": 0, "fused_q_tri": 0, "chol": 0, "tri_inv_gram": 0,
+            "tridiag_factor": 0, "tridiag_solve": 0}
 
 
 def reset_launch_counts():

@@ -6,6 +6,10 @@ triple products, docs/one-phase.tex:901-912).
 - `pallas_fused_q`: the kernel wrapper of the `pallas` lane.  It replaces
   the TPU kernel onephase_tpu/ops/schur.py:pallas_fused_q
   (`_fused_q_kernel`) with the CUDA C++ kernel `csrc/fused_q.cu`.
+- `pallas_fused_q_tri`: the triangle-tiled form of the same function.  It
+  replaces the TPU kernel onephase_tpu/ops/schur.py:pallas_fused_q_tri
+  (`_fused_q_tri_kernel`) with the CUDA C++ kernel `csrc/fused_q_tri.cu`.
+  No lane dispatches it, in either package.
 - `xla_fused_q`: the plain PyTorch version of the same function (the port
   of the JAX package's XLA expression); the other lanes use it, and the
   wrapper uses it for CPU tensors.
@@ -50,11 +54,8 @@ def _check_operand(t, name, shapes, dtype, device):
         raise ValueError(f"fused_q: {name} must be contiguous")
 
 
-def pallas_fused_q(Jc, w, H, bnd):
-    """Q = H + Jc^T diag(w) Jc + diag(bnd): the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
-    if bnd.device.type == "cpu":
-        return xla_fused_q(Jc, w, H, bnd)
+def _cuda_operands(Jc, w, H, bnd):
+    """Validate the operands of a fused-Q kernel on the card; (B, m, n)."""
     if bnd.device.type != "cuda":
         raise ValueError(f"fused_q: no kernel for device {bnd.device}")
     B, n = bnd.shape
@@ -67,12 +68,49 @@ def pallas_fused_q(Jc, w, H, bnd):
     _check_operand(w, "w", [(B, m)], dt, dev)
     if H is not None:
         _check_operand(H, "H", [(n, n), (B, n, n)], dt, dev)
-    Q = torch.empty(B, n, n, dtype=dt, device=dev)
+    return B, m, n
+
+
+def pallas_fused_q(Jc, w, H, bnd):
+    """Q = H + Jc^T diag(w) Jc + diag(bnd): the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if bnd.device.type == "cpu":
+        return xla_fused_q(Jc, w, H, bnd)
+    B, m, n = _cuda_operands(Jc, w, H, bnd)
+    Q = torch.empty(B, n, n, dtype=bnd.dtype, device=bnd.device)
     if B == 0 or n == 0:
         return Q
     launch_fused_q(Jc, w, H, bnd, Q, lower=False)
     LAUNCHES["fused_q"] += 1
     return Q
+
+
+def pallas_fused_q_tri(Jc, w, H, bnd):
+    """The same Q as `pallas_fused_q`, with the rank-m product formed for
+    the lower tile pairs only and mirrored (`csrc/fused_q_tri.cu`), so
+    Q - H is symmetric bit for bit; the plain version for CPU tensors.
+
+    As in the JAX package, `fused_q` does not dispatch here: the function
+    is kept as the symmetric-tiling building block and held by its tests."""
+    if bnd.device.type == "cpu":
+        return xla_fused_q(Jc, w, H, bnd)
+    B, m, n = _cuda_operands(Jc, w, H, bnd)
+    Q = torch.empty(B, n, n, dtype=bnd.dtype, device=bnd.device)
+    if B == 0 or n == 0:
+        return Q
+    with torch.cuda.device(Q.device):
+        err = _build.entry("op_fused_q_tri", Q.dtype)(
+            _build.ptr(Jc), _batch_stride(Jc), _build.ptr(w), _build.ptr(H),
+            _batch_stride(H), _build.ptr(bnd), _build.ptr(Q), B, m, n,
+            _build.stream_ptr(Q))
+    _build.check(err, "fused_q_tri")
+    LAUNCHES["fused_q_tri"] += 1
+    return Q
+
+
+def _batch_stride(t):
+    """Elements between instances: 0 for a shared 2-D operand or None."""
+    return 0 if (t is None or t.dim() == 2) else t.shape[-2] * t.shape[-1]
 
 
 def launch_fused_q(Jc, w, H, bnd, Q, lower: bool):
@@ -82,13 +120,11 @@ def launch_fused_q(Jc, w, H, bnd, Q, lower: bool):
     product of the triangular inverse (ops/cholesky.py)."""
     B, n = Q.shape[0], Q.shape[-1]
     m = Jc.shape[-2]
-    jc_bs = 0 if Jc.dim() == 2 else m * n
-    h_bs = 0 if (H is None or H.dim() == 2) else n * n
     with torch.cuda.device(Q.device):
         err = _build.entry("op_fused_q", Q.dtype)(
-            _build.ptr(Jc), jc_bs, _build.ptr(w), _build.ptr(H), h_bs,
-            _build.ptr(bnd), _build.ptr(Q), B, m, n, int(lower),
-            _build.stream_ptr(Q))
+            _build.ptr(Jc), _batch_stride(Jc), _build.ptr(w), _build.ptr(H),
+            _batch_stride(H), _build.ptr(bnd), _build.ptr(Q), B, m, n,
+            int(lower), _build.stream_ptr(Q))
     _build.check(err, "fused_q")
 
 

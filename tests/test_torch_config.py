@@ -107,6 +107,12 @@ def _entry_call(entry):
     if entry == "ChainKernel":
         spec = chain_ocp(K=4, nx=2, mc=1, device="cpu")
         return lambda: ChainKernel(spec, pars)
+    if entry == "BandedKernel":
+        from onephase_tpu_torch.parallel.banded import BandedKernel
+        nlp = onephase_tpu_torch.canonicalize(
+            chain_ocp(K=4, nx=2, mc=1, device="cpu").to_nlpspec(),
+            device="cpu")
+        return lambda: BandedKernel(nlp, pars)
     if entry == "state_from_numpy":
         k = OnePhaseKernel(onephase_tpu_torch.canonicalize(
             zoo.circle1(), device="cpu"), pars)
@@ -124,7 +130,7 @@ def _entry_call(entry):
 
 @pytest.mark.parametrize("entry", [
     "canonicalize", "one_phase_solve", "make_qp", "chain_ocp",
-    "ChainKernel", "state_from_numpy"])
+    "ChainKernel", "BandedKernel", "state_from_numpy"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Without a device and without a card every entry point raises and
     says how to ask for the CPU; it never carries on quietly there."""

@@ -66,6 +66,42 @@ def test_fused_q_matches_plain(cuda, dt, n, m, B, shared, with_h):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n, m, B, shared, with_h", [
+    (256, 128, 16, True, True), (130, 70, 3, False, True),
+    (64, 0, 2, True, True), (40, 30, 2, False, True),
+    (200, 300, 2, True, False)])
+def test_fused_q_tri_matches_plain_and_is_symmetric(cuda, dt, n, m, B, shared,
+                                                    with_h):
+    """K6 against the plain version and against K1; Q - H symmetric bit for
+    bit (H itself is made bit-symmetric here); an unsymmetric H is added
+    where it stands, H[j, i] in the mirrored tile."""
+    rng = np.random.default_rng(n + m)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dt, device=cuda)
+
+    Jc = t(rng.normal(size=(m, n) if shared else (B, m, n)) / np.sqrt(n))
+    w = t(rng.uniform(0.1, 10.0, size=(B, m)))
+    H = (_spd(rng, 1, n, dt, cuda)[0] if shared else
+         _spd(rng, B, n, dt, cuda)) if with_h else None
+    if H is not None:
+        H = (0.5 * (H + H.transpose(-1, -2))).contiguous()
+    bnd = t(rng.uniform(0.0, 5.0, size=(B, n)))
+    before = ops.launch_counts()["fused_q_tri"]
+    got = schur.pallas_fused_q_tri(Jc, w, H, bnd)
+    assert ops.launch_counts()["fused_q_tri"] == before + 1
+    assert _rel_err(got, schur.xla_fused_q(Jc, w, H, bnd)) <= TOL[dt]
+    assert _rel_err(got, schur.pallas_fused_q(Jc, w, H, bnd)) <= TOL[dt]
+    assert torch.equal(got, got.transpose(-1, -2))
+    if H is not None:
+        skew = t(rng.normal(size=H.shape))
+        got = schur.pallas_fused_q_tri(Jc, w, H + skew, bnd)
+        assert _rel_err(got, schur.xla_fused_q(Jc, w, H + skew, bnd)) \
+            <= TOL[dt]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n, B", [(256, 16), (130, 3), (1024, 4)])
 def test_chol_tri_inv_gram_chol_inv_match_plain(cuda, dt, n, B):
     Q = _spd(np.random.default_rng(n), B, n, dt, cuda)
@@ -105,7 +141,8 @@ def _band(rng, B, K, nb, dt, dev, shift=3.0):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64])
 @pytest.mark.parametrize("B, K, nb", [(1, 400, 32), (3, 7, 30), (2, 1, 32),
-                                      (2, 12, 5), (1, 9, 64)])
+                                      (2, 12, 5), (1, 9, 64), (1, 204, 63),
+                                      (1, 200, 64)])
 def test_tridiag_factor_and_solve_match_plain(cuda, dt, B, K, nb):
     from onephase_tpu_torch.ops import tridiag_pallas as tp
     rng = np.random.default_rng(K * 100 + nb)

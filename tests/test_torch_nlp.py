@@ -53,6 +53,7 @@ def test_oracles_match_jax(name):
         "jprod": T.jprod(xt, vt), "jtprod_ones": T.jtprod_ones(xt),
         "grad_lag_hi": T.grad_lag_hi(xt, yt, torch.as_tensor(mu)),
         "jtprod_hi": T.jtprod_hi(xt, yt), "a_of_hi": T.a_of_hi(xt),
+        "hess_prod_fn": T.hess_prod_fn(xt, yt)(vt),
     }
     wc_t, bnd_t = T.split_canonical_sq(yt)
     Jc_t = out["jac_orig"]
@@ -67,6 +68,7 @@ def test_oracles_match_jax(name):
             "jprod": J.jprod(x, v), "jtprod_ones": J.jtprod_ones(x),
             "grad_lag_hi": J.grad_lag_hi(x, y, mu[b]),
             "jtprod_hi": J.jtprod_hi(x, y), "a_of_hi": J.a_of_hi(x),
+            "hess_prod_fn": J.hess_prod_fn(x, y)(v),
         }
         for k, w in want.items():
             _close(out[k][b], w)

@@ -60,6 +60,41 @@ def test_fused_q_plain_matches_jax(dt, n, m, shared, with_h):
         assert _rel_err(got[b], want) <= RTOL[dt]
 
 
+@pytest.mark.parametrize("dt", [np.float64, np.float32])
+@pytest.mark.parametrize("m, n, seed, hsym", [
+    (40, 30, 11, True), (300, 150, 11, True), (96, 64, 7, False),
+    (300, 200, 7, False), (96, 130, 7, True)])
+def test_fused_q_tri_matches_jax(dt, m, n, seed, hsym):
+    """The port's `pallas_fused_q_tri` (on CPU tensors: its plain version)
+    against the JAX package's triangle-tiled Pallas kernel in interpret mode
+    and against its `xla_fused_q`, at the shapes of tests/test_kkt.py and
+    tests/test_parity_modes.py (single-tile, multi-tile and ragged grids)."""
+    rng = np.random.default_rng(seed)
+    Jc = rng.normal(size=(m, n)).astype(dt)
+    w = rng.uniform(0.1, 5.0, size=m).astype(dt)
+    H0 = rng.normal(size=(n, n)).astype(dt)
+    H = H0 + H0.T if hsym else H0 @ H0.T
+    bnd = rng.uniform(0.0, 1.0, size=n).astype(dt)
+    got = tschur.pallas_fused_q_tri(
+        torch.as_tensor(Jc), torch.as_tensor(w)[None], torch.as_tensor(H),
+        torch.as_tensor(bnd)[None])
+    assert got.dtype == TDT[dt] and got.shape == (1, n, n)
+    args = [jnp.asarray(a) for a in (Jc, w, H, bnd)]
+    assert _rel_err(got[0], jschur.xla_fused_q(*args)) <= RTOL[dt]
+    assert _rel_err(got[0], jschur.pallas_fused_q_tri(
+        *args, interpret=True)) <= RTOL[dt]
+
+
+def test_fused_q_tri_checks_operands_like_fused_q():
+    """Both kernel wrappers share the operand checks; on a device with no
+    kernel they raise instead of running the plain version."""
+    meta = lambda *s: torch.zeros(*s, dtype=torch.float64,   # noqa: E731
+                                  device="meta")
+    for fq in (tschur.pallas_fused_q, tschur.pallas_fused_q_tri):
+        with pytest.raises(ValueError, match="no kernel for device"):
+            fq(meta(3, 4), meta(1, 3), None, meta(1, 4))
+
+
 @pytest.fixture
 def interpret():
     jops.INTERPRET = True
@@ -115,15 +150,16 @@ def test_cpu_wrappers_launch_nothing():
     Q = torch.eye(8, dtype=torch.float64)[None] * 2.0
     L, _, _ = tchol.pallas_chol(Q)
     tchol.pallas_tri_inv_gram(L)
-    tschur.pallas_fused_q(torch.zeros(0, 8, dtype=torch.float64),
-                          torch.zeros(1, 0, dtype=torch.float64), None,
-                          torch.ones(1, 8, dtype=torch.float64))
+    for fq in (tschur.pallas_fused_q, tschur.pallas_fused_q_tri):
+        fq(torch.zeros(0, 8, dtype=torch.float64),
+           torch.zeros(1, 0, dtype=torch.float64), None,
+           torch.ones(1, 8, dtype=torch.float64))
     from onephase_tpu_torch.ops import tridiag_pallas as ttp
     Ad = torch.eye(3, dtype=torch.float64).expand(1, 4, 3, 3) * 2.0
     _, Ci, Ek, _ = ttp.pallas_tridiag_factor(Ad, torch.zeros(1, 3, 3, 3,
                                              dtype=torch.float64), 0.0)
     ttp.pallas_tridiag_solve(Ci, Ek, torch.ones(1, 4, 3, dtype=torch.float64))
-    assert tops.launch_counts() == {"fused_q": 0, "chol": 0,
+    assert tops.launch_counts() == {"fused_q": 0, "fused_q_tri": 0, "chol": 0,
                                     "tri_inv_gram": 0, "tridiag_factor": 0,
                                     "tridiag_solve": 0}
 

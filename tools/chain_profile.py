@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Device profile of the port's chain path on a CUDA card.
+"""Device profile of the port's chain or banded path on a CUDA card.
 
 Runs chip_smoke.py's chain configuration (CHAIN_SHAPE, CHAIN_OPTIONS:
-scripts/bench_large.py's) in float32 through ChainKernel, as chip_smoke.py
+scripts/bench_large.py's) in float32 through ChainKernel or, with
+`--kernel banded`, as a flat NLP through the matrix-free BandedKernel with
+its pattern passed in (chip_smoke.py's banded run), as chip_smoke.py
 does: a warm-up chunk, an unprofiled timed run from a fresh state, then the
 same run under torch.profiler (CPU + CUDA activities).  It prints one JSON
 line: wall seconds of both runs, device busy milliseconds (the sum of the
@@ -13,7 +15,7 @@ stretches the host side of the run it traces, not the device work.  The
 card's name and power limit are printed first.  It needs a card; it does
 not fall back to the CPU.
 
-    python3 tools/chain_profile.py [--lane pallas|xla]
+    python3 tools/chain_profile.py [--kernel chain|banded] [--lane pallas|xla]
 """
 import argparse
 import json
@@ -31,6 +33,7 @@ TOP = 12
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--lane", default="pallas", choices=("pallas", "xla"))
+    ap.add_argument("--kernel", default="chain", choices=("chain", "banded"))
     args = ap.parse_args()
 
     import torch
@@ -39,7 +42,8 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import CHAIN_OPTIONS, CHAIN_SHAPE
+    from chip_smoke import (CHAIN_OPTIONS, CHAIN_SHAPE, banded_kernel,
+                            chain_pattern)
     from onephase_tpu_torch import ops
     from onephase_tpu_torch.config import Params
     from onephase_tpu_torch.ipm.state import RUNNING, STATUS_NAMES
@@ -54,8 +58,12 @@ def main():
     dev = torch.device("cuda")
     pars = Params().with_overrides(
         dict(CHAIN_OPTIONS, **{"kkt.linear_solver_type": args.lane}))
-    ck = ChainKernel(chain_ocp(**CHAIN_SHAPE, device=dev), pars,
-                     dtype=torch.float32, device=dev)
+    if args.kernel == "banded":
+        ck = banded_kernel(dev, CHAIN_SHAPE, args.lane, True, chain_pattern(
+            CHAIN_SHAPE["K"], CHAIN_SHAPE["nx"]))
+    else:
+        ck = ChainKernel(chain_ocp(**CHAIN_SHAPE, device=dev), pars,
+                         dtype=torch.float32, device=dev)
 
     def run():
         st = ck.initial_state()
@@ -94,7 +102,7 @@ def main():
     out = {
         "problem": "chain_ocp({})".format(
             ", ".join(f"{k}={v}" for k, v in CHAIN_SHAPE.items())),
-        "lane": args.lane, "dtype": "float32",
+        "kernel": args.kernel, "lane": args.lane, "dtype": "float32",
         "status": STATUS_NAMES[int(st.status[0])],
         "outer_its": int(st.t[0]) - 1, "cum_fac": int(st.cum_fac[0]),
         "wall_s_unprofiled": wall, "wall_s_profiled": wall_prof,
