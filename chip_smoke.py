@@ -27,6 +27,13 @@ three paths on the `pallas` lane:
 K6 (the triangle-tiled fused Q) lies on no path of either package: it is
 held in the kernel phase, against its plain version and against K1.
 
+The kernel phase also times K2 against `torch.linalg.cholesky_ex` (its
+library yardstick, never called by the port) in turns at both dense shapes,
+with K2's achieved TFLOP/s beside its bound, and K7 against its plain
+version in turns with its time per stage at both band shapes; the build's
+`-Xptxas -v` lines (registers, spills) of the K2, K5 and K7 kernels are
+printed first.
+
 Every phase raises on failure, so the script exits nonzero and never prints
 the final line; without a CUDA card it refuses to run.  The line before
 the last lists every kernel with its launches on its path, its error
@@ -38,6 +45,7 @@ The last line is `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -123,21 +131,49 @@ def _err(got, ref):
     return diff / float(ref.abs().max()), diff
 
 
+def _time_turns(*fns) -> list:
+    """Medians of REPS launches of each function, the functions taken in
+    turns (f, g, f, g, ...), each launch between two CUDA events: two
+    versions compared on one card under the same conditions."""
+    import torch
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(REPS):
+        for fn, ts in zip(fns, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            ts.append(start.elapsed_time(end))
+    return [float(np.median(ts)) for ts in times]
+
+
 def _time_ms(fn) -> float:
     """Median of REPS launches, each between two CUDA events."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(REPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return _time_turns(fn)[0]
+
+
+def _ptxas_report(log, kernels):
+    """The -Xptxas -v lines (registers, shared memory, spills) of every
+    instantiation of the named kernels in the build log."""
+    out, current = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            current = next((k for k in kernels if k in ln), None)
+            if current:
+                # the template arguments of the mangled name: the type,
+                # then the tile edge and thread count where there are any
+                args = ln.split(current, 1)[1].split("EEv")[0]
+                targs = [{"f": "float", "d": "double"}[args[1]]]
+                targs += re.findall(r"Li(\d+)E", args)
+                out.append(f"{current}<{', '.join(targs)}>")
+        elif current and ("registers" in ln or "spill" in ln):
+            out.append("    " + ln.strip().replace("ptxas info    : ", ""))
+    return out
 
 
 def kernel_parity(dev):
@@ -150,7 +186,7 @@ def kernel_parity(dev):
     from onephase_tpu_torch.ops import schur
 
     rng = np.random.default_rng(0)
-    record = {}
+    record, k2_small = {}, {}
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[-1]
         tol = TOL[dname]
@@ -208,31 +244,39 @@ def kernel_parity(dev):
             line = (f"K2 chol {dname} n={n} B={B}: err {e2:.3e} | "
                     f"K3 tri_inv_gram err {e3:.3e} | K4 chol_inv err {e4:.3e}")
             if n in (256, 1024):
-                t2 = _time_ms(lambda: ch.pallas_chol(Q))
+                # K2 and its yardstick, cuSOLVER's batched Cholesky (never
+                # called by the port), in turns
+                t2, l2 = _time_turns(lambda: ch.pallas_chol(Q),
+                                     lambda: torch.linalg.cholesky_ex(Q))
                 p2 = _time_ms(lambda: ch.xla_chol(Q))
                 t3 = _time_ms(lambda: ch.pallas_tri_inv_gram(L))
                 p3 = _time_ms(lambda: ch.xla_chol_inv_from_L(Lr))
-                line += (f" | chol {t2:.4f} ms plain {p2:.4f} ms"
+                el = Q.element_size()
+                # K2 reads Q, writes L, d, ok: B n^3 / 3 operations
+                bd2 = _bound(el * (2 * B * n * n + B * n) + 4 * B,
+                             B * n ** 3 / 3, dname)
+                tflops = B * n ** 3 / 3 / (t2 * 1e-3) / 1e12
+                line += (f" | chol {t2:.4f} ms ({tflops:.2f} TFLOP/s; bound "
+                         f"{bd2[0]:.4f} ms = {PEAK_FLOPS[dname] / 1e12:.0f} "
+                         f"TFLOP/s) cholesky_ex {l2:.4f} ms ({t2 / l2:.2f}x) "
+                         f"plain {p2:.4f} ms"
                          f" | tri_inv_gram {t3:.4f} ms plain {p3:.4f} ms")
+                if dtype == torch.float32 and n == 256:
+                    k2_small = dict(ms_n256=t2, plain_ms_n256=p2,
+                                    library_ms_n256=l2, bound_ms_n256=bd2[0])
                 if n == 1024 and dtype == torch.float32:
-                    # library yardsticks, never called by the port:
-                    # cuSOLVER's batched Cholesky, and cholesky_inverse
+                    # library yardstick of K3: cholesky_inverse
                     # (M = (L L^T)^-1 from L)
-                    l2 = _time_ms(lambda: torch.linalg.cholesky_ex(Q))
                     l3 = _time_ms(lambda: torch.cholesky_inverse(Lr))
-                    el = Q.element_size()
-                    # K2 reads Q, writes L, d, ok: B n^3 / 3 operations;
                     # K3 reads L, writes M: L^-1 (n^3 / 3) + the Gram
                     # product (n^3 / 3)
                     record["chol"] = dict(
                         max_abs_err=e2a, ms=t2, plain_ms=p2, library_ms=l2,
-                        **_kv(_bound(el * (2 * B * n * n + B * n) + 4 * B,
-                                     B * n ** 3 / 3)))
+                        **_kv(bd2), **k2_small)
                     record["tri_inv_gram"] = dict(
                         max_abs_err=e3a, ms=t3, plain_ms=p3, library_ms=l3,
                         **_kv(_bound(el * 2 * B * n * n, 2 * B * n ** 3 / 3)))
-                    line += (f" | cholesky_ex {l2:.4f} ms"
-                             f" cholesky_inverse {l3:.4f} ms")
+                    line += f" | cholesky_inverse {l3:.4f} ms"
             print(line, flush=True)
             if not (e2 <= tol and e3 <= tol and e4 <= tol):
                 raise RuntimeError(f"K2/K3/K4 disagree: {line}")
@@ -393,13 +437,14 @@ def tridiag_parity(dev):
             line = (f"K7 tridiag_factor {dname} B={B} K={K} nb={nb}: err "
                     f"{e7:.3e} | K5 tridiag_solve err {e5:.3e}")
             if (K, nb) in ((CHAIN_SHAPE["K"], CHAIN_SHAPE["nx"]), band):
-                t7 = _time_ms(lambda: tp.pallas_tridiag_factor(Ad, Bs, delta))
-                p7 = _time_ms(lambda: tp.xla_tridiag_factor_inv(Ad, Bs,
-                                                                delta))
+                t7, p7 = _time_turns(
+                    lambda: tp.pallas_tridiag_factor(Ad, Bs, delta),
+                    lambda: tp.xla_tridiag_factor_inv(Ad, Bs, delta))
                 t5 = _time_ms(lambda: tp.pallas_tridiag_solve(Ci, Ek, b))
                 p5 = _time_ms(lambda: tp.xla_tridiag_solve_inv(Ci, Ek, b))
                 bd7, bd5 = _tridiag_bounds(B, K, nb, Ad.element_size())
-                line += (f" | factor {t7:.4f} ms plain {p7:.4f} ms bound "
+                line += (f" | factor {t7:.4f} ms ({1e3 * t7 / K:.2f} us a "
+                         f"stage) plain {p7:.4f} ms bound "
                          f"{bd7[0]:.4f} ms | solve {t5:.4f} ms plain "
                          f"{p5:.4f} ms bound {bd5[0]:.4f} ms"
                          " | no library call computes either")
@@ -681,9 +726,9 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     _build.library()
     print(f"kernel build: {_build.BUILD_SECONDS:.1f} s", flush=True)
-    for ln in _build.BUILD_LOG.splitlines():
-        if "registers" in ln or "spill" in ln:
-            print(f"  ptxas: {ln.strip()}", flush=True)
+    for ln in _ptxas_report(_build.BUILD_LOG, (
+            "chol_kernel", "tridiag_factor_kernel", "tridiag_solve_kernel")):
+        print(f"  ptxas: {ln}", flush=True)
 
     record = kernel_parity(dev)
     record["fused_q_tri"] = fused_q_tri_parity(dev)
@@ -714,8 +759,8 @@ def main() -> int:
     # contract at their endgame conditioning -- so they are reported, and
     # certification is required with adaptive refinement (same option tree)
     bench_run(dev, 1024, 512, 64, "pallas", warmup=False, require_all=False)
-    bench_run(dev, 1024, 512, 64, "pallas", warmup=False,
-              extra={"kkt.it_refine_adaptive": True})
+    big, _ = bench_run(dev, 1024, 512, 64, "pallas", warmup=False,
+                       extra={"kkt.it_refine_adaptive": True})
     torch.cuda.synchronize()
 
     # the chain path: pallas lane (K5, K7), then the xla lane
@@ -741,6 +786,9 @@ def main() -> int:
                 "fused_q_tri": record["fused_q_tri"].pop("launches")}
     for k in ("tridiag_factor", "tridiag_solve"):
         record[k]["launches_banded"] = banded["launches"][k]
+    # K2's times are at n=1024/B=64 (and n=256/B=16): its launches on the
+    # 1024/512/64 run beside those of the bench run
+    record["chol"]["launches_n1024"] = big["launches"]["chol"]
     record["fused_q_tri"]["path"] = "none: launches of the kernel phase"
     sources = {
         "fused_q": ("onephase_tpu_torch/csrc/fused_q.cuh",

@@ -31,28 +31,203 @@
 // Hopper blocks run in no order, so the K loop moves inside one block per
 // instance (grid = B) and the carry stays in shared memory.
 //
-// What the design does about it: every stage works on nb x nb blocks in
-// shared memory (rows padded to nb + 1 against bank conflicts), and the
-// next stage's input blocks are loaded into registers while the current
-// stage computes, so the global-memory latency of a stage overlaps the
-// serial work of the one before.  The Cholesky takes one barrier per
-// column (the trailing update of column j and the scaling of column j-1
-// share a phase); the inverse is one column per thread, with no barrier.
-// The ragged edge is masked, nothing is padded in memory.  nb <= 64.
+// What the factor's design does about it: the stage's latency is what
+// counts, so every step of a stage keeps all threads busy and no loop
+// divides by a runtime size.  The blocks are padded in shared memory to a
+// compile-time NB (32 for nb <= 32, on 256 threads; else 64, on 512; the
+// padding of A_k is the identity, of B_k zero, so the padded entries of
+// C_k and Ci_k are the identity's and those of E_k zero), with an odd
+// leading dimension (NB | 1) so column walks are conflict-free.  Each
+// thread owns a fixed 2-D set of block entries, (ty + TY a, tx + 16 c),
+// for the two products of a stage, E E^T and E_k = B_k Ci_k^T, computed
+// from shared memory into registers.  C_k and Ci_k come from
+// chol_tile.cuh (one barrier per column, factor and inverse together).
+// The next stage's A_k and B_k are copied into shared memory with
+// cp.async, in the same entry map, while the current stage factors.  The
+// arithmetic is the earlier one-column-per-thread kernel's, value for
+// value (the same products in the same order), so the chain and banded
+// runs keep their iterates.
+// The solve keeps its simple design: one row per thread in each sweep,
+// blocks padded to the odd leading dimension nb | 1, and each thread's
+// shared-memory offsets computed once.  The ragged edge is masked in global
+// memory.  nb <= 64.
 #include <cuda_runtime.h>
 
+#include "chol_tile.cuh"
+
 namespace {
+
+using onephase::chol_tile;
+using onephase::tile_entries;
+using onephase::tile_ld;
+using onephase::tile_owner;
 
 constexpr int THREADS = 256;
 constexpr int MAX_NB = 64;
 constexpr int PER_T = MAX_NB * MAX_NB / THREADS;   // block elements a thread holds
 
-template <typename T> __device__ __forceinline__ T tiny_pivot();
-template <> __device__ __forceinline__ float tiny_pivot<float>() { return 1e-38f; }
-template <> __device__ __forceinline__ double tiny_pivot<double>() { return 1e-300; }
-template <typename T> __device__ __forceinline__ T max_finite();
-template <> __device__ __forceinline__ float max_finite<float>() { return 3.402823466e38f; }
-template <> __device__ __forceinline__ double max_finite<double>() { return 1.7976931348623157e308; }
+// --- the factor (K7)
+
+// Copy one element global -> shared without the registers (cp.async, 4 or
+// 8 bytes; the inputs are read-only, so the L1 path is safe).
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(sizeof(T)));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// One nb x nb block (row-major in global memory) into an NB x NB shared
+// tile (leading dimension NB | 1), the thread's entries (ty + TY a,
+// tx + 16 c) of it; entries past nb are left as they are.
+template <typename T, int NB, int NT>
+__device__ __forceinline__ void fetch_block(T* dst, const T* src, int nb,
+                                            int ty, int tx) {
+  constexpr int LD = tile_ld<NB>(), TY = NT / 16;
+#pragma unroll
+  for (int a = 0; a < NB * 16 / NT; ++a)
+#pragma unroll
+    for (int c = 0; c < NB / 16; ++c) {
+      const int r = ty + TY * a, cc = tx + 16 * c;
+      if (r < nb && cc < nb) cp_async(dst + r * LD + cc, src + r * nb + cc);
+    }
+  cp_async_commit();
+}
+
+// acc[a][c] = sum_p A[ty + TY a][p] Bt[tx + 16 c][p] over NB x NB tiles in
+// shared memory (leading dimension NB | 1), p in increasing order.
+template <typename T, int NB, int NT>
+__device__ __forceinline__ void band_product(
+    const T* A, const T* Bt, T (&acc)[NB * 16 / NT][NB / 16], int ty,
+    int tx) {
+  constexpr int LD = tile_ld<NB>(), TY = NT / 16;
+  constexpr int RA = NB * 16 / NT, RC = NB / 16;
+#pragma unroll
+  for (int a = 0; a < RA; ++a)
+#pragma unroll
+    for (int c = 0; c < RC; ++c) acc[a][c] = T(0);
+#pragma unroll 8
+  for (int p = 0; p < NB; ++p) {
+    T av[RA], bv[RC];
+#pragma unroll
+    for (int a = 0; a < RA; ++a) av[a] = A[(ty + TY * a) * LD + p];
+#pragma unroll
+    for (int c = 0; c < RC; ++c) bv[c] = Bt[(tx + 16 * c) * LD + p];
+#pragma unroll
+    for (int a = 0; a < RA; ++a)
+#pragma unroll
+      for (int c = 0; c < RC; ++c) acc[a][c] += av[a] * bv[c];
+  }
+}
+
+template <typename T, int NB>
+constexpr size_t factor_smem() {
+  return sizeof(T) * (6 * NB * tile_ld<NB>() + 6 * NB + 2);
+}
+
+template <typename T, int NB, int NT>
+__global__ void __launch_bounds__(NT)
+tridiag_factor_kernel(const T* __restrict__ Ad, const T* __restrict__ Bs,
+                      const T* __restrict__ delta, T* __restrict__ Ck,
+                      T* __restrict__ Ci, T* __restrict__ Ek,
+                      int* __restrict__ ok_out, int K, int nb) {
+  constexpr int LD = tile_ld<NB>(), TY = NT / 16;
+  constexpr int RA = NB * 16 / NT, RC = NB / 16;
+  static_assert(RA >= 1 && NB % 16 == 0, "NB x NB tiles on NT threads");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* S = reinterpret_cast<T*>(smem_raw);   // A_k + dI - E E^T, then C_k
+  T* X = S + NB * LD;                      // C_k^{-1}
+  T* E = X + NB * LD;                      // E_{k-1}, then E_k
+  T* Am = E + NB * LD;                     // A_k
+  T* Bm = Am + NB * LD;                    // B_k in Bm[k & 1]
+  T* vec = Bm + 2 * NB * LD;               // chol_tile's scratch
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int nn = nb * nb;
+  const long long blk = nn;
+  const T* A_b = Ad + (long long)b * K * blk;
+  const T* B_b = Bs + (long long)b * (K - 1) * blk;
+  T* Ck_b = Ck + (long long)b * K * blk;
+  T* Ci_b = Ci + (long long)b * K * blk;
+  T* Ek_b = Ek + (long long)b * (K - 1) * blk;
+  const T dlt = delta[b];
+
+  // E_{-1} = 0, X's strict upper triangle zero, and B's padding zero
+  for (int e = tid; e < NB * LD; e += NT) {
+    E[e] = T(0);
+    X[e] = T(0);
+    Bm[e] = T(0);
+    Bm[NB * LD + e] = T(0);
+  }
+  int own[tile_entries<NB, NT>()];
+  tile_owner<NB, NT>(own, tid);
+  int ok = 1;
+  T acc[RA][RC];
+  __syncthreads();
+  fetch_block<T, NB, NT>(Am, A_b, nb, ty, tx);
+  if (K > 1) fetch_block<T, NB, NT>(Bm, B_b, nb, ty, tx);
+
+  for (int k = 0; k < K; ++k) {
+    T* Bk = Bm + (k & 1) * NB * LD;
+    cp_async_wait_all();
+    // 1. S = (A_k + delta I) - E_{k-1} E_{k-1}^T on the lower triangle
+    //    (upper zeroed, the identity past nb); a thread reads only the
+    //    entries of A_k it copied itself, so no barrier is needed first
+    band_product<T, NB, NT>(E, E, acc, ty, tx);
+#pragma unroll
+    for (int a = 0; a < RA; ++a)
+#pragma unroll
+      for (int c = 0; c < RC; ++c) {
+        const int r = ty + TY * a, cc = tx + 16 * c;
+        T s = T(0);
+        if (cc <= r)
+          s = r < nb ? (Am[r * LD + cc] + (r == cc ? dlt : T(0))) - acc[a][c]
+                     : (r == cc ? T(1) : T(0));
+        S[r * LD + cc] = s;
+      }
+    __syncthreads();
+
+    // the next stage's blocks, in flight while this stage factors (B_k's
+    // buffer is read below, so B_{k+1} goes to the other one)
+    if (k + 1 < K) fetch_block<T, NB, NT>(Am, A_b + (k + 1) * blk, nb, ty, tx);
+    if (k + 2 < K)
+      fetch_block<T, NB, NT>(Bm + ((k + 1) & 1) * NB * LD,
+                             B_b + (k + 1) * blk, nb, ty, tx);
+
+    // 2. C_k and C_k^{-1} (chol_tile starts and ends with a barrier)
+    chol_tile<T, NB, NT, true>(S, X, vec, own, tid, ok);
+
+    // 3. C_k and X out; E_k = B_k X^T
+    if (k < K - 1) band_product<T, NB, NT>(Bk, X, acc, ty, tx);
+#pragma unroll
+    for (int a = 0; a < RA; ++a)
+#pragma unroll
+      for (int c = 0; c < RC; ++c) {
+        const int r = ty + TY * a, cc = tx + 16 * c;
+        const bool in = r < nb && cc < nb;
+        if (in) {
+          Ck_b[k * blk + r * nb + cc] = S[r * LD + cc];
+          Ci_b[k * blk + r * nb + cc] = X[r * LD + cc];
+        }
+        if (k < K - 1) {
+          E[r * LD + cc] = acc[a][c];
+          if (in) Ek_b[k * blk + r * nb + cc] = acc[a][c];
+        }
+      }
+    __syncthreads();
+  }
+  if (tid == 0) ok_out[b] = ok;
+}
+
+// --- the solve (K5)
 
 // One nb x nb block (row-major in global memory) into registers: element
 // e = tid + i * THREADS goes to reg[i].
@@ -66,126 +241,23 @@ __device__ __forceinline__ void load_block(T (&reg)[PER_T], const T* src,
   }
 }
 
-// The registers of load_block into a padded shared block (leading dim ld).
-template <typename T>
-__device__ __forceinline__ void store_block(T* dst, const T (&reg)[PER_T],
-                                            int nb, int ld, int tid) {
+// Where load_block's registers go in a shared block of leading dimension
+// ld: computed once, so no loop divides by the runtime nb.
+__device__ __forceinline__ void block_offsets(int (&off)[PER_T], int nb,
+                                              int ld, int tid) {
 #pragma unroll
   for (int i = 0; i < PER_T; ++i) {
     const int e = tid + i * THREADS;
-    if (e < nb * nb) dst[(e / nb) * ld + e % nb] = reg[i];
+    off[i] = e < nb * nb ? (e / nb) * ld + e % nb : -1;
   }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-tridiag_factor_kernel(const T* __restrict__ Ad, const T* __restrict__ Bs,
-                      const T* __restrict__ delta, T* __restrict__ Ck,
-                      T* __restrict__ Ci, T* __restrict__ Ek,
-                      int* __restrict__ ok_out, int K, int nb) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = nb + 1;
-  T* S = reinterpret_cast<T*>(smem_raw);   // A_k + dI - E E^T, then C_k
-  T* X = S + nb * ld;                      // C_k^{-1}
-  T* E = X + nb * ld;                      // E_{k-1}, then E_k
-  T* Bm = E + nb * ld;                     // B_k
-  __shared__ int ok_s;
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nn = nb * nb;
-  const long long blk = nn;
-  const T* A_b = Ad + (long long)b * K * blk;
-  const T* B_b = Bs + (long long)b * (K - 1) * blk;
-  T* Ck_b = Ck + (long long)b * K * blk;
-  T* Ci_b = Ci + (long long)b * K * blk;
-  T* Ek_b = Ek + (long long)b * (K - 1) * blk;
-  const T dlt = delta[b];
-  const T tiny = tiny_pivot<T>();
-
-  for (int e = tid; e < nb * ld; e += THREADS) E[e] = T(0);   // E_{-1} = 0
-  if (tid == 0) ok_s = 1;
-  T a_reg[PER_T], b_reg[PER_T];
-  load_block(a_reg, A_b, nn, tid);
-  if (K > 1) load_block(b_reg, B_b, nn, tid);
-  __syncthreads();
-
-  for (int k = 0; k < K; ++k) {
-    // 1. S = (A_k + delta I) - E_{k-1} E_{k-1}^T on the lower triangle
-    //    (upper zeroed), B_k to shared memory
+__device__ __forceinline__ void store_block(T* dst, const T (&reg)[PER_T],
+                                            const int (&off)[PER_T]) {
 #pragma unroll
-    for (int i = 0; i < PER_T; ++i) {
-      const int e = tid + i * THREADS;
-      if (e < nn) {
-        const int r = e / nb, c = e % nb;
-        T s = T(0);
-        if (c <= r) {
-          T acc = T(0);
-          for (int p = 0; p < nb; ++p) acc += E[r * ld + p] * E[c * ld + p];
-          s = (a_reg[i] + (r == c ? dlt : T(0))) - acc;
-        }
-        S[r * ld + c] = s;
-      }
-    }
-    if (k < K - 1) store_block(Bm, b_reg, nb, ld, tid);
-    __syncthreads();
-
-    // the next stage's blocks, in flight while this stage computes
-    if (k + 1 < K) load_block(a_reg, A_b + (k + 1) * blk, nn, tid);
-    if (k + 2 < K) load_block(b_reg, B_b + (k + 1) * blk, nn, tid);
-
-    // 2. unblocked Cholesky of S: one barrier per column; column j-1 is
-    //    scaled in the same phase as the trailing update of column j
-    T dinv_prev = T(0);
-    for (int j = 0; j < nb; ++j) {
-      const T piv = S[j * ld + j];
-      const T dinv = T(1) / sqrt(piv > tiny ? piv : tiny);
-      if (tid == 0 && !(piv > T(0) && piv <= max_finite<T>())) ok_s = 0;
-      for (int e = tid; e < nn; e += THREADS) {
-        const int r = e / nb, c = e % nb;
-        if (r < c) continue;
-        if (c > j) {
-          S[r * ld + c] -= (S[r * ld + j] * dinv) * (S[c * ld + j] * dinv);
-        } else if (c == j - 1) {
-          S[r * ld + c] *= dinv_prev;
-        }
-      }
-      dinv_prev = dinv;
-      __syncthreads();
-    }
-    if (tid == 0) S[(nb - 1) * ld + nb - 1] *= dinv_prev;
-    __syncthreads();
-
-    // 3. X = C_k^{-1}: column j by forward substitution on thread j
-    if (tid < nb) {
-      const int j = tid;
-      for (int i = 0; i < nb; ++i) {
-        T v = T(0);
-        if (i >= j) {
-          T s = (i == j) ? T(1) : T(0);
-          for (int p = j; p < i; ++p) s -= S[i * ld + p] * X[p * ld + j];
-          v = s / S[i * ld + i];
-        }
-        X[i * ld + j] = v;
-      }
-    }
-    __syncthreads();
-
-    // 4. E_k = B_k X^T (X lower: p <= c); C_k and X out
-    for (int e = tid; e < nn; e += THREADS) {
-      const int r = e / nb, c = e % nb;
-      if (k < K - 1) {
-        T s = T(0);
-        for (int p = 0; p <= c; ++p) s += Bm[r * ld + p] * X[c * ld + p];
-        E[r * ld + c] = s;
-        Ek_b[k * blk + e] = s;
-      }
-      Ck_b[k * blk + e] = S[r * ld + c];
-      Ci_b[k * blk + e] = X[r * ld + c];
-    }
-    __syncthreads();
-  }
-  if (tid == 0) ok_out[b] = ok_s;
+  for (int i = 0; i < PER_T; ++i)
+    if (off[i] >= 0) dst[off[i]] = reg[i];
 }
 
 template <typename T>
@@ -194,7 +266,7 @@ tridiag_solve_kernel(const T* __restrict__ Ci, const T* __restrict__ Ek,
                      const T* __restrict__ rhs, T* __restrict__ x, int K,
                      int nb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = nb + 1;
+  const int ld = nb | 1;
   T* M = reinterpret_cast<T*>(smem_raw);   // Ci_k
   T* E = M + nb * ld;                      // E_{k-1} (forward), E_k (backward)
   T* v = E + nb * ld;                      // y_{k-1} (forward), x_{k+1} (backward)
@@ -210,13 +282,15 @@ tridiag_solve_kernel(const T* __restrict__ Ci, const T* __restrict__ Ek,
   T* x_b = x + (long long)b * K * nb;
 
   T m_reg[PER_T], e_reg[PER_T];
+  int off[PER_T];
+  block_offsets(off, nb, ld, tid);
   if (tid < nb) v[tid] = T(0);
   load_block(m_reg, Ci_b, nn, tid);
 
   // forward sweep: y_k = Ci_k (b_k - E_{k-1} y_{k-1}), y_k into x
   for (int k = 0; k < K; ++k) {
-    store_block(M, m_reg, nb, ld, tid);
-    if (k > 0) store_block(E, e_reg, nb, ld, tid);
+    store_block(M, m_reg, off);
+    if (k > 0) store_block(E, e_reg, off);
     __syncthreads();
     if (k + 1 < K) {
       load_block(m_reg, Ci_b + (k + 1) * blk, nn, tid);
@@ -242,8 +316,8 @@ tridiag_solve_kernel(const T* __restrict__ Ci, const T* __restrict__ Ek,
 
   // backward sweep: x_k = Ci_k^T (y_k - E_k^T x_{k+1})
   for (int k = K - 1; k >= 0; --k) {
-    store_block(M, m_reg, nb, ld, tid);
-    if (k < K - 1) store_block(E, e_reg, nb, ld, tid);
+    store_block(M, m_reg, off);
+    if (k < K - 1) store_block(E, e_reg, off);
     __syncthreads();
     if (k > 0) {
       load_block(m_reg, Ci_b + (k - 1) * blk, nn, tid);
@@ -273,25 +347,36 @@ int set_smem(Kern kern, size_t bytes) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T>
-int launch_factor(const void* Ad, const void* Bs, const void* delta, void* Ck,
-                  void* Ci, void* Ek, void* ok, int B, int K, int nb,
-                  void* stream) {
-  if (nb > MAX_NB) return (int)cudaErrorInvalidValue;
-  const size_t smem = 4 * (size_t)nb * (nb + 1) * sizeof(T);
-  int err = set_smem(tridiag_factor_kernel<T>, smem);
+template <typename T, int NB, int NT>
+int launch_factor_nb(const void* Ad, const void* Bs, const void* delta,
+                     void* Ck, void* Ci, void* Ek, void* ok, int B, int K,
+                     int nb, void* stream) {
+  const size_t smem = factor_smem<T, NB>();
+  int err = set_smem(tridiag_factor_kernel<T, NB, NT>, smem);
   if (err) return err;
-  tridiag_factor_kernel<T><<<B, THREADS, smem, (cudaStream_t)stream>>>(
+  tridiag_factor_kernel<T, NB, NT><<<B, NT, smem, (cudaStream_t)stream>>>(
       (const T*)Ad, (const T*)Bs, (const T*)delta, (T*)Ck, (T*)Ci, (T*)Ek,
       (int*)ok, K, nb);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
+int launch_factor(const void* Ad, const void* Bs, const void* delta, void* Ck,
+                  void* Ci, void* Ek, void* ok, int B, int K, int nb,
+                  void* stream) {
+  if (nb > MAX_NB) return (int)cudaErrorInvalidValue;
+  if (nb <= 32)
+    return launch_factor_nb<T, 32, 256>(Ad, Bs, delta, Ck, Ci, Ek, ok, B, K,
+                                        nb, stream);
+  return launch_factor_nb<T, 64, 512>(Ad, Bs, delta, Ck, Ci, Ek, ok, B, K, nb,
+                                      stream);
+}
+
+template <typename T>
 int launch_solve(const void* Ci, const void* Ek, const void* b, void* x,
                  int B, int K, int nb, void* stream) {
   if (nb > MAX_NB) return (int)cudaErrorInvalidValue;
-  const size_t smem = (2 * (size_t)nb * (nb + 1) + 2 * nb) * sizeof(T);
+  const size_t smem = (2 * (size_t)nb * (nb | 1) + 2 * nb) * sizeof(T);
   int err = set_smem(tridiag_solve_kernel<T>, smem);
   if (err) return err;
   tridiag_solve_kernel<T><<<B, THREADS, smem, (cudaStream_t)stream>>>(

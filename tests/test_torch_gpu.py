@@ -173,3 +173,58 @@ def test_tridiag_factor_rejects_non_pd(cuda, dt):
     ok = tp.pallas_tridiag_factor(Ad, Bs, 0.0)[3]
     okr = tp.xla_tridiag_factor_inv(Ad, Bs, 0.0)[3]
     assert ok.tolist() == okr.tolist() == [True, False, True]
+
+
+def _spd_on_card(rng, B, n, dt, dev):
+    """A A^T + n I with A from the seeded generator, formed on the card in
+    float64 (numpy would take minutes at n = 1024, B = 64)."""
+    A = torch.as_tensor(rng.normal(size=(B, n, n)), dtype=torch.float64,
+                        device=dev)
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    return (A @ A.transpose(-1, -2) + n * eye).to(dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 3, 16, 64])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 130, 256, 1024])
+def test_chol_matches_xla_chol(cuda, dt, n, B):
+    """K2 at every cluster size its rule picks (8 at B <= 16, 2 at B = 64)
+    and at ragged panels, against `xla_chol`."""
+    Q = _spd_on_card(np.random.default_rng(1000 * n + B), B, n, dt, cuda)
+    before = ops.launch_counts()["chol"]
+    L, d, ok = ch.pallas_chol(Q)
+    Lr, dr, okr = ch.xla_chol(Q)
+    assert ops.launch_counts()["chol"] == before + 1
+    assert ok.tolist() == okr.tolist() == [True] * B
+    assert _rel_err(L, Lr) <= TOL[dt] and _rel_err(d, dr) <= TOL[dt]
+    assert bool((torch.triu(L, 1) == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_chol_flags_only_the_instance_with_a_late_bad_pivot(cuda, dt):
+    """The first bad pivot of instance 1 lies in the third 64-column panel;
+    its neighbours are SPD and keep ok."""
+    Q = _spd_on_card(np.random.default_rng(9), 3, 200, dt, cuda)
+    Q[1, 150, 150] = -1.0
+    ok = ch.pallas_chol(Q)[2]
+    okr = ch.xla_chol(Q)[2]
+    assert ok.tolist() == okr.tolist() == [True, False, True]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nb", [1, 31, 32, 33, 63, 64])
+def test_tridiag_factor_every_tile_width(cuda, dt, nb):
+    """K7 on both of its compile-time tile widths (32 and 64) and their
+    ragged edges, against `xla_tridiag_factor_inv`."""
+    from onephase_tpu_torch.ops import tridiag_pallas as tp
+    rng = np.random.default_rng(nb)
+    Ad, Bs = _band(rng, 2, 6, nb, dt, cuda)
+    delta = torch.as_tensor([0.0, 1e-3], dtype=dt, device=cuda)
+    Ck, Ci, Ek, ok = tp.pallas_tridiag_factor(Ad, Bs, delta)
+    Ckr, Cir, Ekr, okr = tp.xla_tridiag_factor_inv(Ad, Bs, delta)
+    assert ok.tolist() == okr.tolist() == [True, True]
+    for got, want in ((Ck, Ckr), (Ci, Cir), (Ek, Ekr)):
+        assert _rel_err(got, want) <= TOL[dt]

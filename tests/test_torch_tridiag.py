@@ -46,7 +46,8 @@ def _rel(got, want, tol):
 
 
 @pytest.mark.parametrize("K, nb, delta", [(7, 5, 1e-3), (1, 4, 0.0),
-                                          (2, 3, 0.5), (12, 8, 1e-3)])
+                                          (2, 3, 0.5), (12, 8, 1e-3),
+                                          (3, 63, 1e-3)])
 def test_tridiag_factor_solve_matvec_match_jax(K, nb, delta):
     Ad, Bs, b = _spd_band(K, nb, seed=K + nb)
     jf = jbt.tridiag_factor(jnp.asarray(Ad), jnp.asarray(Bs), delta)
@@ -119,7 +120,8 @@ def interpret():
 
 
 @pytest.mark.parametrize("dt", ["float32", "float64"])
-@pytest.mark.parametrize("K, nb", [(8, 3), (6, 16), (1, 5), (12, 8)])
+@pytest.mark.parametrize("K, nb", [(8, 3), (6, 16), (1, 5), (12, 8),
+                                   (3, 63)])
 def test_pallas_wrappers_plain_match_jax_interpret(K, nb, dt, interpret):
     """The wrappers' plain versions (CPU tensors) against the JAX Pallas
     kernels in interpret mode, and no launch counted on the CPU."""
