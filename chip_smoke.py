@@ -27,12 +27,15 @@ three paths on the `pallas` lane:
 K6 (the triangle-tiled fused Q) lies on no path of either package: it is
 held in the kernel phase, against its plain version and against K1.
 
-The kernel phase also times K2 against `torch.linalg.cholesky_ex` (its
-library yardstick, never called by the port) in turns at both dense shapes,
-with K2's achieved TFLOP/s beside its bound, and K7 against its plain
-version in turns with its time per stage at both band shapes; the build's
-`-Xptxas -v` lines (registers, spills) of the K2, K5 and K7 kernels are
-printed first.
+The kernel phase also times, in turns at both dense shapes (n=256/B=16
+and n=1024/B=64), K1 against its plain version, K2 against its plain
+version and `torch.linalg.cholesky_ex`, and K3 against its plain version
+and `torch.cholesky_inverse` (the library yardsticks, never called by the
+port) with its two launches (triangular inverse, Gram product) timed
+apart, each with its achieved TFLOP/s beside its bound; and K7 against its
+plain version in turns with its time per stage at both band shapes.  The
+build's `-Xptxas -v` lines (registers, spills) of the K2, K3, K5, K6 and
+K7 kernels are printed first.
 
 Every phase raises on failure, so the script exits nonzero and never prints
 the final line; without a CUDA card it refuses to run.  The line before
@@ -180,13 +183,14 @@ def kernel_parity(dev):
     """K1-K4 against their plain versions, f32 and f64, at the main path's
     shapes, a ragged n, m = 0, n = 2048 and a non-PD Q.  Returns, per
     kernel, its record (max abs error, kernel, plain and library ms, bound)
-    at the largest main-path shape in float32."""
+    at the largest main-path shape in float32, with its times at
+    n=256/B=16 beside them (`*_n256`)."""
     import torch
     from onephase_tpu_torch.ops import cholesky as ch
     from onephase_tpu_torch.ops import schur
 
     rng = np.random.default_rng(0)
-    record, k2_small = {}, {}
+    record, small = {}, {}
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[-1]
         tol = TOL[dname]
@@ -208,13 +212,20 @@ def kernel_parity(dev):
             e, ea = _err(got, ref)
             line = f"K1 fused_q {dname} n={n} m={m} B={B}: err {e:.3e}"
             if n in (256, 1024):
-                ms = _time_ms(lambda: schur.pallas_fused_q(Jc, w, H, bnd))
-                pms = _time_ms(lambda: schur.xla_fused_q(Jc, w, H, bnd))
-                line += f" kernel {ms:.4f} ms plain {pms:.4f} ms"
+                ms, pms = _time_turns(
+                    lambda: schur.pallas_fused_q(Jc, w, H, bnd),
+                    lambda: schur.xla_fused_q(Jc, w, H, bnd))
+                bd1 = _fused_q_bound(B, m, n, Jc.element_size())
+                line += (f" kernel {ms:.4f} ms plain {pms:.4f} ms (in turns)"
+                         f" bound {bd1[0]:.4f} ms")
+                if dtype == torch.float32 and n == 256:
+                    small["fused_q"] = dict(
+                        ms_n256=ms, plain_ms_n256=pms, library_ms_n256=None,
+                        bound_ms_n256=bd1[0])
                 if n == 1024 and dtype == torch.float32:
                     record["fused_q"] = dict(
                         max_abs_err=ea, ms=ms, plain_ms=pms, library_ms=None,
-                        **_kv(_fused_q_bound(B, m, n, Jc.element_size())))
+                        **_kv(bd1), **small["fused_q"])
             print(line, flush=True)
             if not e <= tol:
                 raise RuntimeError(f"K1 disagrees: {line}")
@@ -238,6 +249,8 @@ def kernel_parity(dev):
             Mr = ch.xla_chol_inv_from_L(Lr)
             torch.cuda.synchronize()
             e3, e3a = _err(M, Mr)
+            if not torch.equal(M, M.mT):
+                raise RuntimeError(f"K3's M is not symmetric (n={n})")
             M4, d4, ok4 = ch.pallas_chol_inv(Q)
             torch.cuda.synchronize()
             e4 = max(_err(M4, M)[0], _err(d4, d)[0])
@@ -246,37 +259,61 @@ def kernel_parity(dev):
             if n in (256, 1024):
                 # K2 and its yardstick, cuSOLVER's batched Cholesky (never
                 # called by the port), in turns
-                t2, l2 = _time_turns(lambda: ch.pallas_chol(Q),
-                                     lambda: torch.linalg.cholesky_ex(Q))
-                p2 = _time_ms(lambda: ch.xla_chol(Q))
-                t3 = _time_ms(lambda: ch.pallas_tri_inv_gram(L))
-                p3 = _time_ms(lambda: ch.xla_chol_inv_from_L(Lr))
+                t2, l2, p2 = _time_turns(lambda: ch.pallas_chol(Q),
+                                         lambda: torch.linalg.cholesky_ex(Q),
+                                         lambda: ch.xla_chol(Q))
+                # K3, its plain version and its yardstick cholesky_inverse
+                # (M = (L L^T)^-1 from L), with K3's two launches apart
+                Li, Mg = torch.empty_like(L), torch.empty_like(L)
+                t3, p3, l3, ti3, tg3 = _time_turns(
+                    lambda: ch.pallas_tri_inv_gram(L),
+                    lambda: ch.xla_chol_inv_from_L(Lr),
+                    lambda: torch.cholesky_inverse(Lr),
+                    lambda: ch.launch_tri_inv(L, Li),
+                    lambda: schur.launch_fused_q_tri(Li, None, None, None,
+                                                     Mg, lower=True))
                 el = Q.element_size()
                 # K2 reads Q, writes L, d, ok: B n^3 / 3 operations
                 bd2 = _bound(el * (2 * B * n * n + B * n) + 4 * B,
                              B * n ** 3 / 3, dname)
-                tflops = B * n ** 3 / 3 / (t2 * 1e-3) / 1e12
-                line += (f" | chol {t2:.4f} ms ({tflops:.2f} TFLOP/s; bound "
-                         f"{bd2[0]:.4f} ms = {PEAK_FLOPS[dname] / 1e12:.0f} "
-                         f"TFLOP/s) cholesky_ex {l2:.4f} ms ({t2 / l2:.2f}x) "
-                         f"plain {p2:.4f} ms"
-                         f" | tri_inv_gram {t3:.4f} ms plain {p3:.4f} ms")
+                # K3 reads L, writes M: L^-1 (B n^3 / 3) and the Gram
+                # product (B n^3 / 3); each half alone reads one (B, n, n)
+                # and writes one
+                bd3 = _bound(el * 2 * B * n * n, 2 * B * n ** 3 / 3, dname)
+                bdh = _bound(el * 2 * B * n * n, B * n ** 3 / 3, dname)
+
+                def tf(flops, ms):
+                    return flops / (ms * 1e-3) / 1e12
+
+                f3 = B * n ** 3 / 3
+                line += (f" | chol {t2:.4f} ms ({tf(f3, t2):.2f} TFLOP/s; "
+                         f"bound {bd2[0]:.4f} ms = "
+                         f"{PEAK_FLOPS[dname] / 1e12:.0f} TFLOP/s) "
+                         f"cholesky_ex {l2:.4f} ms ({t2 / l2:.2f}x) plain "
+                         f"{p2:.4f} ms | tri_inv_gram {t3:.4f} ms "
+                         f"({tf(2 * f3, t3):.2f} TFLOP/s; bound "
+                         f"{bd3[0]:.4f} ms) plain {p3:.4f} ms "
+                         f"({t3 / p3:.2f}x) cholesky_inverse {l3:.4f} ms "
+                         f"({t3 / l3:.2f}x); its launches: tri_inv "
+                         f"{ti3:.4f} ms ({tf(f3, ti3):.2f} TFLOP/s) gram "
+                         f"{tg3:.4f} ms ({tf(f3, tg3):.2f} TFLOP/s), bound "
+                         f"{bdh[0]:.4f} ms each (in turns)")
                 if dtype == torch.float32 and n == 256:
-                    k2_small = dict(ms_n256=t2, plain_ms_n256=p2,
-                                    library_ms_n256=l2, bound_ms_n256=bd2[0])
+                    small["chol"] = dict(ms_n256=t2, plain_ms_n256=p2,
+                                         library_ms_n256=l2,
+                                         bound_ms_n256=bd2[0])
+                    small["tri_inv_gram"] = dict(
+                        ms_n256=t3, plain_ms_n256=p3, library_ms_n256=l3,
+                        bound_ms_n256=bd3[0], tri_inv_ms_n256=ti3,
+                        gram_ms_n256=tg3)
                 if n == 1024 and dtype == torch.float32:
-                    # library yardstick of K3: cholesky_inverse
-                    # (M = (L L^T)^-1 from L)
-                    l3 = _time_ms(lambda: torch.cholesky_inverse(Lr))
-                    # K3 reads L, writes M: L^-1 (n^3 / 3) + the Gram
-                    # product (n^3 / 3)
                     record["chol"] = dict(
                         max_abs_err=e2a, ms=t2, plain_ms=p2, library_ms=l2,
-                        **_kv(bd2), **k2_small)
+                        **_kv(bd2), **small["chol"])
                     record["tri_inv_gram"] = dict(
                         max_abs_err=e3a, ms=t3, plain_ms=p3, library_ms=l3,
-                        **_kv(_bound(el * 2 * B * n * n, 2 * B * n ** 3 / 3)))
-                    line += f" | cholesky_inverse {l3:.4f} ms"
+                        **_kv(bd3), tri_inv_ms=ti3, gram_ms=tg3,
+                        **small["tri_inv_gram"])
             print(line, flush=True)
             if not (e2 <= tol and e3 <= tol and e4 <= tol):
                 raise RuntimeError(f"K2/K3/K4 disagree: {line}")
@@ -727,7 +764,8 @@ def main() -> int:
     _build.library()
     print(f"kernel build: {_build.BUILD_SECONDS:.1f} s", flush=True)
     for ln in _ptxas_report(_build.BUILD_LOG, (
-            "chol_kernel", "tridiag_factor_kernel", "tridiag_solve_kernel")):
+            "chol_kernel", "tri_inv_kernel", "fused_q_tri_kernel",
+            "tridiag_factor_kernel", "tridiag_solve_kernel")):
         print(f"  ptxas: {ln}", flush=True)
 
     record = kernel_parity(dev)
@@ -786,9 +824,10 @@ def main() -> int:
                 "fused_q_tri": record["fused_q_tri"].pop("launches")}
     for k in ("tridiag_factor", "tridiag_solve"):
         record[k]["launches_banded"] = banded["launches"][k]
-    # K2's times are at n=1024/B=64 (and n=256/B=16): its launches on the
-    # 1024/512/64 run beside those of the bench run
-    record["chol"]["launches_n1024"] = big["launches"]["chol"]
+    # K1-K3's times are at n=1024/B=64 (and n=256/B=16): their launches on
+    # the 1024/512/64 run beside those of the bench run
+    for k in ("fused_q", "chol", "tri_inv_gram"):
+        record[k]["launches_n1024"] = big["launches"][k]
     record["fused_q_tri"]["path"] = "none: launches of the kernel phase"
     sources = {
         "fused_q": ("onephase_tpu_torch/csrc/fused_q.cuh",

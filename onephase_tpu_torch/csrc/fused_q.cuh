@@ -18,10 +18,6 @@
 // shared-memory value feeds 4 FMAs.  H and the diagonal are added in the
 // epilogue.  The ragged edge is masked, nothing is padded.  A shared
 // (folded-constant) Jc or H is read with batch stride 0.
-//
-// `lower` declares Jc square and lower triangular: the sum for an output
-// tile then starts at row max(i0, j0), skipping terms that are zero.  The
-// Gram product M = Li^T Li of csrc/tri_inv.cu uses it (w, H, bnd null).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -85,7 +81,7 @@ __global__ void __launch_bounds__(FQ_THREADS)
 fused_q_kernel(const T* __restrict__ Jc, long long jc_bs,
                const T* __restrict__ w, const T* __restrict__ H,
                long long h_bs, const T* __restrict__ bnd,
-               T* __restrict__ Q, int m, int n, int lower) {
+               T* __restrict__ Q, int m, int n) {
   __shared__ T As[FQ_KC][FQ_TILE];  // Jc[k, i0 + c] * w[k]
   __shared__ T Bs[FQ_KC][FQ_TILE];  // Jc[k, j0 + c]
   const int b = blockIdx.z;
@@ -97,8 +93,7 @@ fused_q_kernel(const T* __restrict__ Jc, long long jc_bs,
   const T* wb = w ? w + (long long)b * m : nullptr;
 
   T acc[4][4];
-  fq_tile_product<T>(J, wb, m, n, i0, j0, lower ? max(i0, j0) : 0, As, Bs,
-                     acc);
+  fq_tile_product<T>(J, wb, m, n, i0, j0, 0, As, Bs, acc);
 
   const T* Hb = H ? H + (long long)b * h_bs : nullptr;
 #pragma unroll
@@ -120,12 +115,12 @@ fused_q_kernel(const T* __restrict__ Jc, long long jc_bs,
 template <typename T>
 int launch_fused_q(const void* Jc, long long jc_bs, const void* w,
                    const void* H, long long h_bs, const void* bnd, void* Q,
-                   int B, int m, int n, int lower, void* stream) {
+                   int B, int m, int n, void* stream) {
   const int nt = (n + FQ_TILE - 1) / FQ_TILE;
   dim3 grid(nt, nt, B);
   fused_q_kernel<T><<<grid, FQ_THREADS, 0, (cudaStream_t)stream>>>(
       (const T*)Jc, jc_bs, (const T*)w, (const T*)H, h_bs, (const T*)bnd,
-      (T*)Q, m, n, lower);
+      (T*)Q, m, n);
   return (int)cudaGetLastError();
 }
 

@@ -9,9 +9,17 @@
 // scatter, the mirror and the H + diagonal adds to XLA; here one launch
 // writes the full symmetric Q.
 //
+// It is also the Gram half of K3 (ops/cholesky.py:pallas_tri_inv_gram):
+// M = Li^T Li with Jc = Li = L^-1 (square, lower triangular), w, H and bnd
+// null, in the `lower` mode, where the sum for tile (i, j), i >= j, starts
+// at row i0 and skips the exact zeros of Li above it.  That is half the
+// work of the full (nt, nt) grid, with the same products summed in the
+// same order: IEEE products commute, so the mirrored tile holds the values
+// the full grid computed there, and M stays what it was bit for bit.
+//
 // What bounds it on the H100: plain FP32/FP64 FMA rate, as for the full
 // product of fused_q.cuh, on half its work: B m n (n + 1) operations
-// against 2 B m n^2.
+// against 2 B m n^2 (the Gram product: B n^3 / 3 against 2 B n^3 / 3).
 //
 // What the simple design does about it: grid (T, B), T = nt (nt + 1) / 2;
 // the flat tile index t = i (i + 1) / 2 + j is decoded in integers (the
@@ -37,7 +45,7 @@ __global__ void __launch_bounds__(FQ_THREADS)
 fused_q_tri_kernel(const T* __restrict__ Jc, long long jc_bs,
                    const T* __restrict__ w, const T* __restrict__ H,
                    long long h_bs, const T* __restrict__ bnd,
-                   T* __restrict__ Q, int m, int n) {
+                   T* __restrict__ Q, int m, int n, int lower) {
   // the k loop's As/Bs (2 x FQ_KC x FQ_TILE) and, after it, the staging
   // tile Ts (FQ_TILE x FQ_LDT) share one buffer
   static_assert(2 * FQ_KC * FQ_TILE <= FQ_TILE * FQ_LDT, "staging tile");
@@ -59,7 +67,7 @@ fused_q_tri_kernel(const T* __restrict__ Jc, long long jc_bs,
   const T* wb = w ? w + (long long)b * m : nullptr;
 
   T acc[4][4];
-  fq_tile_product<T>(J, wb, m, n, i0, j0, 0, As, Bs, acc);
+  fq_tile_product<T>(J, wb, m, n, i0, j0, lower ? i0 : 0, As, Bs, acc);
 
 #pragma unroll
   for (int r = 0; r < 4; ++r)
@@ -105,14 +113,15 @@ fused_q_tri_kernel(const T* __restrict__ Jc, long long jc_bs,
 template <typename T>
 int launch_fused_q_tri(const void* Jc, long long jc_bs, const void* w,
                        const void* H, long long h_bs, const void* bnd,
-                       void* Q, int B, int m, int n, void* stream) {
+                       void* Q, int B, int m, int n, int lower,
+                       void* stream) {
   const long long nt = (n + FQ_TILE - 1) / FQ_TILE;
   const long long tiles = nt * (nt + 1) / 2;
   if (B > 65535 || tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)tiles, B);
   fused_q_tri_kernel<T><<<grid, FQ_THREADS, 0, (cudaStream_t)stream>>>(
       (const T*)Jc, jc_bs, (const T*)w, (const T*)H, h_bs, (const T*)bnd,
-      (T*)Q, m, n);
+      (T*)Q, m, n, lower);
   return (int)cudaGetLastError();
 }
 
@@ -121,15 +130,17 @@ int launch_fused_q_tri(const void* Jc, long long jc_bs, const void* w,
 extern "C" int op_fused_q_tri_f32(const void* Jc, long long jc_bs,
                                   const void* w, const void* H,
                                   long long h_bs, const void* bnd, void* Q,
-                                  int B, int m, int n, void* stream) {
+                                  int B, int m, int n, int lower,
+                                  void* stream) {
   return onephase::launch_fused_q_tri<float>(Jc, jc_bs, w, H, h_bs, bnd, Q,
-                                             B, m, n, stream);
+                                             B, m, n, lower, stream);
 }
 
 extern "C" int op_fused_q_tri_f64(const void* Jc, long long jc_bs,
                                   const void* w, const void* H,
                                   long long h_bs, const void* bnd, void* Q,
-                                  int B, int m, int n, void* stream) {
+                                  int B, int m, int n, int lower,
+                                  void* stream) {
   return onephase::launch_fused_q_tri<double>(Jc, jc_bs, w, H, h_bs, bnd, Q,
-                                              B, m, n, stream);
+                                              B, m, n, lower, stream);
 }

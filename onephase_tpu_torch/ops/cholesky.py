@@ -13,8 +13,9 @@ tensors -> the plain version):
   `csrc/chol.cu`.  Q (B, n, n) -> (L, d, ok).
 - `pallas_tri_inv_gram`: replaces onephase_tpu/ops/cholesky.py:
   pallas_tri_inv_gram (`_tri_inv_gram_kernel`) with `csrc/tri_inv.cu`
-  (the columns of L^-1) followed by the tiled Gram product of
-  `csrc/fused_q.cu`.  L (B, n, n) -> M (B, n, n).
+  (the columns of L^-1) followed by the Gram product over the lower tile
+  pairs, the kernel of `csrc/fused_q_tri.cu` in its lower-triangular mode.
+  L (B, n, n) -> M (B, n, n), symmetric bit for bit.
 - `pallas_chol_inv`: the two in sequence (the JAX package's
   pallas_chol_inv).
 
@@ -29,7 +30,7 @@ import torch
 
 from . import LAUNCHES
 from . import _build
-from .schur import launch_fused_q
+from .schur import launch_fused_q_tri
 
 _FLOATS = (torch.float32, torch.float64)
 
@@ -120,6 +121,15 @@ def xla_chol_inv_from_L(L):
     return Li.transpose(-1, -2) @ Li
 
 
+def launch_tri_inv(L, Li):
+    """Launch `csrc/tri_inv.cu`: Li = L^-1 for validated CUDA tensors."""
+    with torch.cuda.device(L.device):
+        err = _build.entry("op_tri_inv", L.dtype)(
+            L.data_ptr(), Li.data_ptr(), L.shape[0], L.shape[-1],
+            _build.stream_ptr(L))
+    _build.check(err, "tri_inv")
+
+
 def pallas_tri_inv_gram(L):
     """M = (L L^T)^-1 = L^-T L^-1 for a batch of lower-triangular L (the
     strict upper triangle must be zero, as `pallas_chol` leaves it)."""
@@ -131,11 +141,8 @@ def pallas_tri_inv_gram(L):
     M = torch.empty_like(L)
     if B == 0 or n == 0:
         return M
-    with torch.cuda.device(L.device):
-        err = _build.entry("op_tri_inv", L.dtype)(
-            L.data_ptr(), Li.data_ptr(), B, n, _build.stream_ptr(L))
-    _build.check(err, "tri_inv")
-    launch_fused_q(Li, None, None, None, M, lower=True)
+    launch_tri_inv(L, Li)
+    launch_fused_q_tri(Li, None, None, None, M, lower=True)
     LAUNCHES["tri_inv_gram"] += 1
     return M
 

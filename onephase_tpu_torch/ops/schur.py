@@ -9,7 +9,9 @@ triple products, docs/one-phase.tex:901-912).
 - `pallas_fused_q_tri`: the triangle-tiled form of the same function.  It
   replaces the TPU kernel onephase_tpu/ops/schur.py:pallas_fused_q_tri
   (`_fused_q_tri_kernel`) with the CUDA C++ kernel `csrc/fused_q_tri.cu`.
-  No lane dispatches it, in either package.
+  No lane dispatches it, in either package; its kernel, in its
+  lower-triangular mode, is the Gram half of `ops/cholesky.py:
+  pallas_tri_inv_gram`.
 - `xla_fused_q`: the plain PyTorch version of the same function (the port
   of the JAX package's XLA expression); the other lanes use it, and the
   wrapper uses it for CPU tensors.
@@ -80,7 +82,7 @@ def pallas_fused_q(Jc, w, H, bnd):
     Q = torch.empty(B, n, n, dtype=bnd.dtype, device=bnd.device)
     if B == 0 or n == 0:
         return Q
-    launch_fused_q(Jc, w, H, bnd, Q, lower=False)
+    launch_fused_q(Jc, w, H, bnd, Q)
     LAUNCHES["fused_q"] += 1
     return Q
 
@@ -98,12 +100,7 @@ def pallas_fused_q_tri(Jc, w, H, bnd):
     Q = torch.empty(B, n, n, dtype=bnd.dtype, device=bnd.device)
     if B == 0 or n == 0:
         return Q
-    with torch.cuda.device(Q.device):
-        err = _build.entry("op_fused_q_tri", Q.dtype)(
-            _build.ptr(Jc), _batch_stride(Jc), _build.ptr(w), _build.ptr(H),
-            _batch_stride(H), _build.ptr(bnd), _build.ptr(Q), B, m, n,
-            _build.stream_ptr(Q))
-    _build.check(err, "fused_q_tri")
+    launch_fused_q_tri(Jc, w, H, bnd, Q, lower=False)
     LAUNCHES["fused_q_tri"] += 1
     return Q
 
@@ -113,19 +110,30 @@ def _batch_stride(t):
     return 0 if (t is None or t.dim() == 2) else t.shape[-2] * t.shape[-1]
 
 
-def launch_fused_q(Jc, w, H, bnd, Q, lower: bool):
+def launch_fused_q(Jc, w, H, bnd, Q):
     """Launch `csrc/fused_q.cu` on validated operands (w, H, bnd may be
-    None).  `lower` declares Jc lower triangular (square), so each output
-    tile sums only over rows k >= max(its row, its column) — the Gram
-    product of the triangular inverse (ops/cholesky.py)."""
+    None)."""
     B, n = Q.shape[0], Q.shape[-1]
-    m = Jc.shape[-2]
     with torch.cuda.device(Q.device):
         err = _build.entry("op_fused_q", Q.dtype)(
             _build.ptr(Jc), _batch_stride(Jc), _build.ptr(w), _build.ptr(H),
-            _batch_stride(H), _build.ptr(bnd), _build.ptr(Q), B, m, n,
-            int(lower), _build.stream_ptr(Q))
+            _batch_stride(H), _build.ptr(bnd), _build.ptr(Q), B,
+            Jc.shape[-2], n, _build.stream_ptr(Q))
     _build.check(err, "fused_q")
+
+
+def launch_fused_q_tri(Jc, w, H, bnd, Q, lower: bool):
+    """Launch `csrc/fused_q_tri.cu` on validated operands (w, H, bnd may be
+    None).  `lower` declares Jc square and lower triangular, so tile (i, j),
+    i >= j, sums only over rows k >= i: the Gram product of the triangular
+    inverse (ops/cholesky.py)."""
+    B, n = Q.shape[0], Q.shape[-1]
+    with torch.cuda.device(Q.device):
+        err = _build.entry("op_fused_q_tri", Q.dtype)(
+            _build.ptr(Jc), _batch_stride(Jc), _build.ptr(w), _build.ptr(H),
+            _batch_stride(H), _build.ptr(bnd), _build.ptr(Q), B,
+            Jc.shape[-2], n, int(lower), _build.stream_ptr(Q))
+    _build.check(err, "fused_q_tri")
 
 
 def fused_q(Jc, w, H, bnd, use_pallas: bool):

@@ -112,6 +112,7 @@ def test_chol_tri_inv_gram_chol_inv_match_plain(cuda, dt, n, B):
     assert _rel_err(L, Lr) <= TOL[dt] and _rel_err(d, dr) <= TOL[dt]
     M = ch.pallas_tri_inv_gram(L)
     assert _rel_err(M, ch.xla_chol_inv_from_L(Lr)) <= TOL[dt]
+    assert torch.equal(M, M.mT)
     M4, d4, ok4 = ch.pallas_chol_inv(Q)
     assert bool(ok4.all())
     assert _rel_err(M4, M) <= TOL[dt] and _rel_err(d4, d) <= TOL[dt]
@@ -199,6 +200,48 @@ def test_chol_matches_xla_chol(cuda, dt, n, B):
     assert ok.tolist() == okr.tolist() == [True] * B
     assert _rel_err(L, Lr) <= TOL[dt] and _rel_err(d, dr) <= TOL[dt]
     assert bool((torch.triu(L, 1) == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 3, 16])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 63, 64, 65])
+def test_tri_inv_gram_every_tile_edge(cuda, dt, n, B):
+    """K3 across the edges of its tiles (32-row chunks and 64-column blocks
+    of the triangular inverse, 64-wide Gram tiles) against the plain
+    version, one launch counted per call; M symmetric bit for bit."""
+    Q = _spd_on_card(np.random.default_rng(2000 * n + B), B, n, dt, cuda)
+    L = ch.xla_chol(Q)[0].contiguous()
+    before = ops.launch_counts()["tri_inv_gram"]
+    M = ch.pallas_tri_inv_gram(L)
+    assert ops.launch_counts()["tri_inv_gram"] == before + 1
+    assert _rel_err(M, ch.xla_chol_inv_from_L(L)) <= TOL[dt]
+    assert torch.equal(M, M.mT)
+
+
+@pytest.mark.gpu
+def test_tri_inv_gram_ill_conditioned(cuda):
+    """Q = U diag(s) U^T in float32, s log-spaced down to 1e-6, U
+    orthogonal: the inverse of its factor loses about cond * eps in either
+    version, so K3 is held to the float64 inverse of the same L no worse
+    than 10x the plain version's error (both are forward substitutions with
+    the same first-order error bound; the factor covers their different
+    summation orders).  M stays finite and symmetric bit for bit."""
+    dt, cond, n, B = torch.float32, 1e6, 256, 4
+    rng = np.random.default_rng(11)
+    A = torch.as_tensor(rng.normal(size=(B, n, n)), dtype=torch.float64,
+                        device=cuda)
+    U = torch.linalg.qr(A)[0]
+    s = torch.logspace(0.0, -np.log10(cond), n, dtype=torch.float64,
+                       device=cuda)
+    Q = (U * s) @ U.mT
+    L, _, ok = ch.xla_chol((0.5 * (Q + Q.mT)).to(dt))
+    assert bool(ok.all())
+    L = L.contiguous()
+    ref = ch.xla_chol_inv_from_L(L.double())
+    M = ch.pallas_tri_inv_gram(L)
+    assert bool(torch.isfinite(M).all()) and torch.equal(M, M.mT)
+    assert _rel_err(M, ref) <= 10 * _rel_err(ch.xla_chol_inv_from_L(L), ref)
 
 
 @pytest.mark.gpu
