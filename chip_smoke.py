@@ -25,17 +25,20 @@ three paths on the `pallas` lane:
   `xla`.
 
 K6 (the triangle-tiled fused Q) lies on no path of either package: it is
-held in the kernel phase, against its plain version and against K1.
+held in the kernel phase, against its plain version and against K1 (whose
+lower triangle it must equal bit for bit).
 
 The kernel phase also times, in turns at both dense shapes (n=256/B=16
-and n=1024/B=64), K1 against its plain version, K2 against its plain
-version and `torch.linalg.cholesky_ex`, and K3 against its plain version
-and `torch.cholesky_inverse` (the library yardsticks, never called by the
+and n=1024/B=64), K1 against its plain version and `torch.baddbmm` (also
+at n=2048/m=1024/B=16), K2 against its plain version and
+`torch.linalg.cholesky_ex`, and K3 against its plain version and
+`torch.cholesky_inverse` (the library yardsticks, never called by the
 port) with its two launches (triangular inverse, Gram product) timed
-apart, each with its achieved TFLOP/s beside its bound; and K7 against its
-plain version in turns with its time per stage at both band shapes.  The
-build's `-Xptxas -v` lines (registers, spills) of the K2, K3, K5, K6 and
-K7 kernels are printed first.
+apart, each with its achieved TFLOP/s beside its bound; K6 in turns with
+K1, its plain version and `torch.baddbmm`; and K7 against its plain
+version in turns with its time per stage at both band shapes.  The
+build's `-Xptxas -v` lines (registers, spills) of the K1, K2, K3, K5, K6
+and K7 kernels are printed first.  Float32 products run without TF32.
 
 Every phase raises on failure, so the script exits nonzero and never prints
 the final line; without a CUDA card it refuses to run.  The line before
@@ -98,6 +101,19 @@ def _bound(nbytes, flops, dname="float32"):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dname] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _baddbmm_operands(Jc, w, H, B):
+    """The library yardstick's operands, prepared outside any timed region:
+    torch.baddbmm(Hb, A, Jb) = H + (Jc w)^T Jc, one cuBLAS batched product
+    (the rank-m body plus H; diag(bnd) is the one part it leaves out)."""
+    import torch
+    m, n = Jc.shape[-2:]
+    A = (Jc * w[:, :, None]).transpose(-1, -2).contiguous()
+    Jb = Jc.expand(B, m, n).contiguous()
+    Hb = torch.zeros(B, n, n, dtype=Jc.dtype, device=Jc.device) \
+        if H is None else H.expand(B, n, n)
+    return Hb, A, Jb
 
 
 def _fused_q_bound(B, m, n, el):
@@ -169,10 +185,13 @@ def _ptxas_report(log, kernels):
             current = next((k for k in kernels if k in ln), None)
             if current:
                 # the template arguments of the mangled name: the type,
-                # then the tile edge and thread count where there are any
+                # then the integers (tile edge, thread count, ...) and flags
+                # where there are any
                 args = ln.split(current, 1)[1].split("EEv")[0]
                 targs = [{"f": "float", "d": "double"}[args[1]]]
-                targs += re.findall(r"Li(\d+)E", args)
+                targs += [v if kind == "i" else ("true" if v == "1" else
+                                                 "false")
+                          for kind, v in re.findall(r"L([ib])(\d+)E", args)]
                 out.append(f"{current}<{', '.join(targs)}>")
         elif current and ("registers" in ln or "spill" in ln):
             out.append("    " + ln.strip().replace("ptxas info    : ", ""))
@@ -184,7 +203,7 @@ def kernel_parity(dev):
     shapes, a ragged n, m = 0, n = 2048 and a non-PD Q.  Returns, per
     kernel, its record (max abs error, kernel, plain and library ms, bound)
     at the largest main-path shape in float32, with its times at
-    n=256/B=16 beside them (`*_n256`)."""
+    n=256/B=16 beside them (`*_n256`; K1 also at n=2048/B=16, `*_n2048`)."""
     import torch
     from onephase_tpu_torch.ops import cholesky as ch
     from onephase_tpu_torch.ops import schur
@@ -196,7 +215,8 @@ def kernel_parity(dev):
         tol = TOL[dname]
         # --- K1 fused_q: (n, m, B, shared Jc/H)
         for n, m, B, shared in ((256, 128, 16, True), (1024, 512, 64, True),
-                                (130, 70, 3, False), (64, 0, 2, True)):
+                                (2048, 1024, 16, True), (130, 70, 3, False),
+                                (64, 0, 2, True)):
             jshape = (m, n) if shared else (B, m, n)
             Jc = torch.as_tensor(rng.normal(size=jshape) / np.sqrt(n),
                                  dtype=dtype, device=dev)
@@ -211,21 +231,30 @@ def kernel_parity(dev):
             torch.cuda.synchronize()
             e, ea = _err(got, ref)
             line = f"K1 fused_q {dname} n={n} m={m} B={B}: err {e:.3e}"
-            if n in (256, 1024):
-                ms, pms = _time_turns(
+            if n in (256, 1024, 2048):
+                Hb, A, Jb = _baddbmm_operands(Jc, w, H, B)
+                ms, pms, lms = _time_turns(
                     lambda: schur.pallas_fused_q(Jc, w, H, bnd),
-                    lambda: schur.xla_fused_q(Jc, w, H, bnd))
+                    lambda: schur.xla_fused_q(Jc, w, H, bnd),
+                    lambda: torch.baddbmm(Hb, A, Jb))
                 bd1 = _fused_q_bound(B, m, n, Jc.element_size())
-                line += (f" kernel {ms:.4f} ms plain {pms:.4f} ms (in turns)"
-                         f" bound {bd1[0]:.4f} ms")
+                tflops = B * m * n * (n + 1) / (ms * 1e-3) / 1e12
+                line += (f" kernel {ms:.4f} ms ({tflops:.2f} TFLOP/s of the "
+                         f"symmetric work) plain {pms:.4f} ms baddbmm "
+                         f"{lms:.4f} ms (in turns; {ms / pms:.2f}x plain, "
+                         f"{ms / lms:.2f}x baddbmm) bound {bd1[0]:.4f} ms")
                 if dtype == torch.float32 and n == 256:
                     small["fused_q"] = dict(
-                        ms_n256=ms, plain_ms_n256=pms, library_ms_n256=None,
+                        ms_n256=ms, plain_ms_n256=pms, library_ms_n256=lms,
                         bound_ms_n256=bd1[0])
                 if n == 1024 and dtype == torch.float32:
                     record["fused_q"] = dict(
-                        max_abs_err=ea, ms=ms, plain_ms=pms, library_ms=None,
+                        max_abs_err=ea, ms=ms, plain_ms=pms, library_ms=lms,
                         **_kv(bd1), **small["fused_q"])
+                if n == 2048 and dtype == torch.float32:
+                    record["fused_q"].update(
+                        ms_n2048=ms, plain_ms_n2048=pms, library_ms_n2048=lms,
+                        bound_ms_n2048=bd1[0])
             print(line, flush=True)
             if not e <= tol:
                 raise RuntimeError(f"K1 disagrees: {line}")
@@ -342,9 +371,10 @@ def fused_q_tri_parity(dev):
     """K6 against its plain version and against K1, f32 and f64: the dense
     path's two shapes, a ragged n, one tile, m = 0, H = None, shared
     (stride-0) and per-instance Jc and H, an unsymmetric H.  With a
-    bit-symmetric H (or none) Q must equal its transpose bit for bit.
-    Returns K6's record at n=1024, m=512, B=64 in float32, with the launches
-    of this phase (K6 is on no path)."""
+    bit-symmetric H (or none) Q must equal its transpose bit for bit, and
+    K6's lower triangle must equal K1's bit for bit (the same products in
+    the same order).  Returns K6's record at n=1024, m=512, B=64 in
+    float32, with the launches of this phase (K6 is on no path)."""
     import torch
     from onephase_tpu_torch import ops
     from onephase_tpu_torch.ops import schur
@@ -378,30 +408,39 @@ def fused_q_tri_parity(dev):
             torch.cuda.synchronize()
             (e, ea), (e1, _) = _err(got, ref), _err(got, k1)
             sym = torch.equal(got, got.transpose(-1, -2))
+            tril_k1 = torch.equal(torch.tril(got), torch.tril(k1))
             line = (f"K6 fused_q_tri {dname} n={n} m={m} B={B} "
                     f"{'shared' if shared else 'batched'} "
                     f"{'H' if with_h else 'H=None'}: err {e:.3e} vs K1 "
-                    f"{e1:.3e} symmetric {sym}")
+                    f"{e1:.3e} symmetric {sym} lower triangle equal to K1's "
+                    f"{tril_k1}")
             if with_h:
                 # an unsymmetric H is added where it stands
                 Hu = H + torch.as_tensor(rng.normal(size=tuple(H.shape)),
                                          dtype=dtype, device=dev)
-                eu, _ = _err(schur.pallas_fused_q_tri(Jc, w, Hu, bnd),
-                             schur.xla_fused_q(Jc, w, Hu, bnd))
-                line += f" unsymmetric-H err {eu:.3e}"
+                qu = schur.pallas_fused_q_tri(Jc, w, Hu, bnd)
+                eu, _ = _err(qu, schur.xla_fused_q(Jc, w, Hu, bnd))
+                tril_k1 &= torch.equal(
+                    torch.tril(qu),
+                    torch.tril(schur.pallas_fused_q(Jc, w, Hu, bnd)))
+                line += (f" unsymmetric-H err {eu:.3e} lower triangle equal "
+                         f"to K1's {tril_k1}")
                 e = max(e, eu)
             if n in (256, 1024):
-                ms = _time_ms(lambda: schur.pallas_fused_q_tri(Jc, w, H, bnd))
-                k1ms = _time_ms(lambda: schur.pallas_fused_q(Jc, w, H, bnd))
-                pms = _time_ms(lambda: schur.xla_fused_q(Jc, w, H, bnd))
+                Hb, A, Jb = _baddbmm_operands(Jc, w, H, B)
+                ms, k1ms, pms, lms = _time_turns(
+                    lambda: schur.pallas_fused_q_tri(Jc, w, H, bnd),
+                    lambda: schur.pallas_fused_q(Jc, w, H, bnd),
+                    lambda: schur.xla_fused_q(Jc, w, H, bnd),
+                    lambda: torch.baddbmm(Hb, A, Jb))
                 line += (f" kernel {ms:.4f} ms K1 {k1ms:.4f} ms plain "
-                         f"{pms:.4f} ms")
+                         f"{pms:.4f} ms baddbmm {lms:.4f} ms (in turns)")
                 if n == 1024 and dtype == torch.float32:
                     record = dict(
-                        max_abs_err=ea, ms=ms, plain_ms=pms, library_ms=None,
+                        max_abs_err=ea, ms=ms, plain_ms=pms, library_ms=lms,
                         **_kv(_fused_q_bound(B, m, n, Jc.element_size())))
             print(line, flush=True)
-            if not (e <= tol and e1 <= tol and sym):
+            if not (e <= tol and e1 <= tol and sym and tril_k1):
                 raise RuntimeError(f"K6 disagrees: {line}")
     record["launches"] = ops.launch_counts()["fused_q_tri"] - before
     return record
@@ -757,6 +796,9 @@ def main() -> int:
     from onephase_tpu_torch.ops import _build
 
     dev = torch.device("cuda")
+    # the reference multiplies in full float32: no TF32 in any yardstick
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = _card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -764,7 +806,8 @@ def main() -> int:
     _build.library()
     print(f"kernel build: {_build.BUILD_SECONDS:.1f} s", flush=True)
     for ln in _ptxas_report(_build.BUILD_LOG, (
-            "chol_kernel", "tri_inv_kernel", "fused_q_tri_kernel",
+            "fused_q_lower_kernel", "chol_kernel", "tri_inv_kernel",
+            "fused_q_tri_kernel",
             "tridiag_factor_kernel", "tridiag_solve_kernel")):
         print(f"  ptxas: {ln}", flush=True)
 
@@ -830,7 +873,7 @@ def main() -> int:
         record[k]["launches_n1024"] = big["launches"][k]
     record["fused_q_tri"]["path"] = "none: launches of the kernel phase"
     sources = {
-        "fused_q": ("onephase_tpu_torch/csrc/fused_q.cuh",
+        "fused_q": ("onephase_tpu_torch/csrc/fused_q.cu",
                     "onephase_tpu/ops/schur.py:51"),
         "chol": ("onephase_tpu_torch/csrc/chol.cu",
                  "onephase_tpu/ops/cholesky.py:176"),

@@ -5,7 +5,10 @@ triple products, docs/one-phase.tex:901-912).
 
 - `pallas_fused_q`: the kernel wrapper of the `pallas` lane.  It replaces
   the TPU kernel onephase_tpu/ops/schur.py:pallas_fused_q
-  (`_fused_q_kernel`) with the CUDA C++ kernel `csrc/fused_q.cu`.
+  (`_fused_q_kernel`) with the CUDA C++ kernel `csrc/fused_q.cu`, which
+  forms the lower tile pairs only and mirrors them: on and below the
+  diagonal, the values of a full-grid product bit for bit; above it, the
+  mirrored rank-m part plus H in its own place.
 - `pallas_fused_q_tri`: the triangle-tiled form of the same function.  It
   replaces the TPU kernel onephase_tpu/ops/schur.py:pallas_fused_q_tri
   (`_fused_q_tri_kernel`) with the CUDA C++ kernel `csrc/fused_q_tri.cu`.

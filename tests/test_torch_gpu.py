@@ -100,6 +100,61 @@ def test_fused_q_tri_matches_plain_and_is_symmetric(cuda, dt, n, m, B, shared,
             <= TOL[dt]
 
 
+# K1 on both sides of its 64 and 128 tile edges, on the 64-edge grid and
+# (B T of 128-tiles at least two blocks per SM of the H100) the 128-edge
+# one, on the 16-byte and the one-element copy routes, m = 0, a ragged k
+# tail (m not a multiple of the 16-row slab) and m > n
+FQ_EDGES = [(63, 70, 3, False), (64, 0, 2, True), (65, 1, 5, True),
+            (127, 70, 64, True), (128, 128, 64, False), (129, 0, 64, True),
+            (130, 37, 3, False), (250, 37, 96, True), (256, 128, 96, True),
+            (258, 300, 64, False)]
+
+
+def _fq_inputs(rng, n, m, B, shared, dt, dev):
+    """Jc ~ N(0, 1/n), w in [0.1, 10], an unsymmetric H ~ N(0, 1), bnd."""
+    def t(a):
+        return torch.as_tensor(a, dtype=dt, device=dev)
+
+    Jc = t(rng.normal(size=(m, n) if shared else (B, m, n)) / np.sqrt(n))
+    w = t(rng.uniform(0.1, 10.0, size=(B, m)))
+    H = t(rng.normal(size=(n, n) if shared else (B, n, n)))
+    bnd = t(rng.uniform(0.0, 5.0, size=(B, n)))
+    return Jc, w, H, bnd
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n, m, B, shared", FQ_EDGES)
+def test_fused_q_edges_and_exact_symmetry(cuda, dt, n, m, B, shared):
+    """K1 against the plain version at ragged edges; its rank-m part (H =
+    None, bnd = 0) bit-symmetric; and with an unsymmetric H, Q = (H + that
+    part) + diag(bnd) bit for bit: H[i, j] is added where it stands, above
+    the diagonal too."""
+    Jc, w, H, bnd = _fq_inputs(np.random.default_rng(n * 7 + m), n, m, B,
+                               shared, dt, cuda)
+    before = ops.launch_counts()["fused_q"]
+    Q = schur.pallas_fused_q(Jc, w, H, bnd)
+    assert ops.launch_counts()["fused_q"] == before + 1
+    assert _rel_err(Q, schur.xla_fused_q(Jc, w, H, bnd)) <= TOL[dt]
+    R = schur.pallas_fused_q(Jc, w, None, torch.zeros_like(bnd))
+    assert torch.equal(R, R.mT)
+    assert torch.equal(Q, (H + R) + torch.diag_embed(bnd))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n, m, B, shared", FQ_EDGES + [(1024, 512, 64, True)])
+def test_fused_q_lower_triangle_equals_fused_q_tri(cuda, dt, n, m, B,
+                                                  shared):
+    """K1's and K6's lower triangles (the diagonal included) are equal bit
+    for bit: both sum (Jc[k, i] w[k]) Jc[k, j] over k in order with one FMA
+    a term, then add H and, on the diagonal, bnd."""
+    Jc, w, H, bnd = _fq_inputs(np.random.default_rng(n * 11 + m), n, m, B,
+                               shared, dt, cuda)
+    assert torch.equal(torch.tril(schur.pallas_fused_q(Jc, w, H, bnd)),
+                       torch.tril(schur.pallas_fused_q_tri(Jc, w, H, bnd)))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n, B", [(256, 16), (130, 3), (1024, 4)])

@@ -1,26 +1,42 @@
 #!/usr/bin/env python3
-"""Hold K3 of this tree value for value against K3 of another checkout.
+"""Hold K3 or K1 of this tree value for value against another checkout's.
 
 K3 (`ops/cholesky.py:pallas_tri_inv_gram`, M = L^-T L^-1) feeds every
-backsolve of the dense path, and the f32 bench trajectory is sensitive to
-the last bit of M, so a redesign of its kernels must return the earlier M
-bit for bit.  On a machine with a CUDA card:
+backsolve of the dense path, and K1 (`ops/schur.py:pallas_fused_q`, Q = H +
+Jc^T diag(w) Jc + diag(bnd)) every factorization; the f32 bench trajectory
+is sensitive to the last bit of M and of the factor, so a redesign of
+either kernel must return the earlier values bit for bit.  On a machine
+with a CUDA card:
 
     mkdir -p _parent && git archive <commit> onephase_tpu_torch | tar -x -C _parent
-    python3 tools/kernel_equal.py --parent _parent
+    python3 tools/kernel_equal.py --parent _parent                   # K3
+    python3 tools/kernel_equal.py --parent _parent --kernel fused_q  # K1
 
 The other checkout's `onephase_tpu_torch` is imported under another name
-(its kernels build into its own `build/`).  Both packages' wrappers run on
-the same L, the factor of a seeded SPD matrix by this tree's `pallas_chol`:
+(its kernels build into its own `build/`).
+
+`--kernel tri_inv_gram` (the default): both packages' wrappers run on the
+same L, the factor of a seeded SPD matrix by this tree's `pallas_chol`:
 f32 and f64, n from 1 to 2048 across the 32- and 64-wide tile edges,
 B in {1, 2, 3, 16, 64}, and ill-conditioned Q (condition number 1e6 in f32,
-1e12 in f64).  Each case prints whether `torch.equal` holds and how many
-entries differ.  Then both are timed in turns (other, this, this, other;
-medians of CUDA-event times around each call) at the dense path's two
-shapes in f32, and each kernel's device time is read from `torch.profiler`
-(the mean over 20 calls, by kernel name): at n=256 a call's event time is
-set by its wrapper's host work, the device times show the kernels alone.
-The last line is one JSON object; the exit code is 1 if any case differs.
+1e12 in f64); `torch.equal` on the whole M.
+
+`--kernel fused_q`: both wrappers run on the same seeded Jc, w, H, bnd:
+f32 and f64, n from 1 to 2048 on both sides of the 64 and 128 tile edges,
+m in {0, 1, 70, 128, 512, 1024}, B from 1 to 64, Jc and H shared (batch
+stride 0) and per instance, H = None, and w spread over 1e-8 .. 1e8.  Only
+the lower triangle and the diagonal are read on the path, so the check is
+`torch.equal(tril(this), tril(other))`; the entries that differ above the
+diagonal are counted and printed.  The rank-m part of this tree's Q (H =
+None, bnd = 0) must also be bit-symmetric.
+
+Each case prints whether its check holds and how many entries differ.
+Then both are timed in turns (other, this, this, other; medians of
+CUDA-event times around each call) at the dense path's shapes, and each
+kernel's device time is read from `torch.profiler` (the mean over 20
+calls, by kernel name): at n=256 a call's event time is set by its
+wrapper's host work, the device times show the kernels alone.  The last
+line is one JSON object; the exit code is 1 if any case differs.
 """
 
 from __future__ import annotations
@@ -39,25 +55,45 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 REPS = 20
-# (dtype, n, B, condition number of Q or None for A A^T + n I)
+# K3: (dtype, n, B, condition number of Q or None for A A^T + n I)
 CASES = [(dt, n, B, None) for dt in ("float32", "float64")
          for n, B in ((1, 1), (31, 3), (32, 16), (33, 1), (63, 3), (64, 16),
                       (65, 64), (130, 3), (256, 16), (1024, 64), (2048, 2))]
 CASES += [("float32", 256, 16, 1e6), ("float32", 130, 3, 1e6),
           ("float64", 256, 16, 1e12)]
 TIMED = ((256, 16), (1024, 64))
+# K1: (n, m, B, Jc and H shared, with H, w spread over 1e-8 .. 1e8), each
+# in f32 and f64: both tile edges and their ragged neighbours, the 16-byte
+# and the one-element copy routes, the 64- and the 128-edge grid (B T
+# against two blocks per SM), a ragged k tail, m = 0 and m > n
+FQ_CASES = [
+    (1, 0, 1, True, True, False), (1, 1, 3, False, True, False),
+    (31, 70, 3, False, True, False), (63, 1, 2, True, False, False),
+    (64, 128, 16, True, True, False), (65, 70, 64, False, True, False),
+    (127, 128, 3, True, True, False), (128, 0, 2, False, True, False),
+    (128, 70, 64, False, True, False), (129, 70, 5, True, False, False),
+    (130, 70, 3, False, True, False), (256, 128, 16, True, True, False),
+    (256, 512, 16, False, False, False), (258, 130, 64, False, True, False),
+    (1000, 512, 16, True, True, False), (1024, 512, 64, True, True, False),
+    (1024, 1024, 4, False, True, False), (1030, 70, 16, False, True, False),
+    (2048, 1024, 16, True, True, False), (256, 128, 16, True, True, True),
+    (1024, 512, 64, True, True, True)]
+# the dense path's three shapes (n, m, B) and its f64 check at n=1024
+FQ_TIMED = (("float32", 256, 128, 16), ("float32", 1024, 512, 64),
+            ("float32", 2048, 1024, 16), ("float64", 1024, 512, 64))
 
 
-def _load(root: Path, name: str):
-    """`ops.cholesky` of the package `root/onephase_tpu_torch`, imported
-    as `name`."""
-    pkg = root / "onephase_tpu_torch"
-    spec = importlib.util.spec_from_file_location(
-        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[name] = mod
-    spec.loader.exec_module(mod)
-    return importlib.import_module(f"{name}.ops.cholesky")
+def _load(root: Path, name: str, module: str):
+    """`module` (e.g. `ops.cholesky`) of the package
+    `root/onephase_tpu_torch`, imported as `name`."""
+    if name not in sys.modules:
+        pkg = root / "onephase_tpu_torch"
+        spec = importlib.util.spec_from_file_location(
+            name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return importlib.import_module(f"{name}.{module}")
 
 
 def _spd(rng, B, n, cond, dtype, dev):
@@ -113,24 +149,10 @@ def _device_ms(fn) -> dict:
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", required=True, type=Path,
-                    help="directory holding the other checkout's "
-                         "onephase_tpu_torch/")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("kernel_equal: no CUDA device; the kernels run only "
-                         "on the GPU")
-    sys.path.insert(0, str(ROOT))
+def check_tri_inv_gram(parent: Path, dev):
+    """K3 of both trees on the same L: (results, timings, differing)."""
     from onephase_tpu_torch.ops import cholesky as new
-    old = _load(args.parent.resolve(), "parent_onephase_tpu_torch")
-    dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(f"card: {card}", flush=True)
-
+    old = _load(parent, "parent_onephase_tpu_torch", "ops.cholesky")
     rng = np.random.default_rng(3)
     differing, results = 0, []
     for dname, n, B, cond in CASES:
@@ -168,8 +190,104 @@ def main() -> int:
         print(f"K3 f32 n={n} B={B}: other checkout {t_old:.4f} ms, this "
               f"tree {t_new:.4f} ms ({t_new / t_old:.3f}x); device ms by "
               f"kernel: other {d_old}, this {d_new}", flush=True)
+    return results, timings, differing
+
+
+def _fq_operands(rng, n, m, B, shared, with_h, spread, dtype, dev):
+    """Seeded Jc, w, H, bnd of the dense path's scales (Jc ~ N(0, 1/n),
+    w in [0.1, 10] or log-uniform over 1e-8 .. 1e8, H = A A^T + n I)."""
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    Jc = t(rng.normal(size=(m, n) if shared else (B, m, n)) / np.sqrt(n))
+    w = t(10.0 ** rng.uniform(-8.0, 8.0, size=(B, m)) if spread
+          else rng.uniform(0.1, 10.0, size=(B, m)))
+    H = None
+    if with_h:
+        H = _spd(rng, 1, n, None, dtype, dev)[0] if shared else \
+            _spd(rng, B, n, None, dtype, dev)
+    bnd = t(rng.uniform(0.0, 5.0, size=(B, n)))
+    return Jc, w, H, bnd
+
+
+def check_fused_q(parent: Path, dev):
+    """K1 of both trees on the same operands: (results, timings,
+    differing)."""
+    from onephase_tpu_torch.ops import schur as new
+    old = _load(parent, "parent_onephase_tpu_torch", "ops.schur")
+    rng = np.random.default_rng(7)
+    differing, results = 0, []
+    for dname in ("float32", "float64"):
+        dtype = getattr(torch, dname)
+        for n, m, B, shared, with_h, spread in FQ_CASES:
+            Jc, w, H, bnd = _fq_operands(rng, n, m, B, shared, with_h, spread,
+                                         dtype, dev)
+            Q_new = new.pallas_fused_q(Jc, w, H, bnd)
+            Q_old = old.pallas_fused_q(Jc, w, H, bnd)
+            R = new.pallas_fused_q(Jc, w, None, torch.zeros_like(bnd))
+            torch.cuda.synchronize()
+            lo_new, lo_old = torch.tril(Q_new), torch.tril(Q_old)
+            same = torch.equal(lo_new, lo_old)
+            n_diff = int((lo_new != lo_old).sum())
+            n_upper = int((Q_new != Q_old).sum()) - n_diff
+            finite = bool(torch.isfinite(Q_new).all())
+            symmetric = torch.equal(R, R.mT)
+            ok = same and symmetric
+            differing += not ok
+            results.append(dict(
+                dtype=dname, n=n, m=m, B=B, shared=shared, H=with_h,
+                w_spread=spread, lower_equal=same,
+                differing_lower_entries=n_diff,
+                differing_upper_entries=n_upper, finite=finite,
+                rank_m_symmetric=symmetric))
+            print(f"K1 {dname} n={n} m={m} B={B} "
+                  f"{'shared' if shared else 'batched'} "
+                  f"{'H' if with_h else 'H=None'}"
+                  f"{' w 1e-8..1e8' if spread else ''}: torch.equal on the "
+                  f"lower triangle {same} ({n_diff} entries differ; above "
+                  f"the diagonal {n_upper}), finite {finite}, rank-m part "
+                  f"symmetric {symmetric}", flush=True)
+
+    timings = []
+    for dname, n, m, B in FQ_TIMED:
+        Jc, w, H, bnd = _fq_operands(rng, n, m, B, True, True, False,
+                                     getattr(torch, dname), dev)
+        t_old, t_new = _time_abba(lambda: old.pallas_fused_q(Jc, w, H, bnd),
+                                  lambda: new.pallas_fused_q(Jc, w, H, bnd))
+        d_old = _device_ms(lambda: old.pallas_fused_q(Jc, w, H, bnd))
+        d_new = _device_ms(lambda: new.pallas_fused_q(Jc, w, H, bnd))
+        timings.append(dict(n=n, m=m, B=B, dtype=dname, other_ms=t_old,
+                            this_ms=t_new, other_device_ms=d_old,
+                            this_device_ms=d_new))
+        print(f"K1 {dname} n={n} m={m} B={B}: other checkout {t_old:.4f} "
+              f"ms, this tree {t_new:.4f} ms ({t_new / t_old:.3f}x); device "
+              f"ms by kernel: other {d_old}, this {d_new}", flush=True)
+    return results, timings, differing
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", required=True, type=Path,
+                    help="directory holding the other checkout's "
+                         "onephase_tpu_torch/")
+    ap.add_argument("--kernel", choices=("tri_inv_gram", "fused_q"),
+                    default="tri_inv_gram",
+                    help="K3 (tri_inv_gram, the default) or K1 (fused_q)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_equal: no CUDA device; the kernels run only "
+                         "on the GPU")
+    sys.path.insert(0, str(ROOT))
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
-    print(json.dumps({"kernel": "tri_inv_gram", "cases": len(results),
+    check = {"tri_inv_gram": check_tri_inv_gram,
+             "fused_q": check_fused_q}[args.kernel]
+    results, timings, differing = check(args.parent.resolve(), dev)
+    print(f"card: {card}", flush=True)
+    print(json.dumps({"kernel": args.kernel, "cases": len(results),
                       "differing_cases": differing, "timings": timings,
                       "card": card, "results": results}), flush=True)
     return 1 if differing else 0
