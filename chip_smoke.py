@@ -24,9 +24,10 @@ three paths on the `pallas` lane:
   argmin; then K=50 assembled against matrix-free and `pallas` against
   `xla`.
 
-K6 (the triangle-tiled fused Q) lies on no path of either package: it is
-held in the kernel phase, against its plain version and against K1 (whose
-lower triangle it must equal bit for bit).
+K6 (the triangle-tiled fused Q) lies on no path of either package; its
+wrapper launches K1's kernel (`csrc/fused_q.cu`), whose `lower` mode is
+also K3's Gram half.  It is held in the kernel phase against its plain
+version and against K1 (whose full Q it must equal bit for bit).
 
 The kernel phase also times, in turns at both dense shapes (n=256/B=16
 and n=1024/B=64), K1 against its plain version and `torch.baddbmm` (also
@@ -36,9 +37,11 @@ at n=2048/m=1024/B=16), K2 against its plain version and
 port) with its two launches (triangular inverse, Gram product) timed
 apart, each with its achieved TFLOP/s beside its bound; K6 in turns with
 K1, its plain version and `torch.baddbmm`; and K7 against its plain
-version in turns with its time per stage at both band shapes.  The
-build's `-Xptxas -v` lines (registers, spills) of the K1, K2, K3, K5, K6
-and K7 kernels are printed first.  Float32 products run without TF32.
+version in turns with its time per stage at both band shapes, and K5 with
+its device time (`torch.profiler`) beside its byte bound and its
+dependence bound (2K stages of two chains of nb FMAs).  The build's
+`-Xptxas -v` lines (registers, spills) of the K1 (K6, K3's Gram), K2, K3,
+K5 and K7 kernels are printed first.  Float32 products run without TF32.
 
 Every phase raises on failure, so the script exits nonzero and never prints
 the final line; without a CUDA card it refuses to run.  The line before
@@ -92,6 +95,9 @@ REPS = 20
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 DNAME = {4: "float32", 8: "float64"}    # by element size
+# cycles from one FMA's issue to its dependent's (FP32 on Hopper), the unit
+# of the block-tridiagonal kernels' dependence bounds
+FMA_LATENCY_CYCLES = 4
 
 
 def _bound(nbytes, flops, dname="float32"):
@@ -123,6 +129,36 @@ def _fused_q_bound(B, m, n, el):
     2 B m n^2; K6 just the triangle)."""
     nbytes = el * (m * n + B * m + n * n + B * n + B * n * n)
     return _bound(nbytes, B * m * n * (n + 1), DNAME[el])
+
+
+def _sm_max_hz() -> float:
+    """The card's highest SM clock (nvidia-smi's clocks.max.sm), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def _device_ms(fn, kernel) -> float:
+    """Mean device time of the CUDA kernel whose name holds `kernel`, over
+    REPS calls of `fn` traced by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if kernel in ev.key and getattr(ev, "device_time_total", 0):
+            total += ev.device_time_total
+            count += ev.count
+    if not count:
+        raise RuntimeError(f"torch.profiler saw no {kernel} on the card")
+    return total / count / 1e3
 
 
 def _card_line() -> str:
@@ -299,8 +335,8 @@ def kernel_parity(dev):
                     lambda: ch.xla_chol_inv_from_L(Lr),
                     lambda: torch.cholesky_inverse(Lr),
                     lambda: ch.launch_tri_inv(L, Li),
-                    lambda: schur.launch_fused_q_tri(Li, None, None, None,
-                                                     Mg, lower=True))
+                    lambda: schur.launch_fused_q(Li, None, None, None, Mg,
+                                                 lower=True))
                 el = Q.element_size()
                 # K2 reads Q, writes L, d, ok: B n^3 / 3 operations
                 bd2 = _bound(el * (2 * B * n * n + B * n) + 4 * B,
@@ -371,10 +407,10 @@ def fused_q_tri_parity(dev):
     """K6 against its plain version and against K1, f32 and f64: the dense
     path's two shapes, a ragged n, one tile, m = 0, H = None, shared
     (stride-0) and per-instance Jc and H, an unsymmetric H.  With a
-    bit-symmetric H (or none) Q must equal its transpose bit for bit, and
-    K6's lower triangle must equal K1's bit for bit (the same products in
-    the same order).  Returns K6's record at n=1024, m=512, B=64 in
-    float32, with the launches of this phase (K6 is on no path)."""
+    bit-symmetric H (or none) Q must equal its transpose bit for bit; K6's
+    full Q must equal K1's bit for bit (one kernel), and so its lower
+    triangle.  Returns K6's record at n=1024, m=512, B=64 in float32, with
+    the launches of this phase (K6 is on no path)."""
     import torch
     from onephase_tpu_torch import ops
     from onephase_tpu_torch.ops import schur
@@ -409,22 +445,23 @@ def fused_q_tri_parity(dev):
             (e, ea), (e1, _) = _err(got, ref), _err(got, k1)
             sym = torch.equal(got, got.transpose(-1, -2))
             tril_k1 = torch.equal(torch.tril(got), torch.tril(k1))
+            full_k1 = torch.equal(got, k1)
             line = (f"K6 fused_q_tri {dname} n={n} m={m} B={B} "
                     f"{'shared' if shared else 'batched'} "
                     f"{'H' if with_h else 'H=None'}: err {e:.3e} vs K1 "
                     f"{e1:.3e} symmetric {sym} lower triangle equal to K1's "
-                    f"{tril_k1}")
+                    f"{tril_k1} full Q equal to K1's {full_k1}")
             if with_h:
                 # an unsymmetric H is added where it stands
                 Hu = H + torch.as_tensor(rng.normal(size=tuple(H.shape)),
                                          dtype=dtype, device=dev)
                 qu = schur.pallas_fused_q_tri(Jc, w, Hu, bnd)
                 eu, _ = _err(qu, schur.xla_fused_q(Jc, w, Hu, bnd))
-                tril_k1 &= torch.equal(
-                    torch.tril(qu),
-                    torch.tril(schur.pallas_fused_q(Jc, w, Hu, bnd)))
+                k1u = schur.pallas_fused_q(Jc, w, Hu, bnd)
+                tril_k1 &= torch.equal(torch.tril(qu), torch.tril(k1u))
+                full_k1 &= torch.equal(qu, k1u)
                 line += (f" unsymmetric-H err {eu:.3e} lower triangle equal "
-                         f"to K1's {tril_k1}")
+                         f"to K1's {tril_k1} full Q equal to K1's {full_k1}")
                 e = max(e, eu)
             if n in (256, 1024):
                 Hb, A, Jb = _baddbmm_operands(Jc, w, H, B)
@@ -440,7 +477,7 @@ def fused_q_tri_parity(dev):
                         max_abs_err=ea, ms=ms, plain_ms=pms, library_ms=lms,
                         **_kv(_fused_q_bound(B, m, n, Jc.element_size())))
             print(line, flush=True)
-            if not (e <= tol and e1 <= tol and sym and tril_k1):
+            if not (e <= tol and e1 <= tol and sym and tril_k1 and full_k1):
                 raise RuntimeError(f"K6 disagrees: {line}")
     record["launches"] = ops.launch_counts()["fused_q_tri"] - before
     return record
@@ -459,6 +496,17 @@ def _band(rng, B, K, nb, dtype, device):
     Bs = rng.normal(size=(B, max(K - 1, 0), nb, nb)) * 0.3
     return (torch.as_tensor(Ad, dtype=dtype, device=device),
             torch.as_tensor(Bs, dtype=dtype, device=device))
+
+
+def _tridiag_dep_bounds(K, nb, hz):
+    """(K7's, K5's) dependence bounds in ms at one shape and SM clock `hz`:
+    the dependent FMA latencies a run cannot overlap.  K5: 2K stages, each
+    two chains of nb FMAs (E v, then Ci r).  K7: K stages, each four chains
+    of nb (the E E^T dot product, the Cholesky's and the inverse's column
+    recurrences, the E_k dot product), counted as one FMA a step though
+    each Cholesky step also waits on a square root and a division."""
+    per = FMA_LATENCY_CYCLES / hz * 1e3
+    return K * 4 * nb * per, 2 * K * 2 * nb * per
 
 
 def _tridiag_bounds(B, K, nb, el):
@@ -488,6 +536,7 @@ def tridiag_parity(dev):
 
     rng = np.random.default_rng(2)
     record = {}
+    hz = _sm_max_hz()
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[-1]
         tol = TOL[dname]
@@ -518,26 +567,34 @@ def tridiag_parity(dev):
                     lambda: tp.xla_tridiag_factor_inv(Ad, Bs, delta))
                 t5 = _time_ms(lambda: tp.pallas_tridiag_solve(Ci, Ek, b))
                 p5 = _time_ms(lambda: tp.xla_tridiag_solve_inv(Ci, Ek, b))
+                d5 = _device_ms(lambda: tp.pallas_tridiag_solve(Ci, Ek, b),
+                                "tridiag_solve_kernel")
                 bd7, bd5 = _tridiag_bounds(B, K, nb, Ad.element_size())
+                dep7, dep5 = _tridiag_dep_bounds(K, nb, hz)
                 line += (f" | factor {t7:.4f} ms ({1e3 * t7 / K:.2f} us a "
-                         f"stage) plain {p7:.4f} ms bound "
-                         f"{bd7[0]:.4f} ms | solve {t5:.4f} ms plain "
-                         f"{p5:.4f} ms bound {bd5[0]:.4f} ms"
+                         f"stage) plain {p7:.4f} ms bound {bd7[0]:.4f} ms "
+                         f"({bd7[1]}), dependence bound {dep7:.4f} ms | "
+                         f"solve {t5:.4f} ms (device {d5:.4f} ms, "
+                         f"{1e3 * d5 / (2 * K):.3f} us a stage) plain "
+                         f"{p5:.4f} ms bound {bd5[0]:.4f} ms ({bd5[1]}), "
+                         f"dependence bound {dep5:.4f} ms at "
+                         f"{hz / 1e6:.0f} MHz"
                          " | no library call computes either")
                 if dtype == torch.float32 and nb == CHAIN_SHAPE["nx"]:
                     record["tridiag_factor"] = dict(
                         max_abs_err=e7a, ms=t7, plain_ms=p7, library_ms=None,
-                        **_kv(bd7))
+                        **_kv(bd7), dep_bound_ms=dep7)
                     record["tridiag_solve"] = dict(
                         max_abs_err=e5a, ms=t5, plain_ms=p5, library_ms=None,
-                        **_kv(bd5))
+                        **_kv(bd5), device_ms=d5, dep_bound_ms=dep5)
                 elif dtype == torch.float32:
                     record["tridiag_factor"].update(
                         ms_banded=t7, plain_ms_banded=p7,
-                        bound_ms_banded=bd7[0])
+                        bound_ms_banded=bd7[0], dep_bound_ms_banded=dep7)
                     record["tridiag_solve"].update(
                         ms_banded=t5, plain_ms_banded=p5,
-                        bound_ms_banded=bd5[0])
+                        bound_ms_banded=bd5[0], device_ms_banded=d5,
+                        dep_bound_ms_banded=dep5)
             print(line, flush=True)
             if not (e7 <= tol and e5 <= tol):
                 raise RuntimeError(f"K5/K7 disagree: {line}")
@@ -807,7 +864,6 @@ def main() -> int:
     print(f"kernel build: {_build.BUILD_SECONDS:.1f} s", flush=True)
     for ln in _ptxas_report(_build.BUILD_LOG, (
             "fused_q_lower_kernel", "chol_kernel", "tri_inv_kernel",
-            "fused_q_tri_kernel",
             "tridiag_factor_kernel", "tridiag_solve_kernel")):
         print(f"  ptxas: {ln}", flush=True)
 
@@ -872,6 +928,10 @@ def main() -> int:
     for k in ("fused_q", "chol", "tri_inv_gram"):
         record[k]["launches_n1024"] = big["launches"][k]
     record["fused_q_tri"]["path"] = "none: launches of the kernel phase"
+    # K3 is two launches: the inverse (tri_inv.cu), then the Gram product
+    # on K1's kernel
+    record["tri_inv_gram"]["gram_source"] = \
+        "onephase_tpu_torch/csrc/fused_q.cu"
     sources = {
         "fused_q": ("onephase_tpu_torch/csrc/fused_q.cu",
                     "onephase_tpu/ops/schur.py:51"),
@@ -879,7 +939,7 @@ def main() -> int:
                  "onephase_tpu/ops/cholesky.py:176"),
         "tri_inv_gram": ("onephase_tpu_torch/csrc/tri_inv.cu",
                          "onephase_tpu/ops/cholesky.py:208"),
-        "fused_q_tri": ("onephase_tpu_torch/csrc/fused_q_tri.cu",
+        "fused_q_tri": ("onephase_tpu_torch/csrc/fused_q.cu",
                         "onephase_tpu/ops/schur.py:110"),
         "tridiag_solve": ("onephase_tpu_torch/csrc/tridiag.cu",
                           "onephase_tpu/ops/tridiag_pallas.py:194"),

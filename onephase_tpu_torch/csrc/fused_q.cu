@@ -1,18 +1,31 @@
 // Fused Schur formation Q[b] = H[b] + Jc[b]^T diag(w[b]) Jc[b] + diag(bnd[b])
-// over the lower tile pairs only, register-tiled and pipelined.
+// over the lower tile pairs only, register-tiled and pipelined: the one
+// rank-m tile loop of the port, behind three functions.
 //
-// Replaces the TPU kernel onephase_tpu/ops/schur.py:pallas_fused_q
-// (_fused_q_kernel, :30-47), which tiles the (i, j) output over its grid
-// and reduces the constraint axis k into the output tile, with H and the
-// diagonal added at k = 0.
+// Replaces the TPU kernels
+// - onephase_tpu/ops/schur.py:pallas_fused_q (_fused_q_kernel, :30-47),
+//   which tiles the (i, j) output over its grid and reduces the constraint
+//   axis k into the output tile, with H and the diagonal added at k = 0;
+// - onephase_tpu/ops/schur.py:pallas_fused_q_tri (_fused_q_tri_kernel and
+//   its grid and index decode, :96-186), the same function over the lower
+//   tile pairs, which writes a compact tile stack and leaves the scatter,
+//   the mirror and the H + diagonal adds to XLA; here one launch writes the
+//   full symmetric Q, the same launch as for pallas_fused_q;
+// - in the `lower` mode, the Gram half of
+//   onephase_tpu/ops/cholesky.py:pallas_tri_inv_gram (_tri_inv_gram_kernel,
+//   :131-156): M = Li^T Li with Jc = Li = L^-1 square and lower triangular,
+//   and w, H and bnd null.  Tile (i, j), i >= j, then starts its k loop at
+//   row i0, the first row of its larger index: the rows above hold exact
+//   zeros of Li.
 //
 // What bounds it on the H100: plain FP32/FP64 FMA rate (no tensor cores:
 // the reference multiplies at full precision, so no TF32).  Q - H is
 // symmetric, so its n (n + 1) / 2 distinct entries of length m are all the
-// work, B m n (n + 1) operations on B n m + B n^2 elements: far above the
-// memory roofline at the main path's shapes (n = 256..2048, m = n / 2).
-// What keeps a tile loop fed from shared memory off that rate is the shared
-// loads it issues per FMA and the wait for each k slab.
+// work, B m n (n + 1) operations on B n m + B n^2 elements (the Gram
+// product: B n^3 / 3): far above the memory roofline at the main path's
+// shapes (n = 256..2048, m = n / 2).  What keeps a tile loop fed from
+// shared memory off that rate is the shared loads it issues per FMA and
+// the wait for each k slab.
 //
 // What the design does about it:
 // - The grid is (T, B) over the T = nt (nt + 1) / 2 lower tile pairs
@@ -38,16 +51,22 @@
 //   shared (folded-constant) Jc or H is read with batch stride 0.
 //
 // Value for value: every entry on or below the diagonal is what the earlier
-// full-grid kernel (fused_q.cuh's tile loop) computed there, bit for bit:
-// acc = 0; for k = 0 .. m-1 in order, acc = fma(J[k, row] * w[k], J[k, col],
-// acc), the product with w rounded first; then H[row, col] + acc; then
-// + bnd[row] on the diagonal.  No split k, the FMA explicit.  The ragged k
-// tail is masked, not padded with 0 * 0 FMAs (which could only turn a -0
-// into +0).  Above the diagonal Q[row, col] = H[row, col] + acc(col, row),
-// the mirrored rank-m part with H read from its own place, so Q - H is
-// symmetric bit for bit (the full grid rounded (a w) b there where this
-// has (b w) a: nothing on the path reads it, the Cholesky reads the lower
-// triangle and the δ search the diagonal).
+// full-grid kernel computed there, bit for bit: acc = 0; for k = kbeg ..
+// m-1 in order, acc = fma(J[k, row] * w[k], J[k, col], acc), the product
+// with w rounded first; then H[row, col] + acc; then + bnd[row] on the
+// diagonal.  No split k, the FMA explicit.  The ragged k tail is masked,
+// not padded with 0 * 0 FMAs (which could only turn a -0 into +0).  Above
+// the diagonal Q[row, col] = H[row, col] + acc(col, row), the mirrored
+// rank-m part with H read from its own place, so Q - H is symmetric bit for
+// bit (the full grid rounded (a w) b there where this has (b w) a: nothing
+// on the path reads it, the Cholesky reads the lower triangle and the δ
+// search the diagonal).  That upper triangle is, product for product, what
+// the earlier triangle-tiled kernel of pallas_fused_q_tri (64-tiles, the
+// same sums) wrote there, so both functions keep their full Q.  In the
+// `lower` mode kbeg = i0 of this tile, which on a 128-tile can lie up to
+// 64 rows before the earlier 64-tile's: the extra terms are exact zeros of
+// Li, fma(0, x, +0) = +0 ahead of the first nonzero term, so M keeps its
+// bits too (both held by tools/kernel_equal.py against the parent commit).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -138,7 +157,7 @@ __global__ void __launch_bounds__((BT / RM) * (BT / RN), MINB)
 fused_q_lower_kernel(const T* __restrict__ Jc, long long jc_bs,
                      const T* __restrict__ w, const T* __restrict__ H,
                      long long h_bs, const T* __restrict__ bnd,
-                     T* __restrict__ Q, int m, int n) {
+                     T* __restrict__ Q, int m, int n, int lower) {
   using S = Shape<T, BT, RM, RN, VEC>;
   extern __shared__ __align__(16) unsigned char fq_smem[];
   T* sm = reinterpret_cast<T*>(fq_smem);
@@ -154,6 +173,8 @@ fused_q_lower_kernel(const T* __restrict__ Jc, long long jc_bs,
   const int tx = tid % S::TX, ty = tid / S::TX;
   const T* J = Jc + (long long)b * jc_bs;
   const T* wb = w ? w + (long long)b * m : nullptr;
+  // the k range: all of it, or (Jc lower triangular) from the tile's row i0
+  const int kbeg = lower ? i0 : 0;
 
   // This thread's copies q of a slab: row kk = e / CPR, column c, e = tid +
   // NT q, and wq[q] = w[k0 + kk] (1 past m or without w).  wr[j] holds the
@@ -215,10 +236,10 @@ fused_q_lower_kernel(const T* __restrict__ Jc, long long jc_bs,
 
   // every iteration commits one copy group (empty past the last slab), so
   // the wait counts groups
-  const int nslab = (m + KC - 1) / KC;
+  const int nslab = m > kbeg ? (m - kbeg + KC - 1) / KC : 0;
 #pragma unroll
   for (int p = 0; p < ST - 1; ++p) {
-    if (p < nslab) issue(p * KC, p, wr[p]);
+    if (p < nslab) issue(kbeg + p * KC, p, wr[p]);
     else cp_async_commit();
   }
   for (int s = 0; s < nslab; ++s) {
@@ -233,11 +254,11 @@ fused_q_lower_kernel(const T* __restrict__ Jc, long long jc_bs,
 #pragma unroll
       for (int q = 0; q < S::CPT; ++q) wr[j][q] = wr[j + 1][q];
     const int s2 = s + ST - 1;
-    if (s2 < nslab) issue(s2 * KC, s2 % ST, wr[ST - 2]);
+    if (s2 < nslab) issue(kbeg + s2 * KC, s2 % ST, wr[ST - 2]);
     else cp_async_commit();
     const T* As = sm + buf * 2 * S::SLAB;
     const T* Bs = As + S::SLAB;
-    const int kc = m - s * KC;
+    const int kc = m - kbeg - s * KC;
     if (kc >= KC) {
 #pragma unroll
       for (int kk = 0; kk < KC; ++kk) k_step(As, Bs, kk);
@@ -320,7 +341,7 @@ fused_q_lower_kernel(const T* __restrict__ Jc, long long jc_bs,
 template <typename T, int BT, int RM, int RN, bool VEC, int MINB>
 int launch_shape(const void* Jc, long long jc_bs, const void* w,
                  const void* H, long long h_bs, const void* bnd, void* Q,
-                 int B, int m, int n, void* stream) {
+                 int B, int m, int n, int lower, void* stream) {
   using S = Shape<T, BT, RM, RN, VEC>;
   const auto kernel = fused_q_lower_kernel<T, BT, RM, RN, VEC, MINB>;
   const long long nt = (n + BT - 1) / BT;
@@ -331,7 +352,7 @@ int launch_shape(const void* Jc, long long jc_bs, const void* w,
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3((unsigned)tiles, B), S::NT, S::SMEM, (cudaStream_t)stream>>>(
       (const T*)Jc, jc_bs, (const T*)w, (const T*)H, h_bs, (const T*)bnd,
-      (T*)Q, m, n);
+      (T*)Q, m, n, lower);
   return (int)cudaGetLastError();
 }
 
@@ -350,12 +371,13 @@ bool vec_route(const void* Jc, const void* H, const void* Q, int n) {
 template <typename T>
 int launch_fused_q(const void* Jc, long long jc_bs, const void* w,
                    const void* H, long long h_bs, const void* bnd, void* Q,
-                   int B, int m, int n, void* stream);
+                   int B, int m, int n, int lower, void* stream);
 
 template <>
 int launch_fused_q<float>(const void* Jc, long long jc_bs, const void* w,
                           const void* H, long long h_bs, const void* bnd,
-                          void* Q, int B, int m, int n, void* stream) {
+                          void* Q, int B, int m, int n, int lower,
+                          void* stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -367,41 +389,45 @@ int launch_fused_q<float>(const void* Jc, long long jc_bs, const void* w,
   const bool vec = vec_route<float>(Jc, H, Q, n);
   if (big && vec)
     return launch_shape<float, 128, 8, 8, true, 2>(
-        Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, stream);
+        Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower, stream);
   if (big)
     return launch_shape<float, 128, 8, 8, false, 1>(
-        Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, stream);
+        Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower, stream);
   if (vec)
     return launch_shape<float, 64, 4, 4, true, 1>(
-        Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, stream);
+        Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower, stream);
   return launch_shape<float, 64, 4, 4, false, 1>(
-      Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, stream);
+      Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower, stream);
 }
 
 template <>
 int launch_fused_q<double>(const void* Jc, long long jc_bs, const void* w,
                            const void* H, long long h_bs, const void* bnd,
-                           void* Q, int B, int m, int n, void* stream) {
+                           void* Q, int B, int m, int n, int lower,
+                           void* stream) {
   if (vec_route<double>(Jc, H, Q, n))
     return launch_shape<double, 64, 4, 8, true, 1>(
-        Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, stream);
+        Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower, stream);
   return launch_shape<double, 64, 4, 8, false, 1>(
-      Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, stream);
+      Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower, stream);
 }
 
 }  // namespace
 
-// C entry points
+// C entry points; `lower` != 0 declares Jc square and lower triangular (the
+// Gram product M = Jc^T Jc of a triangular inverse)
 extern "C" int op_fused_q_f32(const void* Jc, long long jc_bs, const void* w,
                               const void* H, long long h_bs, const void* bnd,
-                              void* Q, int B, int m, int n, void* stream) {
-  return launch_fused_q<float>(Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n,
+                              void* Q, int B, int m, int n, int lower,
+                              void* stream) {
+  return launch_fused_q<float>(Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower,
                                stream);
 }
 
 extern "C" int op_fused_q_f64(const void* Jc, long long jc_bs, const void* w,
                               const void* H, long long h_bs, const void* bnd,
-                              void* Q, int B, int m, int n, void* stream) {
+                              void* Q, int B, int m, int n, int lower,
+                              void* stream) {
   return launch_fused_q<double>(Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n,
-                                stream);
+                                lower, stream);
 }

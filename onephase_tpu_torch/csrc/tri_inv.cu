@@ -1,7 +1,7 @@
 // Batched triangular inverse: L (B, n, n) lower -> Li = L^-1 (B, n, n),
 // lower with the strict upper triangle zeroed.  The wrapper
 // (ops/cholesky.py:pallas_tri_inv_gram) follows it with the Gram product
-// M = Li^T Li, run by the triangle-tiled kernel of fused_q_tri.cu in its
+// M = Li^T Li, run by the lower-tile-pair kernel of fused_q.cu in its
 // lower-triangular mode (w = 1, no H, no diagonal): together they replace
 // the TPU kernel onephase_tpu/ops/cholesky.py:pallas_tri_inv_gram
 // (_tri_inv_gram_kernel :131-156: blocked forward substitution on the

@@ -17,8 +17,7 @@
 //       y_k = Ci_k (b_k - E_{k-1} y_{k-1}),
 //   then backward
 //       x_k = Ci_k^T (y_k - E_k^T x_{k+1}),
-//   both sweeps in one launch (y is kept in the output x, row t written
-//   and read back by thread t).
+//   both sweeps in one launch (y is kept in the output x).
 //
 // What bounds them on the H100: neither bytes nor operations.  At the
 // chain shape (K = 400, nb = 32, one instance, f32) the factor moves 8.2 MB
@@ -47,10 +46,38 @@
 // arithmetic is the earlier one-column-per-thread kernel's, value for
 // value (the same products in the same order), so the chain and banded
 // runs keep their iterates.
-// The solve keeps its simple design: one row per thread in each sweep,
-// blocks padded to the odd leading dimension nb | 1, and each thread's
-// shared-memory offsets computed once.  The ragged edge is masked in global
-// memory.  nb <= 64.
+//
+// What the solve's design does about it: a stage's latency is two
+// dependent chains of nb FMAs (E v, then Ci r), so only they should stay on
+// its critical path.
+// - Consumers: the block edge is a compile-time NB (32 for nb <= 32, else
+//   64); lane t of NB / 32 consumer warps owns row t.  The inner products
+//   are unrolled, masked past nb (predicated FMAs; unmasked where nb ==
+//   NB), and each chain's terms are read into registers before its first
+//   FMA; the E row of the next stage is read while the current stage's
+//   second chain runs.  The warps meet by __syncwarp (NB = 32) or a named
+//   barrier of 64 threads (NB = 64): no block-wide barrier a stage.
+// - Producers: three warps for each consumer warp copy each stage's
+//   operands, Ci_k, E (E_{k-1} forward, E_k backward) and the vector (b_k
+//   forward, y_k backward), into a ring of S stage slots in shared memory,
+//   up to S - 1 stages ahead (S = 8 at NB = 32; at NB = 64, 5 in f32 and
+//   3 in f64: the ring within about 200 KB), with 16-byte cp.async copies.
+//   Where nb sizeof(T) is a multiple of 16 each row goes to a slot row
+//   padded by 16 bytes, so the forward sweep's 16-byte row reads and the
+//   backward sweep's column reads are both free of bank conflicts; else the
+//   block is copied as it lies, from its 16-byte phase on (an odd nb, as
+//   the banded path's 63, makes both walks conflict-free as well).
+// - Handoffs: a slot is full when an mbarrier has counted every producer
+//   thread's cp.async.mbarrier.arrive (so no global load lies on a stage's
+//   critical path); the consumers release slots through a counter in shared
+//   memory (release/acquire), published before their store to x so that
+//   its fence waits on no fresh global store.  The whole block meets once,
+//   at the turn of the sweeps, after which the producers copy y_k back
+//   from x.
+// Value for value: each lane sums its terms in the order c = 0 .. nb-1,
+// one fma a term (the earlier one-row-per-thread kernel's `s += a * b`, as
+// nvcc contracted it), r = b - s and y - s as before; x is what that kernel
+// returned, bit for bit (tools/kernel_equal.py).  nb <= 64.
 #include <cuda_runtime.h>
 
 #include "chol_tile.cuh"
@@ -62,9 +89,7 @@ using onephase::tile_entries;
 using onephase::tile_ld;
 using onephase::tile_owner;
 
-constexpr int THREADS = 256;
 constexpr int MAX_NB = 64;
-constexpr int PER_T = MAX_NB * MAX_NB / THREADS;   // block elements a thread holds
 
 // --- the factor (K7)
 
@@ -229,114 +254,330 @@ tridiag_factor_kernel(const T* __restrict__ Ad, const T* __restrict__ Bs,
 
 // --- the solve (K5)
 
-// One nb x nb block (row-major in global memory) into registers: element
-// e = tid + i * THREADS goes to reg[i].
-template <typename T>
-__device__ __forceinline__ void load_block(T (&reg)[PER_T], const T* src,
-                                           int nn, int tid) {
-#pragma unroll
-  for (int i = 0; i < PER_T; ++i) {
-    const int e = tid + i * THREADS;
-    if (e < nn) reg[i] = src[e];
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+// Arrive on `bar` once every cp.async this thread has issued has landed
+// (the barrier's count includes this arrival).
+__device__ __forceinline__ void mbar_arrive_on_copies(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// Wait until the phase of `bar` with this parity has completed.  A handoff
+// takes microseconds; one that has not come after 2^24 tries (seconds)
+// means a broken ring, and the kernel traps rather than hang the card.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done;
+  for (unsigned tries = 0;; ++tries) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 24)) __trap();
+  }
+}
+// A counter in shared memory, written by one thread with release semantics
+// and read with acquire semantics; the wait traps as mbar_wait does.
+__device__ __forceinline__ void flag_store(unsigned* f, unsigned val) {
+  asm volatile("st.release.cta.shared.u32 [%0], %1;\n" ::"r"(smem_u32(f)),
+               "r"(val)
+               : "memory");
+}
+__device__ __forceinline__ unsigned flag_load(const unsigned* f) {
+  unsigned val;
+  asm volatile("ld.acquire.cta.shared.u32 %0, [%1];\n"
+               : "=r"(val)
+               : "r"(smem_u32(f))
+               : "memory");
+  return val;
+}
+__device__ __forceinline__ void flag_wait(const unsigned* f,
+                                          unsigned target) {
+  for (unsigned tries = 0; flag_load(f) < target; ++tries)
+    if (tries == (1u << 26)) __trap();
+}
+
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return fma(a, b, c);
+}
+// Four consecutive elements at a 16-byte aligned shared address.
+__device__ __forceinline__ void ld4(const float* p, float* v) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void ld4(const double* p, double* v) {
+  const double2 q0 = *reinterpret_cast<const double2*>(p);
+  const double2 q1 = *reinterpret_cast<const double2*>(p + 2);
+  v[0] = q0.x; v[1] = q0.y; v[2] = q1.x; v[3] = q1.y;
+}
+// 16 bytes global -> shared, asynchronously.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// The geometry of the solve at the compile-time block edge NB (32 or 64).
+template <typename T, int NB>
+struct SolveShape {
+  static constexpr int E = 16 / (int)sizeof(T);   // elements a 16-byte copy
+  static constexpr int LDR = NB + E;        // a slot row of the row layout
+  static constexpr int NCW = NB / 32;       // consumer warps, lane t row t
+  static constexpr int NC = 32 * NCW;
+  static constexpr int PT = 3 * NC;         // producer threads
+  static constexpr int THREADS = NC + PT;
+  static constexpr int CR = NB / E;         // 16-byte chunks of a full row
+  static constexpr int RS = PT / CR;        // rows one producer pass covers
+  static constexpr int AREA = NB * LDR;     // one block of a slot
+  static constexpr int SLOT = 2 * AREA + NB;      // Ci_k, E, vector
+  static constexpr int SLOT_BYTES = SLOT * (int)sizeof(T);
+  // ring depth: up to 8 stages within about 200 KB
+  static constexpr int STAGES = 200 * 1024 / SLOT_BYTES < 8
+                                    ? 200 * 1024 / SLOT_BYTES : 8;
+  // terms of a chain read into registers at once, and of Ci_k's row ahead
+  // of the stage's middle sync
+  static constexpr int CH = 128 / (int)sizeof(T) < NB ? 128 / (int)sizeof(T)
+                                                       : NB;
+  // the `done` counter (16 bytes), the full barriers (16 bytes each, so
+  // what follows stays 16-byte aligned), v and r, then the ring
+  static constexpr size_t SMEM = 16 + 16 * STAGES + 2 * NB * sizeof(T) +
+                                 (size_t)STAGES * SLOT_BYTES;
+  static_assert(NB % 32 == 0 && PT % CR == 0, "whole warps, whole rows");
+  static_assert(STAGES >= 2 && SLOT_BYTES % 16 == 0 &&
+                    AREA * sizeof(T) % 16 == 0, "ring");
+};
+
+// The whole block, met from the consumers' and the producers' own branches.
+template <int N>
+__device__ __forceinline__ void block_sync() {
+  asm volatile("bar.sync 2, %0;\n" ::"n"(N) : "memory");
+}
+
+template <int NCW>
+__device__ __forceinline__ void consumer_sync() {
+  if constexpr (NCW == 1)
+    __syncwarp();
+  else
+    asm volatile("bar.sync 1, %0;\n" ::"n"(32 * NCW) : "memory");
+}
+
+// Where a block of the ring starts: in the row layout (ROWS: nb sizeof(T)
+// a multiple of 16, bases 16-byte aligned) row r at r LDR; else the block
+// as it lies in global memory, from its 16-byte phase on.
+template <typename T, int NB, bool ROWS>
+__device__ __forceinline__ int block_phase(const T* src) {
+  using S = SolveShape<T, NB>;
+  if constexpr (ROWS) return 0;
+  return (int)((reinterpret_cast<unsigned long long>(src) / sizeof(T)) %
+               S::E);
+}
+
+// One nb x nb block (row-major in global memory) into a block of the ring,
+// by this producer thread p of PT.  Row layout: 16-byte chunk j of row r at
+// r LDR + E j, the thread's chunk column j = p % CR and rows p / CR + RS i.
+// Else the block's nb^2 elements in order from dst + phase: the elements
+// before the first 16-byte boundary and after the last one singly, the
+// rest in 16-byte chunks, chunk q by thread q % PT.
+template <typename T, int NB, bool ROWS>
+__device__ __forceinline__ void copy_block(T* dst, const T* src, int nb,
+                                           int p) {
+  using S = SolveShape<T, NB>;
+  if constexpr (ROWS) {
+    const int j = p % S::CR;
+    if (S::E * j >= nb) return;
+#pragma unroll 4
+    for (int r = p / S::CR; r < nb; r += S::RS)
+      cp_async16(dst + r * S::LDR + S::E * j, src + r * nb + S::E * j);
+  } else {
+    const int ph = block_phase<T, NB, false>(src);
+    const int n = nb * nb;
+    const int head = min((S::E - ph) % S::E, n);
+    const int nch = (n - head) / S::E;
+    const int tail = n - head - S::E * nch;
+    dst += ph;
+    if (p < head) cp_async(dst + p, src + p);
+    for (int q = p; q < nch; q += S::PT)
+      cp_async16(dst + head + S::E * q, src + head + S::E * q);
+    if (p < tail) {
+      const int i = head + S::E * nch + p;
+      cp_async(dst + i, src + i);
+    }
   }
 }
 
-// Where load_block's registers go in a shared block of leading dimension
-// ld: computed once, so no loop divides by the runtime nb.
-__device__ __forceinline__ void block_offsets(int (&off)[PER_T], int nb,
-                                              int ld, int tid) {
+// One sweep on the consumer warps (FWD: stages g = 0 .. K-1, k = g; else
+// g = K .. 2K-1, k = 2K-1-g), lane t owning row t (t < nb) of each stage:
+//   forward  r = b_k - E_{k-1} v,     y = Ci_k r      (v = y_{k-1})
+//   backward r = y_k - E_k^T v,       x = Ci_k^T r    (v = x_{k+1})
+// each sum over c = 0 .. nb-1 in order, one FMA a term, masked past nb
+// unless FULL (nb == NB); the result goes to x and to v.  Each chain's
+// terms are read into registers before its first FMA (unconditionally:
+// past nb they read the slot's unused padding, which no term sums), and the
+// E row (column) of stage g + 1 while stage g's second chain runs, so a
+// stage's first chain waits only on v.  `done` is published (release)
+// before the stage's store to x, so its fence waits on no fresh global
+// store.
+template <typename T, int NB, bool ROWS, bool FULL, bool FWD>
+__device__ __forceinline__ void consume_sweep(
+    const T* ring, unsigned long long* full, unsigned* done, const T* Ci_b,
+    const T* Ek_b, T* x_b, T* v, T* r, int K, int nb, int t) {
+  using S = SolveShape<T, NB>;
+  constexpr int CH = S::CH;
+  const long long blk = (long long)nb * nb;
+  const int ld = ROWS ? S::LDR : nb;
+  const bool own = FULL || t < nb;
+  const int g0 = FWD ? 0 : K, g1 = FWD ? K : 2 * K;
+  // four consecutive terms c0 .. c0+3 of row t of a block (column t
+  // backward), element (row i, column c) at i ld + c; rows of the row
+  // layout are read 16 bytes at a time
+  auto terms4 = [&](const T* A, int c0, T* a) {
+    if constexpr (FWD && ROWS) {
+      ld4(A + t * ld + c0, a);
+    } else {
 #pragma unroll
-  for (int i = 0; i < PER_T; ++i) {
-    const int e = tid + i * THREADS;
-    off[i] = e < nb * nb ? (e / nb) * ld + e % nb : -1;
+      for (int u = 0; u < 4; ++u)
+        a[u] = FWD ? A[t * ld + c0 + u] : A[(c0 + u) * ld + t];
+    }
+  };
+  auto live = [&](int c) { return FULL || c < nb; };
+  T e[NB];
+  // wait for stage g's slot, then read its E row (column) into e
+  auto take = [&](int g) {
+    mbar_wait(full + g % S::STAGES, (g / S::STAGES) & 1);
+    const int ke = FWD ? g - 1 : 2 * K - 1 - g;
+    if (ke < 0 || ke >= K - 1) return;
+    const T* Es = ring + (g % S::STAGES) * S::SLOT + S::AREA +
+                  block_phase<T, NB, ROWS>(Ek_b + ke * blk);
+#pragma unroll
+    for (int c0 = 0; c0 < NB; c0 += 4) terms4(Es, c0, e + c0);
+  };
+  take(g0);
+  for (int g = g0; g < g1; ++g) {
+    const int k = FWD ? g : 2 * K - 1 - g;
+    const int ke = FWD ? k - 1 : k;
+    const T* Ms = ring + (g % S::STAGES) * S::SLOT;
+    const T* vs = Ms + 2 * S::AREA;
+    Ms += block_phase<T, NB, ROWS>(Ci_b + k * blk);
+    T mr[CH];   // the first CH terms of Ci_k's row (column)
+#pragma unroll
+    for (int c0 = 0; c0 < CH; c0 += 4) terms4(Ms, c0, mr + c0);
+    T s = T(0);
+    if (ke >= 0 && ke < K - 1) {
+      T vv[NB];
+#pragma unroll
+      for (int c0 = 0; c0 < NB; c0 += 4) ld4(v + c0, vv + c0);
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+        if (live(c)) s = fma_t(e[c], vv[c], s);
+    }
+    if (own) r[t] = vs[t] - s;
+    consumer_sync<S::NCW>();
+    T y = T(0);
+#pragma unroll
+    for (int h = 0; h < NB; h += CH) {
+      T m[CH], rr[CH];
+#pragma unroll
+      for (int c0 = 0; c0 < CH; c0 += 4) {
+        if (h == 0) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) m[c0 + u] = mr[c0 + u];
+        } else {
+          terms4(Ms, h + c0, m + c0);
+        }
+        ld4(r + h + c0, rr + c0);
+      }
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        if (live(h + c)) y = fma_t(m[c], rr[c], y);
+    }
+    if (own) v[t] = y;
+    if (g + 1 < g1) take(g + 1);
+    consumer_sync<S::NCW>();
+    if (t == 0) flag_store(done, g + 1);
+    if (own) x_b[k * nb + t] = y;
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void store_block(T* dst, const T (&reg)[PER_T],
-                                            const int (&off)[PER_T]) {
-#pragma unroll
-  for (int i = 0; i < PER_T; ++i)
-    if (off[i] >= 0) dst[off[i]] = reg[i];
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// Warp roles: NCW consumer warps (lane t of warp w owns row 32 w + t) and
+// PT / 32 producer warps.  2K stages, g = 0 .. K-1 forward (k = g), then
+// K .. 2K-1 backward (k = 2K-1-g), each in ring slot g % STAGES, which
+// holds Ci_k, E (E_{k-1} forward, E_k backward) and the vector (b_k
+// forward, y_k backward).  Handoffs: full[slot], an mbarrier that completes
+// once every producer thread's copies of the stage have landed (its parity
+// is the slot's use g / STAGES), and `done`, the count of stages the
+// consumers have finished, so slot g % STAGES may be refilled for stage
+// g + STAGES.  At g = K the whole block meets once: the forward sweep's y
+// is in x, for the producers to copy back.
+template <typename T, int NB, bool ROWS, bool FULL>
+__global__ void __launch_bounds__(SolveShape<T, NB>::THREADS)
 tridiag_solve_kernel(const T* __restrict__ Ci, const T* __restrict__ Ek,
-                     const T* __restrict__ rhs, T* __restrict__ x, int K,
-                     int nb) {
+                     const T* __restrict__ rhs, T* x, int K, int nb) {
+  using S = SolveShape<T, NB>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = nb | 1;
-  T* M = reinterpret_cast<T*>(smem_raw);   // Ci_k
-  T* E = M + nb * ld;                      // E_{k-1} (forward), E_k (backward)
-  T* v = E + nb * ld;                      // y_{k-1} (forward), x_{k+1} (backward)
-  T* r = v + nb;                           // the stage's residual
+  unsigned* done = reinterpret_cast<unsigned*>(smem_raw);
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(smem_raw + 16);
+  T* v = reinterpret_cast<T*>(full + 2 * S::STAGES);   // y_{k-1} / x_{k+1}
+  T* r = v + NB;                                        // the residual
+  T* ring = r + NB;
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  const int nn = nb * nb;
-  const long long blk = nn;
+  const long long blk = (long long)nb * nb;
   const T* Ci_b = Ci + (long long)b * K * blk;
   const T* Ek_b = Ek + (long long)b * (K - 1) * blk;
   const T* b_b = rhs + (long long)b * K * nb;
   T* x_b = x + (long long)b * K * nb;
 
-  T m_reg[PER_T], e_reg[PER_T];
-  int off[PER_T];
-  block_offsets(off, nb, ld, tid);
-  if (tid < nb) v[tid] = T(0);
-  load_block(m_reg, Ci_b, nn, tid);
-
-  // forward sweep: y_k = Ci_k (b_k - E_{k-1} y_{k-1}), y_k into x
-  for (int k = 0; k < K; ++k) {
-    store_block(M, m_reg, off);
-    if (k > 0) store_block(E, e_reg, off);
-    __syncthreads();
-    if (k + 1 < K) {
-      load_block(m_reg, Ci_b + (k + 1) * blk, nn, tid);
-      load_block(e_reg, Ek_b + k * blk, nn, tid);
-    } else {
-      load_block(m_reg, Ci_b + k * blk, nn, tid);   // first backward stage
-    }
-    if (tid < nb) {
-      T s = T(0);
-      if (k > 0)
-        for (int c = 0; c < nb; ++c) s += E[tid * ld + c] * v[c];
-      r[tid] = b_b[k * nb + tid] - s;
-    }
-    __syncthreads();
-    if (tid < nb) {
-      T y = T(0);
-      for (int c = 0; c < nb; ++c) y += M[tid * ld + c] * r[c];
-      x_b[k * nb + tid] = y;
-      v[tid] = y;
-    }
-    __syncthreads();
+  if (tid == 0) {
+    for (int i = 0; i < S::STAGES; ++i)
+      mbar_init(full + i, S::PT);   // every producer thread's copies
+    *done = 0;
   }
+  if (tid < NB) v[tid] = r[tid] = T(0);
+  __syncthreads();
 
-  // backward sweep: x_k = Ci_k^T (y_k - E_k^T x_{k+1})
-  for (int k = K - 1; k >= 0; --k) {
-    store_block(M, m_reg, off);
-    if (k < K - 1) store_block(E, e_reg, off);
-    __syncthreads();
-    if (k > 0) {
-      load_block(m_reg, Ci_b + (k - 1) * blk, nn, tid);
-      load_block(e_reg, Ek_b + (k - 1) * blk, nn, tid);
+  if (tid < S::NC) {
+    consume_sweep<T, NB, ROWS, FULL, true>(ring, full, done, Ci_b, Ek_b, x_b,
+                                           v, r, K, nb, tid);
+    block_sync<S::THREADS>();
+    consume_sweep<T, NB, ROWS, FULL, false>(ring, full, done, Ci_b, Ek_b,
+                                            x_b, v, r, K, nb, tid);
+  } else {
+    const int p = tid - S::NC;
+    for (int g = 0; g < 2 * K; ++g) {
+      if (g == K) block_sync<S::THREADS>();
+      const bool fwd = g < K;
+      const int k = fwd ? g : 2 * K - 1 - g;
+      const int ke = fwd ? k - 1 : k;
+      const int slot = g % S::STAGES;
+      if (g >= S::STAGES) flag_wait(done, g - S::STAGES + 1);
+      T* Ms = ring + slot * S::SLOT;
+      T* Es = Ms + S::AREA;
+      T* vs = Es + S::AREA;
+      copy_block<T, NB, ROWS>(Ms, Ci_b + k * blk, nb, p);
+      if (ke >= 0 && ke < K - 1)
+        copy_block<T, NB, ROWS>(Es, Ek_b + ke * blk, nb, p);
+      // b_k forward, y_k (in x since the turn) backward
+      if (p < nb) cp_async(vs + p, (fwd ? b_b : x_b) + k * nb + p);
+      mbar_arrive_on_copies(full + slot);
     }
-    if (tid < nb) {
-      T s = T(0);
-      if (k < K - 1)
-        for (int c = 0; c < nb; ++c) s += E[c * ld + tid] * v[c];
-      r[tid] = x_b[k * nb + tid] - s;
-    }
-    __syncthreads();
-    if (tid < nb) {
-      T xv = T(0);
-      for (int c = 0; c < nb; ++c) xv += M[c * ld + tid] * r[c];
-      x_b[k * nb + tid] = xv;
-      v[tid] = xv;
-    }
-    __syncthreads();
   }
 }
 
@@ -372,16 +613,37 @@ int launch_factor(const void* Ad, const void* Bs, const void* delta, void* Ck,
                                       stream);
 }
 
+template <typename T, int NB, bool ROWS>
+int launch_solve_nb(const void* Ci, const void* Ek, const void* b, void* x,
+                    int B, int K, int nb, void* stream) {
+  using S = SolveShape<T, NB>;
+  // unmasked where nb fills the block edge
+  const auto kernel = nb == NB ? tridiag_solve_kernel<T, NB, ROWS, true>
+                               : tridiag_solve_kernel<T, NB, ROWS, false>;
+  int err = set_smem(kernel, S::SMEM);
+  if (err) return err;
+  kernel<<<B, S::THREADS, S::SMEM, (cudaStream_t)stream>>>(
+      (const T*)Ci, (const T*)Ek, (const T*)b, (T*)x, K, nb);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
+
 template <typename T>
 int launch_solve(const void* Ci, const void* Ek, const void* b, void* x,
                  int B, int K, int nb, void* stream) {
   if (nb > MAX_NB) return (int)cudaErrorInvalidValue;
-  const size_t smem = (2 * (size_t)nb * (nb | 1) + 2 * nb) * sizeof(T);
-  int err = set_smem(tridiag_solve_kernel<T>, smem);
-  if (err) return err;
-  tridiag_solve_kernel<T><<<B, THREADS, smem, (cudaStream_t)stream>>>(
-      (const T*)Ci, (const T*)Ek, (const T*)b, (T*)x, K, nb);
-  return (int)cudaGetLastError();
+  // the row layout where every row of every block is 16-byte aligned
+  const bool rows = nb * sizeof(T) % 16 == 0 && aligned16(Ci) &&
+                    aligned16(Ek);
+  if (nb <= 32)
+    return rows ? launch_solve_nb<T, 32, true>(Ci, Ek, b, x, B, K, nb, stream)
+                : launch_solve_nb<T, 32, false>(Ci, Ek, b, x, B, K, nb,
+                                                stream);
+  return rows ? launch_solve_nb<T, 64, true>(Ci, Ek, b, x, B, K, nb, stream)
+              : launch_solve_nb<T, 64, false>(Ci, Ek, b, x, B, K, nb, stream);
 }
 
 }  // namespace

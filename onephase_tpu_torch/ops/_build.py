@@ -39,10 +39,8 @@ _LL = ctypes.c_longlong
 
 # C entry points: name -> argtypes (every one returns cudaGetLastError())
 _SIGNATURES = {
-    # Jc, jc_bstride, w, H, h_bstride, bnd, Q, B, m, n, stream
-    "op_fused_q": [_P, _LL, _P, _P, _LL, _P, _P, _I, _I, _I, _P],
     # Jc, jc_bstride, w, H, h_bstride, bnd, Q, B, m, n, lower, stream
-    "op_fused_q_tri": [_P, _LL, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _P],
+    "op_fused_q": [_P, _LL, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _P],
     # Q, L, d, ok, B, n, stream
     "op_chol": [_P, _P, _P, _P, _I, _I, _P],
     # L, Li, B, n, stream

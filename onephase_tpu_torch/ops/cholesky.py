@@ -14,7 +14,7 @@ tensors -> the plain version):
 - `pallas_tri_inv_gram`: replaces onephase_tpu/ops/cholesky.py:
   pallas_tri_inv_gram (`_tri_inv_gram_kernel`) with `csrc/tri_inv.cu`
   (the columns of L^-1) followed by the Gram product over the lower tile
-  pairs, the kernel of `csrc/fused_q_tri.cu` in its lower-triangular mode.
+  pairs, the kernel of `csrc/fused_q.cu` in its lower-triangular mode.
   L (B, n, n) -> M (B, n, n), symmetric bit for bit.
 - `pallas_chol_inv`: the two in sequence (the JAX package's
   pallas_chol_inv).
@@ -30,7 +30,7 @@ import torch
 
 from . import LAUNCHES
 from . import _build
-from .schur import launch_fused_q_tri
+from .schur import launch_fused_q
 
 _FLOATS = (torch.float32, torch.float64)
 
@@ -142,7 +142,7 @@ def pallas_tri_inv_gram(L):
     if B == 0 or n == 0:
         return M
     launch_tri_inv(L, Li)
-    launch_fused_q_tri(Li, None, None, None, M, lower=True)
+    launch_fused_q(Li, None, None, None, M, lower=True)
     LAUNCHES["tri_inv_gram"] += 1
     return M
 

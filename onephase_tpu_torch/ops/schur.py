@@ -11,10 +11,10 @@ triple products, docs/one-phase.tex:901-912).
   mirrored rank-m part plus H in its own place.
 - `pallas_fused_q_tri`: the triangle-tiled form of the same function.  It
   replaces the TPU kernel onephase_tpu/ops/schur.py:pallas_fused_q_tri
-  (`_fused_q_tri_kernel`) with the CUDA C++ kernel `csrc/fused_q_tri.cu`.
-  No lane dispatches it, in either package; its kernel, in its
-  lower-triangular mode, is the Gram half of `ops/cholesky.py:
-  pallas_tri_inv_gram`.
+  (`_fused_q_tri_kernel`) with the same launch of `csrc/fused_q.cu`,
+  which already tiles only the lower pairs.  No lane dispatches it, in
+  either package.  The kernel's lower-triangular mode is the Gram half of
+  `ops/cholesky.py:pallas_tri_inv_gram`.
 - `xla_fused_q`: the plain PyTorch version of the same function (the port
   of the JAX package's XLA expression); the other lanes use it, and the
   wrapper uses it for CPU tensors.
@@ -76,9 +76,9 @@ def _cuda_operands(Jc, w, H, bnd):
     return B, m, n
 
 
-def pallas_fused_q(Jc, w, H, bnd):
-    """Q = H + Jc^T diag(w) Jc + diag(bnd): the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+def _launch_counted(Jc, w, H, bnd, counter):
+    """Q from the kernel of `csrc/fused_q.cu` for CUDA tensors, counted in
+    LAUNCHES[counter]; the plain version for CPU tensors."""
     if bnd.device.type == "cpu":
         return xla_fused_q(Jc, w, H, bnd)
     B, m, n = _cuda_operands(Jc, w, H, bnd)
@@ -86,26 +86,25 @@ def pallas_fused_q(Jc, w, H, bnd):
     if B == 0 or n == 0:
         return Q
     launch_fused_q(Jc, w, H, bnd, Q)
-    LAUNCHES["fused_q"] += 1
+    LAUNCHES[counter] += 1
     return Q
+
+
+def pallas_fused_q(Jc, w, H, bnd):
+    """Q = H + Jc^T diag(w) Jc + diag(bnd): the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    return _launch_counted(Jc, w, H, bnd, "fused_q")
 
 
 def pallas_fused_q_tri(Jc, w, H, bnd):
     """The same Q as `pallas_fused_q`, with the rank-m product formed for
-    the lower tile pairs only and mirrored (`csrc/fused_q_tri.cu`), so
-    Q - H is symmetric bit for bit; the plain version for CPU tensors.
+    the lower tile pairs only and mirrored, so Q - H is symmetric bit for
+    bit: the same kernel, its launches counted apart; the plain version
+    for CPU tensors.
 
     As in the JAX package, `fused_q` does not dispatch here: the function
     is kept as the symmetric-tiling building block and held by its tests."""
-    if bnd.device.type == "cpu":
-        return xla_fused_q(Jc, w, H, bnd)
-    B, m, n = _cuda_operands(Jc, w, H, bnd)
-    Q = torch.empty(B, n, n, dtype=bnd.dtype, device=bnd.device)
-    if B == 0 or n == 0:
-        return Q
-    launch_fused_q_tri(Jc, w, H, bnd, Q, lower=False)
-    LAUNCHES["fused_q_tri"] += 1
-    return Q
+    return _launch_counted(Jc, w, H, bnd, "fused_q_tri")
 
 
 def _batch_stride(t):
@@ -113,30 +112,18 @@ def _batch_stride(t):
     return 0 if (t is None or t.dim() == 2) else t.shape[-2] * t.shape[-1]
 
 
-def launch_fused_q(Jc, w, H, bnd, Q):
+def launch_fused_q(Jc, w, H, bnd, Q, lower: bool = False):
     """Launch `csrc/fused_q.cu` on validated operands (w, H, bnd may be
-    None)."""
-    B, n = Q.shape[0], Q.shape[-1]
-    with torch.cuda.device(Q.device):
-        err = _build.entry("op_fused_q", Q.dtype)(
-            _build.ptr(Jc), _batch_stride(Jc), _build.ptr(w), _build.ptr(H),
-            _batch_stride(H), _build.ptr(bnd), _build.ptr(Q), B,
-            Jc.shape[-2], n, _build.stream_ptr(Q))
-    _build.check(err, "fused_q")
-
-
-def launch_fused_q_tri(Jc, w, H, bnd, Q, lower: bool):
-    """Launch `csrc/fused_q_tri.cu` on validated operands (w, H, bnd may be
     None).  `lower` declares Jc square and lower triangular, so tile (i, j),
     i >= j, sums only over rows k >= i: the Gram product of the triangular
     inverse (ops/cholesky.py)."""
     B, n = Q.shape[0], Q.shape[-1]
     with torch.cuda.device(Q.device):
-        err = _build.entry("op_fused_q_tri", Q.dtype)(
+        err = _build.entry("op_fused_q", Q.dtype)(
             _build.ptr(Jc), _batch_stride(Jc), _build.ptr(w), _build.ptr(H),
             _batch_stride(H), _build.ptr(bnd), _build.ptr(Q), B,
             Jc.shape[-2], n, int(lower), _build.stream_ptr(Q))
-    _build.check(err, "fused_q_tri")
+    _build.check(err, "fused_q")
 
 
 def fused_q(Jc, w, H, bnd, use_pallas: bool):

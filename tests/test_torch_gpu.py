@@ -157,6 +157,29 @@ def test_fused_q_lower_triangle_equals_fused_q_tri(cuda, dt, n, m, B,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n, m, B, shared", FQ_EDGES + [(1024, 512, 64, True)])
+@pytest.mark.parametrize("with_h", [True, False])
+def test_fused_q_tri_equals_fused_q_bit_for_bit(cuda, dt, n, m, B, shared,
+                                                with_h):
+    """K6 runs K1's kernel: with a symmetric H (or none) the two wrappers
+    return the same full Q, both triangles, bit for bit, each counting its
+    own launch."""
+    Jc, w, H, bnd = _fq_inputs(np.random.default_rng(n * 13 + m), n, m, B,
+                               shared, dt, cuda)
+    H = (0.5 * (H + H.mT)).contiguous() if with_h else None
+    before = ops.launch_counts()
+    Q6 = schur.pallas_fused_q_tri(Jc, w, H, bnd)
+    Q1 = schur.pallas_fused_q(Jc, w, H, bnd)
+    after = ops.launch_counts()
+    assert after["fused_q_tri"] == before["fused_q_tri"] + 1
+    assert after["fused_q"] == before["fused_q"] + 1
+    assert torch.equal(Q6, Q1)
+    assert torch.equal(Q6 - torch.diag_embed(bnd),
+                       (Q6 - torch.diag_embed(bnd)).mT)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n, B", [(256, 16), (130, 3), (1024, 4)])
 def test_chol_tri_inv_gram_chol_inv_match_plain(cuda, dt, n, B):
     Q = _spd(np.random.default_rng(n), B, n, dt, cuda)
@@ -222,6 +245,37 @@ def test_tridiag_factor_and_solve_match_plain(cuda, dt, B, K, nb):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B, K, nb", [(2, 1, 1), (3, 1, 30), (1, 1, 64),
+                                      (2, 2, 31), (1, 9, 32), (3, 20, 5),
+                                      (2, 17, 33), (1, 13, 63), (2, 40, 63),
+                                      (1, 7, 64)])
+def test_tridiag_solve_every_width_and_ring_wrap(cuda, dt, B, K, nb):
+    """K5 on both of its compile-time block edges (32 and 64) and their
+    ragged widths, at K = 1 (one stage each way) and at K past the depth of
+    its stage ring (8 slots at nb <= 32 in f32, 3 at nb > 32 in f64), against
+    `xla_tridiag_solve_inv` on the same block inverses; one launch counted
+    a call."""
+    from onephase_tpu_torch.ops import tridiag_pallas as tp
+    rng = np.random.default_rng(K * 1000 + nb * 10 + B)
+    Ad, Bs = _band(rng, B, K, nb, dt, cuda)
+    Ck, Ci, Ek, ok = tp.pallas_tridiag_factor(Ad, Bs, 1e-4)
+    assert bool(ok.all())
+    b = torch.as_tensor(rng.normal(size=(B, K, nb)), dtype=dt, device=cuda)
+    before = ops.launch_counts()["tridiag_solve"]
+    x = tp.pallas_tridiag_solve(Ci, Ek, b)
+    assert ops.launch_counts()["tridiag_solve"] == before + 1
+    assert _rel_err(x, tp.xla_tridiag_solve_inv(Ci, Ek, b)) <= TOL[dt]
+    # the residual of the block-tridiagonal system itself
+    A = Ad + 1e-4 * torch.eye(nb, dtype=dt, device=cuda)
+    r = torch.einsum("bkij,bkj->bki", A, x)
+    if K > 1:
+        r[:, 1:] += torch.einsum("bkij,bkj->bki", Bs, x[:, :-1])
+        r[:, :-1] += torch.einsum("bkji,bkj->bki", Bs, x[:, 1:])
+    assert _rel_err(r, b) <= 10 * TOL[dt]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
 def test_tridiag_factor_rejects_non_pd(cuda, dt):
     from onephase_tpu_torch.ops import tridiag_pallas as tp
     Ad, Bs = _band(np.random.default_rng(5), 3, 8, 6, dt, cuda)
@@ -270,6 +324,21 @@ def test_tri_inv_gram_every_tile_edge(cuda, dt, n, B):
     before = ops.launch_counts()["tri_inv_gram"]
     M = ch.pallas_tri_inv_gram(L)
     assert ops.launch_counts()["tri_inv_gram"] == before + 1
+    assert _rel_err(M, ch.xla_chol_inv_from_L(L)) <= TOL[dt]
+    assert torch.equal(M, M.mT)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n, B", [(300, 48), (1030, 8)])
+def test_tri_inv_gram_on_the_128_tile_grid(cuda, dt, n, B):
+    """K3's Gram half where B x (lower 128-tile pairs) gives every SM of an
+    H100 two blocks, so f32 takes the 128-tile grid (each tile's k loop
+    from its row i0, ragged n) and f64 its 64-tile one: against the plain
+    version, M symmetric bit for bit."""
+    Q = _spd_on_card(np.random.default_rng(3000 * n + B), B, n, dt, cuda)
+    L = ch.xla_chol(Q)[0].contiguous()
+    M = ch.pallas_tri_inv_gram(L)
     assert _rel_err(M, ch.xla_chol_inv_from_L(L)) <= TOL[dt]
     assert torch.equal(M, M.mT)
 

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Hold K3 or K1 of this tree value for value against another checkout's.
+"""Hold K3, K1, K6 or K5 of this tree value for value against another
+checkout's.
 
 K3 (`ops/cholesky.py:pallas_tri_inv_gram`, M = L^-T L^-1) feeds every
-backsolve of the dense path, and K1 (`ops/schur.py:pallas_fused_q`, Q = H +
-Jc^T diag(w) Jc + diag(bnd)) every factorization; the f32 bench trajectory
-is sensitive to the last bit of M and of the factor, so a redesign of
-either kernel must return the earlier values bit for bit.  On a machine
-with a CUDA card:
+backsolve of the dense path, K1 (`ops/schur.py:pallas_fused_q`, Q = H +
+Jc^T diag(w) Jc + diag(bnd)) every factorization, and K5
+(`ops/tridiag_pallas.py:pallas_tridiag_solve`) every backsolve of the chain
+and banded paths; the f32 trajectories are sensitive to the last bit of M,
+of the factor and of the step, so a redesign of any of them must return the
+earlier values bit for bit.  On a machine with a CUDA card:
 
     mkdir -p _parent && git archive <commit> onephase_tpu_torch | tar -x -C _parent
-    python3 tools/kernel_equal.py --parent _parent                   # K3
-    python3 tools/kernel_equal.py --parent _parent --kernel fused_q  # K1
+    python3 tools/kernel_equal.py --parent _parent                         # K3
+    python3 tools/kernel_equal.py --parent _parent --kernel fused_q        # K1
+    python3 tools/kernel_equal.py --parent _parent --kernel fused_q_tri    # K6
+    python3 tools/kernel_equal.py --parent _parent --kernel tridiag_solve  # K5
 
 The other checkout's `onephase_tpu_torch` is imported under another name
 (its kernels build into its own `build/`).
@@ -30,13 +34,26 @@ the lower triangle and the diagonal are read on the path, so the check is
 diagonal are counted and printed.  The rank-m part of this tree's Q (H =
 None, bnd = 0) must also be bit-symmetric.
 
+`--kernel fused_q_tri`: both packages' `pallas_fused_q_tri` on the same
+operands: f32 and f64, n in {256, 1024, 2048} and ragged n, Jc and H
+shared and per instance, H = None and an unsymmetric H; `torch.equal` on
+the full Q, both triangles.
+
+`--kernel tridiag_solve`: both packages' `pallas_tridiag_solve` on the
+same Ci, Ek (this tree's factor of a seeded SPD band) and b: f32 and f64,
+(B, K, nb) at the chain path's (1, 400, 32), the banded path's (1, 204, 63)
+and (1, 200, 64), ragged (2, 7, 30), K = 1 (2, 1, 32) and more edges;
+`torch.equal` on x.  This tree's K5 is also timed at B = 16 and 132 (one
+block per instance: does B > 1 fill the card?).
+
 Each case prints whether its check holds and how many entries differ.
 Then both are timed in turns (other, this, this, other; medians of
-CUDA-event times around each call) at the dense path's shapes, and each
+CUDA-event times around each call) at the paths' shapes, and each
 kernel's device time is read from `torch.profiler` (the mean over 20
 calls, by kernel name): at n=256 a call's event time is set by its
-wrapper's host work, the device times show the kernels alone.  The last
-line is one JSON object; the exit code is 1 if any case differs.
+wrapper's host work, the device times show the kernels alone.  Each mode
+ends on one JSON line; several modes (`--kernel fused_q tridiag_solve`)
+run in turn in one process.  The exit code is 1 if any case differs.
 """
 
 from __future__ import annotations
@@ -61,7 +78,8 @@ CASES = [(dt, n, B, None) for dt in ("float32", "float64")
                       (65, 64), (130, 3), (256, 16), (1024, 64), (2048, 2))]
 CASES += [("float32", 256, 16, 1e6), ("float32", 130, 3, 1e6),
           ("float64", 256, 16, 1e12)]
-TIMED = ((256, 16), (1024, 64))
+# K3 timed at the dense path's two shapes, and in f64 at n=1024
+TIMED = (("float32", 256, 16), ("float32", 1024, 64), ("float64", 1024, 64))
 # K1: (n, m, B, Jc and H shared, with H, w spread over 1e-8 .. 1e8), each
 # in f32 and f64: both tile edges and their ragged neighbours, the 16-byte
 # and the one-element copy routes, the 64- and the 128-edge grid (B T
@@ -81,6 +99,20 @@ FQ_CASES = [
 # the dense path's three shapes (n, m, B) and its f64 check at n=1024
 FQ_TIMED = (("float32", 256, 128, 16), ("float32", 1024, 512, 64),
             ("float32", 2048, 1024, 16), ("float64", 1024, 512, 64))
+# K6: (n, m, B, Jc and H shared, H: "sym", "unsym" or None), each in f32
+# and f64: the dense shapes, ragged n on both tile edges, both grids
+FQT_CASES = [
+    (256, 128, 16, True, "sym"), (256, 128, 16, False, "unsym"),
+    (1024, 512, 64, True, "sym"), (1024, 512, 64, True, "unsym"),
+    (1024, 512, 4, False, "sym"), (2048, 1024, 16, True, "sym"),
+    (130, 70, 3, False, "unsym"), (1000, 300, 16, True, None),
+    (65, 1, 5, True, "sym"), (200, 300, 2, True, None)]
+# K5: (B, K, nb) -- chip_smoke.py's chain, banded and ragged shapes first
+TS_CASES = [(1, 400, 32), (1, 204, 63), (1, 200, 64), (2, 7, 30),
+            (2, 1, 32), (3, 9, 1), (1, 17, 33), (4, 50, 32), (2, 12, 64),
+            (1, 2, 63)]
+TS_TIMED = ((1, 400, 32), (1, 204, 63))
+TS_SCALING = ((16, 400, 32), (132, 400, 32))
 
 
 def _load(root: Path, name: str, module: str):
@@ -178,16 +210,17 @@ def check_tri_inv_gram(parent: Path, dev):
               f"{symmetric}", flush=True)
 
     timings = []
-    for n, B in TIMED:
-        L = new.pallas_chol(_spd(rng, B, n, None, torch.float32, dev))[0]
+    for dname, n, B in TIMED:
+        L = new.pallas_chol(_spd(rng, B, n, None, getattr(torch, dname),
+                                 dev))[0]
         t_old, t_new = _time_abba(lambda: old.pallas_tri_inv_gram(L),
                                   lambda: new.pallas_tri_inv_gram(L))
         d_old = _device_ms(lambda: old.pallas_tri_inv_gram(L))
         d_new = _device_ms(lambda: new.pallas_tri_inv_gram(L))
-        timings.append(dict(n=n, B=B, dtype="float32", other_ms=t_old,
+        timings.append(dict(n=n, B=B, dtype=dname, other_ms=t_old,
                             this_ms=t_new, other_device_ms=d_old,
                             this_device_ms=d_new))
-        print(f"K3 f32 n={n} B={B}: other checkout {t_old:.4f} ms, this "
+        print(f"K3 {dname} n={n} B={B}: other checkout {t_old:.4f} ms, this "
               f"tree {t_new:.4f} ms ({t_new / t_old:.3f}x); device ms by "
               f"kernel: other {d_old}, this {d_new}", flush=True)
     return results, timings, differing
@@ -265,14 +298,132 @@ def check_fused_q(parent: Path, dev):
     return results, timings, differing
 
 
+def check_fused_q_tri(parent: Path, dev):
+    """K6 of both trees on the same operands: (results, timings,
+    differing)."""
+    from onephase_tpu_torch.ops import schur as new
+    old = _load(parent, "parent_onephase_tpu_torch", "ops.schur")
+    rng = np.random.default_rng(13)
+    differing, results = 0, []
+    for dname in ("float32", "float64"):
+        dtype = getattr(torch, dname)
+        for n, m, B, shared, hkind in FQT_CASES:
+            Jc, w, H, bnd = _fq_operands(rng, n, m, B, shared,
+                                         hkind is not None, False, dtype,
+                                         dev)
+            if hkind == "unsym":
+                H = H + torch.as_tensor(rng.normal(size=tuple(H.shape)),
+                                        dtype=dtype, device=dev)
+            Q_new = new.pallas_fused_q_tri(Jc, w, H, bnd)
+            Q_old = old.pallas_fused_q_tri(Jc, w, H, bnd)
+            torch.cuda.synchronize()
+            same = torch.equal(Q_new, Q_old)
+            n_diff = int((Q_new != Q_old).sum())
+            finite = bool(torch.isfinite(Q_new).all())
+            differing += not same
+            results.append(dict(dtype=dname, n=n, m=m, B=B, shared=shared,
+                                H=hkind, equal=same, differing_entries=n_diff,
+                                finite=finite))
+            print(f"K6 {dname} n={n} m={m} B={B} "
+                  f"{'shared' if shared else 'batched'} H={hkind}: "
+                  f"torch.equal on the full Q {same} ({n_diff} entries "
+                  f"differ), finite {finite}", flush=True)
+
+    timings = []
+    for dname, n, m, B in FQ_TIMED:
+        Jc, w, H, bnd = _fq_operands(rng, n, m, B, True, True, False,
+                                     getattr(torch, dname), dev)
+        t_old, t_new = _time_abba(
+            lambda: old.pallas_fused_q_tri(Jc, w, H, bnd),
+            lambda: new.pallas_fused_q_tri(Jc, w, H, bnd))
+        d_old = _device_ms(lambda: old.pallas_fused_q_tri(Jc, w, H, bnd))
+        d_new = _device_ms(lambda: new.pallas_fused_q_tri(Jc, w, H, bnd))
+        timings.append(dict(n=n, m=m, B=B, dtype=dname, other_ms=t_old,
+                            this_ms=t_new, other_device_ms=d_old,
+                            this_device_ms=d_new))
+        print(f"K6 {dname} n={n} m={m} B={B}: other checkout {t_old:.4f} "
+              f"ms, this tree {t_new:.4f} ms ({t_new / t_old:.3f}x); device "
+              f"ms by kernel: other {d_old}, this {d_new}", flush=True)
+    return results, timings, differing
+
+
+def _ts_operands(rng, B, K, nb, dtype, dev):
+    """Ci, Ek of this tree's factor of a seeded SPD band (A_k = G G^T + 3 I,
+    B_k ~ 0.3 N(0, 1), delta 1e-4) and b ~ N(0, 1)."""
+    from onephase_tpu_torch.ops import tridiag_pallas as tp
+    G = rng.normal(size=(B, K, nb, nb))
+    Ad = torch.as_tensor(G @ G.transpose(0, 1, 3, 2) + 3.0 * np.eye(nb),
+                         dtype=dtype, device=dev)
+    Bs = torch.as_tensor(rng.normal(size=(B, K - 1, nb, nb)) * 0.3,
+                         dtype=dtype, device=dev)
+    _, Ci, Ek, ok = tp.pallas_tridiag_factor(Ad, Bs, 1e-4)
+    if not bool(ok.all()):
+        raise RuntimeError(f"K7 rejected the SPD band B={B} K={K} nb={nb}")
+    b = torch.as_tensor(rng.normal(size=(B, K, nb)), dtype=dtype, device=dev)
+    return Ci, Ek, b
+
+
+def check_tridiag_solve(parent: Path, dev):
+    """K5 of both trees on the same Ci, Ek, b: (results, timings,
+    differing)."""
+    from onephase_tpu_torch.ops import tridiag_pallas as new
+    old = _load(parent, "parent_onephase_tpu_torch", "ops.tridiag_pallas")
+    rng = np.random.default_rng(17)
+    differing, results = 0, []
+    for dname in ("float32", "float64"):
+        dtype = getattr(torch, dname)
+        for B, K, nb in TS_CASES:
+            Ci, Ek, b = _ts_operands(rng, B, K, nb, dtype, dev)
+            x_new = new.pallas_tridiag_solve(Ci, Ek, b)
+            x_old = old.pallas_tridiag_solve(Ci, Ek, b)
+            torch.cuda.synchronize()
+            same = torch.equal(x_new, x_old)
+            n_diff = int((x_new != x_old).sum())
+            finite = bool(torch.isfinite(x_new).all())
+            differing += not same
+            results.append(dict(dtype=dname, B=B, K=K, nb=nb, equal=same,
+                                differing_entries=n_diff, finite=finite))
+            print(f"K5 {dname} B={B} K={K} nb={nb}: torch.equal on x {same} "
+                  f"({n_diff} entries differ), finite {finite}", flush=True)
+
+    timings = []
+    for dname in ("float32", "float64"):
+        dtype = getattr(torch, dname)
+        for B, K, nb in TS_TIMED:
+            Ci, Ek, b = _ts_operands(rng, B, K, nb, dtype, dev)
+            t_old, t_new = _time_abba(
+                lambda: old.pallas_tridiag_solve(Ci, Ek, b),
+                lambda: new.pallas_tridiag_solve(Ci, Ek, b))
+            d_old = _device_ms(lambda: old.pallas_tridiag_solve(Ci, Ek, b))
+            d_new = _device_ms(lambda: new.pallas_tridiag_solve(Ci, Ek, b))
+            timings.append(dict(B=B, K=K, nb=nb, dtype=dname,
+                                other_ms=t_old, this_ms=t_new,
+                                other_device_ms=d_old, this_device_ms=d_new))
+            print(f"K5 {dname} B={B} K={K} nb={nb}: other checkout "
+                  f"{t_old:.4f} ms, this tree {t_new:.4f} ms "
+                  f"({t_new / t_old:.3f}x); device ms by kernel: other "
+                  f"{d_old}, this {d_new}", flush=True)
+    for B, K, nb in TS_SCALING:
+        Ci, Ek, b = _ts_operands(rng, B, K, nb, torch.float32, dev)
+        d_new = _device_ms(lambda: new.pallas_tridiag_solve(Ci, Ek, b))
+        timings.append(dict(B=B, K=K, nb=nb, dtype="float32",
+                            this_device_ms=d_new))
+        print(f"K5 float32 B={B} K={K} nb={nb}: this tree, device ms by "
+              f"kernel {d_new}", flush=True)
+    return results, timings, differing
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, type=Path,
                     help="directory holding the other checkout's "
                          "onephase_tpu_torch/")
-    ap.add_argument("--kernel", choices=("tri_inv_gram", "fused_q"),
-                    default="tri_inv_gram",
-                    help="K3 (tri_inv_gram, the default) or K1 (fused_q)")
+    ap.add_argument("--kernel", nargs="+", default=["tri_inv_gram"],
+                    choices=("tri_inv_gram", "fused_q", "fused_q_tri",
+                             "tridiag_solve"),
+                    help="K3 (tri_inv_gram, the default), K1 (fused_q), K6 "
+                         "(fused_q_tri), K5 (tridiag_solve); several run "
+                         "in turn in one process")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_equal: no CUDA device; the kernels run only "
@@ -283,14 +434,20 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
-    check = {"tri_inv_gram": check_tri_inv_gram,
-             "fused_q": check_fused_q}[args.kernel]
-    results, timings, differing = check(args.parent.resolve(), dev)
-    print(f"card: {card}", flush=True)
-    print(json.dumps({"kernel": args.kernel, "cases": len(results),
-                      "differing_cases": differing, "timings": timings,
-                      "card": card, "results": results}), flush=True)
-    return 1 if differing else 0
+    checks = {"tri_inv_gram": check_tri_inv_gram,
+              "fused_q": check_fused_q,
+              "fused_q_tri": check_fused_q_tri,
+              "tridiag_solve": check_tridiag_solve}
+    any_differ = False
+    for kernel in args.kernel:
+        results, timings, differing = checks[kernel](args.parent.resolve(),
+                                                     dev)
+        any_differ |= differing > 0
+        print(f"card: {card}", flush=True)
+        print(json.dumps({"kernel": kernel, "cases": len(results),
+                          "differing_cases": differing, "timings": timings,
+                          "card": card, "results": results}), flush=True)
+    return 1 if any_differ else 0
 
 
 if __name__ == "__main__":
