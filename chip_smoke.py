@@ -13,6 +13,13 @@ three paths on the `pallas` lane:
   -> one_phase_solve / BatchSolver`): HS071 in float64, the bench
   configuration (n=256, m=128, batch 16, float32) and the n=1024, m=512,
   batch 64 configuration (kernels K1-K3);
+- the precision knobs on the dense path: the QP at n=1024, m=512, batch
+  16 in float64 at tol 1e-6 with adaptive refinement (MIXED_RUNS), with
+  the factor in float64, in float32 (K1-K3 launched on float32 operands
+  under the float64 solve) and on the fast-f64 lane; then 256/128/16
+  float32 on `invchol` under residual_precision="f64" (every certificate
+  must pass the float64 termination test) and on `pallas` under
+  q_form_dtype="bf16" (no Q kernel launch: the reference's dispatch);
 - the chain path (`chain_ocp -> ChainKernel (block-tridiagonal Schur) ->
   run_chunk`): chain_ocp(K=400, nx=32, mc=16) in float32, the JAX
   package's large-instance configuration (scripts/bench_large.py), on the
@@ -23,6 +30,9 @@ three paths on the `pallas` lane:
   (bandwidth 63 after RCM: K5 and K7 at nb=63), held to the chain path's
   argmin; then K=50 assembled against matrix-free and `pallas` against
   `xla`.
+
+The mixed phase also times K1, K2 and K3 at its shape in float64 and in
+float32, in turns.
 
 K6 (the triangle-tiled fused Q) lies on no path of either package; its
 wrapper launches K1's kernel (`csrc/fused_q.cu`), whose `lower` mode is
@@ -47,12 +57,14 @@ Every phase raises on failure, so the script exits nonzero and never prints
 the final line; without a CUDA card it refuses to run.  The line before
 the last lists every kernel with its launches on its path, its error
 against the plain version, its time, the plain version's, a library
-call's where one PyTorch call computes the same function, and its bound.
+call's where one PyTorch call computes the same function, and its bound
+(K1-K3 also with their launches on the mixed phase's float32 run).
 The last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -88,6 +100,33 @@ BANDED_SMALL_SHAPE = {"K": 50, "nx": 32, "mc": 16}
 # the block band RCM gives CHAIN_SHAPE (bandwidth 63, a ragged last block and
 # an identity tail); the banded run checks it, the kernel phase times it
 BANDED_BAND = {"K": 204, "nb": 63}
+# the mixed-precision phase: float64 solves of the dense QP at tol 1e-6
+# with adaptive refinement on the pallas lane, with the factor in the solve
+# dtype, in float32 (K1-K3 in float32 under the float64 solve), and on the
+# fast-f64 lane (a float32 attempt redone in float64 where the strict pivot
+# screen rejects it, Q formed in float32, the refinement's J products as
+# float32 pairs: it_refine_highprec routes the refinement through them)
+MIXED_SHAPE = {"n": 1024, "m": 512, "batch": 16}
+MIXED_OPTIONS = {
+    "output_level": 0,
+    "term.max_it": 60,
+    "term.tol_opt": 1e-6,
+    "chunk_size": 20,
+    "history_capacity": 2,
+    "kkt.it_refine_adaptive": True,
+}
+MIXED_RUNS = {
+    "same": {},
+    "f32": {"kkt.factor_precision": "f32"},
+    "f32_fallback": {"kkt.factor_precision": "f32_fallback",
+                     "kkt.fallback_form_f32": True,
+                     "kkt.hi_matvec_f32pair": "refine",
+                     "kkt.it_refine_highprec": True},
+}
+# the instances the JAX package certifies on the CPU with MIXED_RUNS["f32"]
+# (same problem, starts and options; tools/jax_dense_anchor.py): none, all
+# 16 end at MAX_IT after 60 outer iterations
+MIXED_JAX_F32_CERTIFIED = []
 TOL = {"float32": 1e-4, "float64": 1e-10}   # max error / max |reference|
 REPS = 20
 # H100 SXM (NVIDIA's data sheet, dense, at 700 W): HBM3 bytes/s, and the
@@ -784,10 +823,12 @@ def hs071(dev):
 
 
 def bench_run(dev, n, m, batch, lane, extra=None, warmup=True,
-              require_all=True):
+              require_all=True, base=None, dtype="float32"):
     """bench.py:141-163 on the port: a warm-up chunk, then a timed run of
     fresh states to completion, with the batch driver's float64
-    termination recheck between chunks.  Returns (summary, final x)."""
+    termination recheck between chunks.  `base` replaces the bench
+    options, `dtype` the solve dtype.  Returns (summary, final state,
+    kernel)."""
     import torch
     from onephase_tpu_torch import ops
     from onephase_tpu_torch.config import Params
@@ -796,11 +837,11 @@ def bench_run(dev, n, m, batch, lane, extra=None, warmup=True,
     from onephase_tpu_torch.nlp import canonicalize
     from onephase_tpu_torch.parallel.batch import BatchSolver
 
-    options = dict(BENCH_OPTIONS, **(extra or {}))
+    options = dict(base or BENCH_OPTIONS, **(extra or {}))
     options["kkt.linear_solver_type"] = lane
     pars = Params().with_overrides(options)
-    nlp = canonicalize(make_qp(n, m, seed=0, device=dev), dtype=torch.float32,
-                       device=dev)
+    nlp = canonicalize(make_qp(n, m, seed=0, device=dev),
+                       dtype=getattr(torch, dtype), device=dev)
     solver = BatchSolver(nlp, pars)
     x0s = np.random.default_rng(1).normal(size=(batch, nlp.n)) * 0.1
     if warmup:
@@ -830,7 +871,7 @@ def bench_run(dev, n, m, batch, lane, extra=None, warmup=True,
         "solves_per_s": solved / dt, "outer_its": outer, "cum_fac": fac,
         "host_syncs": solver.kernel.host_syncs, "launches": launches,
         "statuses": solver.statuses(st)}
-    print(f"bench n={n} m={m} B={batch} {lane} {extra or ''}: "
+    print(f"bench n={n} m={m} B={batch} {dtype} {lane} {extra or ''}: "
           f"{solved}/{batch} Optimal, "
           f"{fac / dt:.2f} fac/s, {solved / dt:.2f} solves/s, {outer} outer "
           f"its, {fac} factorizations, {dt:.4f} s, host_syncs "
@@ -838,7 +879,174 @@ def bench_run(dev, n, m, batch, lane, extra=None, warmup=True,
     if require_all and solved != batch:
         raise RuntimeError(f"bench n={n} {lane}: only {solved}/{batch} "
                            f"certified: {summary['statuses']}")
-    return summary, st.p.x
+    return summary, st, solver.kernel
+
+
+@contextlib.contextmanager
+def _operand_dtypes():
+    """The dtypes K1, K2 and K3's wrappers are called with inside the
+    block: {kernel: set of dtype names}.  It wraps the functions the solver
+    calls (and restores them); the launch counts stay the wrappers' own."""
+    import onephase_tpu_torch.ipm.core as core
+    from onephase_tpu_torch.ops import schur
+    seen = {"fused_q": set(), "chol": set(), "tri_inv_gram": set()}
+    saved = (schur.pallas_fused_q, core.pallas_chol, core.pallas_tri_inv_gram)
+
+    def wrap(name, fn):
+        def call(*args):
+            seen[name].add(str(args[-1].dtype).split(".")[-1])
+            return fn(*args)
+        return call
+
+    schur.pallas_fused_q = wrap("fused_q", saved[0])
+    core.pallas_chol = wrap("chol", saved[1])
+    core.pallas_tri_inv_gram = wrap("tri_inv_gram", saved[2])
+    try:
+        yield seen
+    finally:
+        (schur.pallas_fused_q, core.pallas_chol,
+         core.pallas_tri_inv_gram) = saved
+
+
+def mixed_kernel_times(dev):
+    """K1, K2 and K3 at the mixed phase's shape (n=1024, m=512, B=16), on
+    the QP's own Jc and H, in float64 and on the same operands cast to
+    float32 (the factor_precision="f32" route), each pair in turns, with
+    the casts the route adds timed apart.  Returns {kernel: record}."""
+    import torch
+    from onephase_tpu_torch.models.qp import make_qp
+    from onephase_tpu_torch.nlp import canonicalize
+    from onephase_tpu_torch.ops import cholesky as ch
+    from onephase_tpu_torch.ops import schur
+
+    n, m, B = MIXED_SHAPE["n"], MIXED_SHAPE["m"], MIXED_SHAPE["batch"]
+    nlp = canonicalize(make_qp(n, m, seed=0, device=dev),
+                       dtype=torch.float64, device=dev)
+    x0 = torch.zeros(1, n, dtype=torch.float64, device=dev)
+    Jc = nlp.jac_orig(x0)[0].contiguous()
+    H = nlp.lag_hess(x0, torch.zeros(1, nlp.m, dtype=torch.float64,
+                                     device=dev))[0].contiguous()
+    rng = np.random.default_rng(9)
+    w = torch.as_tensor(10.0 ** rng.uniform(-4, 4, size=(B, m)),
+                        dtype=torch.float64, device=dev)
+    bnd = torch.as_tensor(rng.uniform(0.0, 5.0, size=(B, n)),
+                          dtype=torch.float64, device=dev)
+    f32 = [t.to(torch.float32) for t in (Jc, w, H, bnd)]
+    Q = schur.pallas_fused_q(Jc, w, H, bnd)
+    Q32 = Q.to(torch.float32)
+    L = ch.pallas_chol(Q)[0]
+    L32 = ch.pallas_chol(Q32)[0]
+    rec = {}
+    for name, f64_fn, f32_fn, cast_fn, flops in (
+            ("fused_q", lambda: schur.pallas_fused_q(Jc, w, H, bnd),
+             lambda: schur.pallas_fused_q(*f32),
+             lambda: [t.to(torch.float32) for t in (Jc, w, H, bnd)],
+             B * m * n * (n + 1)),
+            ("chol", lambda: ch.pallas_chol(Q), lambda: ch.pallas_chol(Q32),
+             lambda: Q.to(torch.float32), B * n ** 3 / 3),
+            ("tri_inv_gram", lambda: ch.pallas_tri_inv_gram(L),
+             lambda: ch.pallas_tri_inv_gram(L32),
+             lambda: L.to(torch.float32), 2 * B * n ** 3 / 3)):
+        ms64, ms32, cast_ms = _time_turns(f64_fn, f32_fn, cast_fn)
+        b64 = _bound(0, flops, "float64")[0]
+        b32 = _bound(0, flops, "float32")[0]
+        print(f"mixed {name} n={n} m={m} B={B}: float64 {ms64:.4f} ms, "
+              f"float32 {ms32:.4f} ms (in turns; {ms32 / ms64:.2f}x), cast "
+              f"to float32 {cast_ms:.4f} ms; operation bounds {b64:.4f} and "
+              f"{b32:.4f} ms", flush=True)
+        rec[name] = {"ms_mixed_f64": ms64, "ms_mixed_f32": ms32,
+                     "cast_ms_mixed": cast_ms}
+    return rec
+
+
+def _rel_rows(x, ref):
+    """max over rows of max |x - ref| / max |ref| (each row an instance);
+    0 for no rows."""
+    if x.shape[0] == 0:
+        return 0.0
+    return float(((x - ref).abs().amax(-1) / ref.abs().amax(-1)).max())
+
+
+def mixed_phase(dev):
+    """The precision knobs on the card.  MIXED_RUNS at MIXED_SHAPE in
+    float64: "same" and "f32_fallback" certify every instance; "f32"
+    certifies every instance the JAX package certifies
+    (MIXED_JAX_F32_CERTIFIED) with K1-K3 launched on float32 operands;
+    every certified argmin agrees with "same"'s to 1e-5 relative.  Then
+    256/128/16 float32 with the bench options: `invchol` under
+    residual_precision="f64", whose Optimal instances must all pass
+    terminate_f64 at their final iterate, and `pallas` under
+    q_form_dtype="bf16", which launches no Q kernel (the JAX package's
+    dispatch forms the bf16 scale-split outside it).  Returns
+    {run: summary}."""
+    import torch
+    from onephase_tpu_torch.ipm.state import OPTIMAL
+
+    runs, states = {}, {}
+    for name, extra in MIXED_RUNS.items():
+        with _operand_dtypes() as seen:
+            summary, st, _ = bench_run(
+                dev, MIXED_SHAPE["n"], MIXED_SHAPE["m"], MIXED_SHAPE["batch"],
+                "pallas", extra=extra, require_all=False,
+                base=MIXED_OPTIONS, dtype="float64")
+        summary["operand_dtypes"] = {k: sorted(v) for k, v in seen.items()}
+        print(f"mixed {name}: K1-K3 operand dtypes "
+              f"{summary['operand_dtypes']}", flush=True)
+        runs[name], states[name] = summary, st
+    batch = MIXED_SHAPE["batch"]
+    for name in ("same", "f32_fallback"):
+        if runs[name]["solved"] != batch:
+            raise RuntimeError(f"mixed {name}: {runs[name]['solved']}/"
+                               f"{batch} certified")
+    ok = {k: states[k].status == OPTIMAL for k in runs}
+    certified = torch.nonzero(ok["f32"]).flatten().tolist()
+    print(f"mixed f32: certified instances {certified}; the JAX package's "
+          f"{MIXED_JAX_F32_CERTIFIED}", flush=True)
+    if not set(MIXED_JAX_F32_CERTIFIED) <= set(certified):
+        raise RuntimeError("mixed f32: an instance the JAX package "
+                           "certifies was not certified")
+    x_same = states["same"].p.x
+    for name in ("f32", "f32_fallback"):
+        both = ok[name] & ok["same"]
+        diff = _rel_rows(states[name].p.x[both], x_same[both])
+        print(f"mixed {name} argmin vs same's: max rel diff {diff:.3e} over "
+              f"{int(both.sum())} instances", flush=True)
+        if not diff <= 1e-5:
+            raise RuntimeError(f"mixed {name}: argmins disagree")
+    f32_run = runs["f32"]
+    for k in ("fused_q", "chol", "tri_inv_gram"):
+        if not (f32_run["launches"][k] > 0
+                and f32_run["operand_dtypes"][k] == ["float32"]):
+            raise RuntimeError(f"mixed f32: {k} launched "
+                               f"{f32_run['launches'][k]} times on "
+                               f"{f32_run['operand_dtypes'][k]}")
+
+    # residual_precision="f64": every instance called Optimal passes the
+    # float64 termination test at its final iterate
+    # (no warm-up chunk: these two runs' seconds are not compared)
+    res, st, kernel = bench_run(dev, 256, 128, 16, "invchol",
+                                extra={"kkt.residual_precision": "f64"},
+                                warmup=False, require_all=False)
+    codes = kernel.terminate_f64(st.p, st.cache, st.bvals)
+    opt = st.status == OPTIMAL
+    honest = bool((codes[opt] == OPTIMAL).all())
+    print(f"residual_precision f64 invchol: {int(opt.sum())}/16 Optimal, "
+          f"each passes terminate_f64 at its final iterate: {honest}",
+          flush=True)
+    if not honest:
+        raise RuntimeError("residual_precision f64: a certificate fails "
+                           "the float64 termination test")
+    runs["residual_f64_invchol"] = res
+    # q_form_dtype="bf16": no Q kernel on the pallas lane
+    bf, _, _ = bench_run(dev, 256, 128, 16, "pallas",
+                         extra={"kkt.q_form_dtype": "bf16"},
+                         warmup=False, require_all=False)
+    print(f"q_form_dtype bf16 pallas: {bf['solved']}/16 Optimal, fused_q "
+          f"launches {bf['launches']['fused_q']}", flush=True)
+    if bf["launches"]["fused_q"] != 0:
+        raise RuntimeError("q_form_dtype bf16 launched the Q kernel")
+    runs["bf16_pallas"] = bf
+    return runs
 
 
 def main() -> int:
@@ -874,9 +1082,13 @@ def main() -> int:
     hs071(dev)
     torch.cuda.synchronize()
 
-    main_path, x_pallas = bench_run(dev, 256, 128, 16, "pallas")
-    ref, x_invchol = bench_run(dev, 256, 128, 16, "invchol",
-                               require_all=False)
+    # only the argmins are kept: the banded runs' peak memory counts every
+    # live tensor
+    main_path, st, _ = bench_run(dev, 256, 128, 16, "pallas")
+    x_pallas = st.p.x
+    ref, st, _ = bench_run(dev, 256, 128, 16, "invchol", require_all=False)
+    x_invchol = st.p.x
+    del st
     # every instance solves the same strictly convex QP from its own start:
     # the certified argmins of both lanes agree to the tolerance's scale
     # (measured spread across instances at tol_opt=1e-4: ~2e-4 relative)
@@ -896,8 +1108,13 @@ def main() -> int:
     # contract at their endgame conditioning -- so they are reported, and
     # certification is required with adaptive refinement (same option tree)
     bench_run(dev, 1024, 512, 64, "pallas", warmup=False, require_all=False)
-    big, _ = bench_run(dev, 1024, 512, 64, "pallas", warmup=False,
-                       extra={"kkt.it_refine_adaptive": True})
+    big, _, _ = bench_run(dev, 1024, 512, 64, "pallas", warmup=False,
+                          extra={"kkt.it_refine_adaptive": True})
+    torch.cuda.synchronize()
+
+    # the precision knobs: K1-K3 in float32 under float64 solves
+    record_mixed = mixed_kernel_times(dev)
+    mixed = mixed_phase(dev)
     torch.cuda.synchronize()
 
     # the chain path: pallas lane (K5, K7), then the xla lane
@@ -927,6 +1144,8 @@ def main() -> int:
     # the 1024/512/64 run beside those of the bench run
     for k in ("fused_q", "chol", "tri_inv_gram"):
         record[k]["launches_n1024"] = big["launches"][k]
+        record[k]["launches_f32_run"] = mixed["f32"]["launches"][k]
+        record[k].update(record_mixed[k])
     record["fused_q_tri"]["path"] = "none: launches of the kernel phase"
     # K3 is two launches: the inverse (tri_inv.cu), then the Gram product
     # on K1's kernel

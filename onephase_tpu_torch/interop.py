@@ -6,6 +6,9 @@ package's `State` is a pytree; a caller turns it into numpy first
 (`jax.tree_util.tree_map(np.asarray, st)`), so this module needs no JAX.
 Field names are those of ipm/state.py in both packages.
 
+- A float64 state keeps its float32 leaves: under the precision knobs
+  (`kkt.factor_precision`, `precond_f32`, `fallback_form_f32`) the factor,
+  Q or the solve operator are carried in float32.
 - A JAX state without a batch axis gets one (a single solve is a batch of
   1 in the port).
 - The JAX package's (0, 0) placeholders (folded-constant Jacobian/Hessian,
@@ -40,6 +43,8 @@ def _to_tensor(a, dtype, device, add_batch):
         dt = torch.bool
     elif np.issubdtype(arr.dtype, np.integer):
         dt = torch.int32
+    elif arr.dtype == np.float32 and dtype == torch.float64:
+        dt = torch.float32      # a float32 factor of a float64 solve
     else:
         dt = dtype
     return torch.as_tensor(arr, dtype=dt, device=device)
@@ -78,7 +83,8 @@ def _convert(tree, cls, dtype, device, add_batch):
 def state_from_numpy(tree, dtype=torch.float64, device=None) -> State:
     """The port's `State` from a JAX `State` whose leaves are numpy arrays
     (batched or not); float leaves take `dtype`, on `device` (default: the
-    CUDA card)."""
+    CUDA card), except that a float64 state keeps its float32 leaves (the
+    factor and solve operator under the float32 factor knobs)."""
     add_batch = np.asarray(tree.p.x).ndim == 1
     dev = resolve_device(device)
     return _convert(tree, State, dtype, dev, add_batch)

@@ -20,8 +20,11 @@ value on the host.  `OnePhaseKernel.host_syncs` counts those reads.
 Only the `schur` KKT path is ported: dense here, block-tridiagonal in
 the structured subclasses of parallel/chain.py and parallel/banded.py,
 whose Factor fields (Jc, H, Q, L) may be tuples of block tensors -- every
-select over the factor goes through `tree_select`.  Options outside it
-(the symmetric paths, the Mehrotra init, the mixed-precision knobs) raise
+select over the factor goes through `tree_select`.  The dense path also
+runs the precision knobs of the JAX package (`kkt.factor_precision`,
+`fallback_form_f32`, `hi_matvec_f32pair`, `precond_f32`, `q_form_dtype`,
+`residual_precision`) and the Mehrotra init.  Options outside it (the
+symmetric paths, `matmul_precision` other than "highest"/"default") raise
 `NotImplementedError` instead of quietly running the default.
 """
 
@@ -94,23 +97,52 @@ def _mm_precision_ctx(name: str):
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def _check_supported(pars: Params):
-    kkt = pars.kkt
-    unsupported = {
-        "kkt.kkt_solver_type": (kkt.kkt_solver_type, "schur"),
-        "kkt.factor_precision": (kkt.factor_precision, "same"),
-        "kkt.fallback_form_f32": (kkt.fallback_form_f32, False),
-        "kkt.hi_matvec_f32pair": (kkt.hi_matvec_f32pair, "off"),
-        "kkt.precond_f32": (kkt.precond_f32, False),
-        "kkt.q_form_dtype": (kkt.q_form_dtype, "same"),
-        "kkt.residual_precision": (kkt.residual_precision, "same"),
-        "init.init_style": (pars.init.init_style, "gertz"),
-    }
-    for key, (val, ported) in unsupported.items():
+# options the dense Schur path runs and the structured kernels do not:
+# (key, value of the structured kernels)
+DENSE_ONLY = (
+    ("kkt.factor_precision", "same"),
+    ("kkt.fallback_form_f32", False),
+    ("kkt.hi_matvec_f32pair", "off"),
+    ("kkt.precond_f32", False),
+    ("kkt.q_form_dtype", "same"),
+    ("kkt.residual_precision", "same"),
+    ("init.init_style", "gertz"),
+)
+
+
+def _option(pars: Params, key: str):
+    group, name = key.split(".")
+    return getattr(getattr(pars, group), name)
+
+
+def reject_dense_only(pars: Params, kernel: str):
+    """A structured kernel's check: the precision knobs and the Mehrotra
+    init run on the dense path only."""
+    for key, ported in DENSE_ONLY:
+        val = _option(pars, key)
         if val != ported:
             raise NotImplementedError(
-                f"{key}={val!r} is not ported to onephase_tpu_torch "
-                f"(only {ported!r})")
+                f"{key}={val!r} is not ported to onephase_tpu_torch's "
+                f"{kernel} (only {ported!r})")
+
+
+def _check_supported(pars: Params):
+    kkt = pars.kkt
+    if kkt.kkt_solver_type != "schur":
+        raise NotImplementedError(
+            f"kkt.kkt_solver_type={kkt.kkt_solver_type!r} is not ported to "
+            "onephase_tpu_torch (only 'schur')")
+    choices = {
+        "kkt.factor_precision": ("same", "f32", "f32_fallback"),
+        "kkt.hi_matvec_f32pair": ("off", "refine", "all"),
+        "kkt.q_form_dtype": ("same", "bf16"),
+        "kkt.residual_precision": ("same", "f64"),
+        "init.init_style": ("gertz", "mehrotra"),
+    }
+    for key, allowed in choices.items():
+        val = _option(pars, key)
+        if val not in allowed:
+            raise ValueError(f"{key}={val!r}: expected one of {allowed}")
     if kkt.linear_solver_type not in ("xla", "invchol", "pallas"):
         raise NotImplementedError(
             f"kkt.linear_solver_type={kkt.linear_solver_type!r} is not "
@@ -134,10 +166,17 @@ class OnePhaseKernel:
         # host reads of device values inside the loops (see module doc)
         self.host_syncs = 0
 
-        # per-row fraction-to-boundary vectors (gertz init: uniform)
-        self.frac_bd = self._full((m,), pars.ls.fraction_to_boundary)
-        self.frac_bd_predict = self._full(
-            (m,), pars.ls.fraction_to_boundary_predict)
+        # per-row fraction-to-boundary vectors (Class_iterate.jl:66-67;
+        # linear rows relaxed by the Mehrotra init, init.jl:78-79)
+        fb = np.full(m, pars.ls.fraction_to_boundary)
+        fbp = np.full(m, pars.ls.fraction_to_boundary_predict)
+        if pars.init.init_style == "mehrotra":
+            fb[nlp.lin_mask] = pars.ls.fraction_to_boundary_linear
+            fbp[nlp.lin_mask] = pars.ls.fraction_to_boundary_linear
+        self.frac_bd = torch.as_tensor(fb, dtype=self.dtype,
+                                       device=self.device)
+        self.frac_bd_predict = torch.as_tensor(fbp, dtype=self.dtype,
+                                               device=self.device)
 
         cap_hint = pars.history_capacity
         self.hist_cap = cap_hint if cap_hint > 0 else (
@@ -147,6 +186,36 @@ class OnePhaseKernel:
         # the reference's delta.max = 1e50 overflows f32; clamp to the dtype
         finfo_max = float(torch.finfo(self.dtype).max)
         self.delta_max = min(pars.delta.max, finfo_max / 64.0)
+
+        # precision knobs of float64 solves (onephase_tpu/ipm/core.py:
+        # 132-174).  kkt.factor_precision: Q, its Cholesky factor and the
+        # solve operator in float32, the refinement residual in float64
+        # from the float64 J/H ("f32": carried in float32; "f32_fallback":
+        # a float32 attempt, redone in float64 where the strict pivot
+        # screen rejects it, carried in float64).
+        kkt = pars.kkt
+        f32, f64 = torch.float32, torch.float64
+        fp = kkt.factor_precision
+        mixed = fp in ("f32", "f32_fallback") and self.dtype == f64
+        self.factor_dtype = f32 if mixed else self.dtype
+        self.factor_store_dtype = (f32 if (mixed and fp == "f32")
+                                   else self.dtype)
+        # kkt.fallback_form_f32: Q formed and carried in float32; the
+        # fallback re-forms the float64 Q from the float64 J/H
+        self._fb_form_f32 = (mixed and fp == "f32_fallback"
+                             and kkt.fallback_form_f32)
+        self.q_store_dtype = (f32 if self._fb_form_f32
+                              else self.factor_store_dtype)
+        # kkt.hi_matvec_f32pair: the refinement's ("refine") and also the
+        # direction's ("all") J products as float32 pairs (ops/refine.py)
+        hip = kkt.hi_matvec_f32pair
+        self._hi_pair = hip in ("all", "refine") and self.dtype == f64
+        self._hi_pair_dir = self._hi_pair and hip == "all"
+        # kkt.precond_f32: the solve operator M carried in float32
+        self._precond_f32 = (kkt.precond_f32 and self.dtype == f64
+                             and self.lane in ("invchol", "pallas"))
+        self.L_store_dtype = (f32 if self._precond_f32
+                              else self.factor_store_dtype)
 
         # constant-structure problems: J and H evaluated once, shared by the
         # whole batch as one (m_orig, n) / (n, n) tensor (batch stride 0 in
@@ -288,16 +357,39 @@ class OnePhaseKernel:
     # ==================================================================
     # linear algebra: factor + solve (reference: julia.jl:21-97)
     # ==================================================================
-    def factor(self, Q, delta):
+    def factor(self, Q, delta, fact=None):
         """Cholesky of Q + delta*I per instance; returns ((L, D), ok).
 
         Inertia == Cholesky success, with the relative pivot screen of
-        `_chol_ok` (the dense stand-in for CHOLMOD's PosDefException)."""
+        `_chol_ok` (the dense stand-in for CHOLMOD's PosDefException).
+
+        Under `kkt.factor_precision="f32_fallback"` (float64 solves) every
+        instance first takes a float32 factor under the strict screen; where
+        it is rejected, the float64 factor replaces it (the JAX package's
+        `lax.cond`, whose branches under vmap run for the whole batch and
+        are selected per instance: the same values).  The float64 factor
+        runs only when some instance needs it (one host read).  Under
+        `kkt.fallback_form_f32` Q is float32 and the fallback re-forms the
+        float64 Q from `fact`'s float64 J/H, with the lane's Q kernel."""
         Qd = Q.clone(memory_format=torch.contiguous_format)
         Qd.diagonal(dim1=-2, dim2=-1).add_(_c(delta.to(Q.dtype)))
-        L, ok = self._chol_ok(Qd)
-        return (L, torch.ones(Q.shape[:-1], dtype=Q.dtype,
-                              device=Q.device)), ok
+        D = torch.ones(Q.shape[:-1], dtype=self.factor_store_dtype,
+                       device=Q.device)
+        if (self.factor_dtype == self.dtype
+                or self.pars.kkt.factor_precision != "f32_fallback"):
+            L, ok = self._chol_ok(Qd)
+            return (L, D), ok
+        L32, ok32 = self._chol_ok(Qd.to(torch.float32), strict=True)
+        L = L32.to(self.dtype)
+        if not self._any(~ok32):
+            return (L, D), ok32
+        if Q.dtype == torch.float32:              # kkt.fallback_form_f32
+            Qd = self.nlp.jtdj_fused(self._fact_jc(fact), fact.y_f / fact.s_f,
+                                     self._fact_h(fact),
+                                     use_pallas=self.lane == "pallas")
+            Qd.diagonal(dim1=-2, dim2=-1).add_(_c(delta.to(self.dtype)))
+        L64, ok64 = self._chol_ok(Qd)
+        return (tree_select(ok32, L, L64), D), ok32 | ok64
 
     def _chol_ok(self, Qd, strict=False):
         """Cholesky + pivot screening in Qd's own dtype: pivots positive
@@ -329,11 +421,19 @@ class OnePhaseKernel:
         return self._H_const if self._H_const is not None else fact.H
 
     def fact_jprod(self, fact: Factor, v):
-        """Canonical J @ v at the factorization point."""
+        """Canonical J @ v at the factorization point (as float32 pairs
+        under `kkt.hi_matvec_f32pair="all"`)."""
+        if self._hi_pair_dir and self.nlp.m_orig > 0:
+            jc_v = dsr.pair_matvec64(self._fact_jc(fact), v)
+            return self.nlp.jprod_from(jc_v, v)
         return self.nlp.jprod_mat(self._fact_jc(fact), v)
 
     def fact_jtprod(self, fact: Factor, w):
-        """Canonical J^T @ w at the factorization point."""
+        """Canonical J^T @ w at the factorization point (as float32 pairs
+        under `kkt.hi_matvec_f32pair="all"`)."""
+        if self._hi_pair_dir and self.nlp.m_orig > 0:
+            wc, bnd = self.nlp.split_canonical(w)
+            return dsr.pair_matvec64_t(self._fact_jc(fact), wc) + bnd
         return self.nlp.jtprod_mat(self._fact_jc(fact), w)
 
     def fact_hmul(self, fact: Factor, v):
@@ -363,14 +463,26 @@ class OnePhaseKernel:
                             fact.y_f / fact.s_f)
 
     def _form_q(self, Jc, H, d):
-        """Fused Q = H + J^T diag(d) J (the 42.1% cost item)."""
-        return self.nlp.jtdj_fused(Jc, d, H,
-                                   use_pallas=self.lane == "pallas")
+        """Fused Q = H + J^T diag(d) J (the 42.1% cost item) in the dtype Q
+        is carried in: float32 operands cast from the float64 solve under
+        the float32 factor knobs (then the Q kernel runs in float32), and
+        the bf16 scale-split under `kkt.q_form_dtype="bf16"`."""
+        mxu = (torch.bfloat16 if self.pars.kkt.q_form_dtype == "bf16"
+               else None)
+        fdt = self.q_store_dtype
+        if fdt != self.dtype:
+            Jc, d = Jc.to(fdt), d.to(fdt)
+            H = None if H is None else H.to(fdt)
+        return self.nlp.jtdj_fused(Jc, d, H, use_pallas=self.lane == "pallas",
+                                   mxu_dtype=mxu)
 
     def finalize_solver(self, L):
         """Turn an accepted Cholesky factor into the solve operator: the
         explicit inverse M = L^-T L^-1 on the pallas/invchol lanes (every
-        backsolve is then one batched matvec), L itself on the xla lane."""
+        backsolve is then one batched matvec), L itself on the xla lane.
+        Under `kkt.precond_f32` M is built and carried in float32."""
+        if self._precond_f32:
+            L = L.to(torch.float32)
         if self.lane == "pallas":
             return pallas_tri_inv_gram(L)          # hand kernel
         if self.lane == "invchol":
@@ -378,12 +490,16 @@ class OnePhaseKernel:
         return L
 
     def chol_solve(self, L, b):
-        """Apply the solve operator produced by factor + finalize_solver."""
+        """Apply the solve operator produced by factor + finalize_solver,
+        in the operator's dtype (float32 under the float32 factor knobs:
+        the refinement supplies the rest); the result in b's dtype."""
+        out_dt = b.dtype
+        b = b.to(L.dtype)
         if self.lane in ("pallas", "invchol"):
-            return _mv(L, b)                       # L slot holds M = Q^-1
+            return _mv(L, b).to(out_dt)            # L slot holds M = Q^-1
         z = torch.linalg.solve_triangular(L, b.unsqueeze(-1), upper=False)
         return torch.linalg.solve_triangular(
-            L.transpose(-1, -2), z, upper=True).squeeze(-1)
+            L.transpose(-1, -2), z, upper=True).squeeze(-1).to(out_dt)
 
     # ==================================================================
     # KKT system (reference: schur.jl)
@@ -403,7 +519,8 @@ class OnePhaseKernel:
             else nlp.jac_orig(p.x).contiguous()
         Q = self._form_q(Jc, H, p.y / p.s)
         return Factor(Jc=self._store_jc(Jc), H=self._store_h(H), Q=Q,
-                      schur_diag=torch.diagonal(Q, dim1=-2, dim2=-1).clone(),
+                      schur_diag=torch.diagonal(Q, dim1=-2, dim2=-1).to(
+                          self.dtype, copy=True),
                       L=prev.L, D=prev.D, delta=prev.delta, s_f=p.s, y_f=p.y,
                       ok=torch.zeros_like(prev.ok))
 
@@ -453,6 +570,8 @@ class OnePhaseKernel:
 
     def _refine_solve_hp(self, fact: Factor, schur_rhs, S_vec):
         nlp = self.nlp
+        if self._hi_pair:
+            return self._refine_solve_pair(fact, schur_rhs, S_vec)
         wc, bnd = nlp.split_canonical_sq(S_vec)
         diag_term = bnd + _c(fact.delta)     # bound rows of J^T D J + delta
         zeros = torch.zeros_like(schur_rhs)
@@ -486,9 +605,41 @@ class OnePhaseKernel:
             lambda c: c[2] + c[3], schur_rhs)
         return dx_hi + dx_lo
 
+    def _refine_solve_pair(self, fact: Factor, schur_rhs, S_vec):
+        """`kkt.hi_matvec_f32pair` on a float64 solve: the carry (dx, res)
+        stays float64, the residual's J products run as float32 pairs
+        (onephase_tpu/ipm/core.py:717-757)."""
+        nlp = self.nlp
+        wc, bnd = nlp.split_canonical_sq(S_vec)
+        diag_term = bnd + _c(fact.delta)
+        Jc = self._fact_jc(fact)
+
+        def one_pass(dx, res):
+            dx = dx + self.chol_solve(fact.L, res)
+            if nlp.m_orig > 0:
+                u = dsr.pair_matvec64(Jc, dx)
+                w = dsr.pair_matvec64_t(Jc, wc * u)
+            else:
+                w = torch.zeros_like(dx)
+            h = self.fact_hmul(fact, dx)
+            return dx, schur_rhs - (w + h + diag_term * dx)
+
+        dx, _ = self._refine_loop(one_pass,
+                                  (torch.zeros_like(schur_rhs), schur_rhs),
+                                  lambda c: c[1], schur_rhs)
+        return dx
+
     def build_rhs(self, p: Point, cache: Cache, eta_P, eta_D, eta_mu):
-        """System_rhs (system_rhs.jl:39-74); eta_* are (B,) tensors."""
-        gl = self.grad_lag(cache, p.y, p.mu * eta_mu)
+        """System_rhs (system_rhs.jl:39-74); eta_* are (B,) tensors.  Under
+        `kkt.residual_precision="f64"` the dual residual comes from one
+        float64 oracle pass (only its float cast enters the solve dtype)."""
+        if self.pars.kkt.residual_precision == "f64":
+            th = self.pars.a_norm_penalty
+            gl = self.nlp.grad_lag_hi(
+                p.x, p.y, (p.mu * eta_mu * th).to(torch.float64)).to(
+                    self.dtype)
+        else:
+            gl = self.grad_lag(cache, p.y, p.mu * eta_mu)
         dual_r = -_c(1.0 - eta_D) * gl
         primal_r = -_c(1.0 - eta_P) * (cache.a - p.s)
         comp_r = _c(p.mu * eta_mu) - p.s * p.y
@@ -537,8 +688,15 @@ class OnePhaseKernel:
         tau = 1.5 * fact.schur_diag.amin(-1)
         try_zero = tau > 0.0
         # both cond branches: the zero-delta attempt runs for every instance
-        LD0, ok0 = self.factor(fact.Q, self._full((B,), pars.delta.zero))
-        L = tree_select(try_zero, LD0[0], fact.L)
+        LD0, ok0 = self.factor(fact.Q, self._full((B,), pars.delta.zero),
+                               fact=fact)
+        # the stale factor of the other branch is the finalized operator,
+        # carried in L_store_dtype; the raw factor's dtype is
+        # factor_store_dtype (they differ under kkt.precond_f32)
+        L_prev = fact.L
+        if self.L_store_dtype != self.factor_store_dtype:
+            L_prev = L_prev.to(self.factor_store_dtype)
+        L = tree_select(try_zero, LD0[0], L_prev)
         D = tree_select(try_zero, LD0[1], fact.D)
         ok0 = try_zero & ok0
         nfac = try_zero.to(INT)
@@ -556,7 +714,7 @@ class OnePhaseKernel:
                     & (delta <= self.delta_max))
             if not self._any(trip):
                 break
-            (Lc, Dc), okc = self.factor(fact.Q, delta)
+            (Lc, Dc), okc = self.factor(fact.Q, delta, fact=fact)
             upd = trip & okc       # keep the stale factor on failure
             L = tree_select(upd, Lc, L)
             D = tree_select(upd, Dc, D)
@@ -980,6 +1138,8 @@ class OnePhaseKernel:
     # termination (reference: terminate.jl:3-23)
     # ==================================================================
     def terminate(self, p: Point, cache: Cache, bvals=None):
+        if self.pars.kkt.residual_precision == "f64":
+            return self.terminate_f64(p, cache, bvals)
         scale = self.dual_scale(p.y, p.s)
         sdf0 = _norm_inf(cache.g - cache.jt_y) * scale
         comp_scaled = (p.s * p.y).amax(-1) * scale
@@ -994,7 +1154,8 @@ class OnePhaseKernel:
 
     def terminate_f64(self, p: Point, cache: Cache, bvals=None):
         """Termination with every measured quantity evaluated by float64
-        oracles (the between-chunk batch recheck, parallel/batch.py)."""
+        oracles (`kkt.residual_precision="f64"`, and the between-chunk
+        batch recheck of parallel/batch.py)."""
         f64 = torch.float64
         dt = self.dtype
         scale = self.dual_scale(p.y, p.s)
@@ -1075,7 +1236,8 @@ class OnePhaseKernel:
         else:
             nd = base
         nd = torch.where(can_escalate, nd, delta)
-        (Lc, Dc), okc = self.factor(self._fact_q(st_c.fact), nd)
+        (Lc, Dc), okc = self.factor(self._fact_q(st_c.fact), nd,
+                                    fact=st_c.fact)
         Lc = self.finalize_solver(Lc)
         fact = st_c.fact._replace(L=tree_select(okc, Lc, st_c.fact.L),
                                   D=tree_select(okc, Dc, st_c.fact.D),
@@ -1271,15 +1433,19 @@ class OnePhaseKernel:
         p0 = Point(x=x, y=y0, s=s0, mu=d_s, beta=self._full((B,), 1.0))
         cache0 = self.make_cache(x, y0, bvals)
 
-        # one full KKT cycle at the guarded start (gertz_init.jl:22-28)
-        fact = self.form_factor(p0, cache0, self._empty_factor(B))
-        succ, nfac, delta0, LD = self.ipopt_strategy(fact, self._full((B,), 0.0))
-        fact = fact._replace(L=self.finalize_solver(LD[0]), D=LD[1],
-                             delta=delta0, ok=succ)
         z = self._full((B,), 0.0)
-        adir, _ = self.compute_direction(fact, p0, cache0, z, z, z)
-        y_t = y0 + adir.y
-        s_t = torch.cat([-a[:, :mc], a[:, mc:]], -1)  # bound rows keep a_i
+        if pars.init.init_style == "gertz":
+            # one full KKT cycle at the guarded start (gertz_init.jl:22-28)
+            fact = self.form_factor(p0, cache0, self._empty_factor(B))
+            succ, nfac, delta0, LD = self.ipopt_strategy(fact, z)
+            fact = fact._replace(L=self.finalize_solver(LD[0]), D=LD[1],
+                                 delta=delta0, ok=succ)
+            adir, _ = self.compute_direction(fact, p0, cache0, z, z, z)
+            y_t = y0 + adir.y
+            s_t = torch.cat([-a[:, :mc], a[:, mc:]], -1)  # bound rows keep a_i
+        else:
+            y_t, s_t, fact, succ, nfac = self._mehrotra_start(
+                x, a, g, p0, cache0)
 
         if mc > 0:
             min_s_cons = s_t[:, :mc].amin(-1)
@@ -1297,8 +1463,23 @@ class OnePhaseKernel:
         s_t = torch.cat([s_t[:, :mc] + _c(d_s_t), s_t[:, mc:]], -1)
 
         # correct_guess3 (correct-guess.jl:94-132)
-        mu = (s_t * y_t).mean(-1)
-        conW = (s_t - a) / _c(mu)
+        mehrotra = pars.init.init_style == "mehrotra"
+        if mehrotra and not pars.init.mehotra_scaling:
+            mu = 1e-6 + _norm_inf(s_t) + _norm_inf(g)
+            conW = self._full((B, m), 0.0)
+            conW[:, :mc] = 1.0
+        else:
+            mu = (s_t * y_t).mean(-1)
+            conW = (s_t - a) / _c(mu)
+        if mehrotra:
+            # per-class constraint weights (init.jl:19-85); defaults 1.0
+            lin, eqb = nlp.lin_mask, nlp.eqbound_mask
+            scale_vec = np.ones(m)
+            scale_vec[eqb & ~lin] *= pars.init.nl_eq_scale
+            scale_vec[~eqb & ~lin] *= pars.init.nl_ineq_scale
+            scale_vec[lin] *= pars.init.linear_scale
+            conW = conW * torch.as_tensor(scale_vec, dtype=dt,
+                                          device=self.device)
         s = a + _c(mu) * conW
         mu = mu * pars.init.mu_scale
 
@@ -1346,6 +1527,36 @@ class OnePhaseKernel:
         st = st._replace(status=status)
         return st._replace(hist=hist_mod.record(self, st, STEP_IT0))
 
+    def _mehrotra_start(self, x, a, g, p0, cache0):
+        """The Mehrotra init's dual estimate and first factor
+        (onephase_tpu/ipm/core.py:1835-1855): y from the ridge least
+        squares (lam I + J^T J) dx = -g, y = -J dx (estimate_y_tilde,
+        guess-vars.jl:128-169), s = a, and one factorization at
+        delta.start.  Returns (y_t, s_t, fact, succ, nfac)."""
+        nlp, pars = self.nlp, self.pars
+        B, n, m = x.shape[0], self.n, self.m
+        Jc0 = nlp.jac_orig(x)
+        lam = 1e-4
+        Hr = (lam * torch.eye(n, dtype=self.dtype, device=self.device)
+              + nlp.jtdj(Jc0, self._full((B, m), 1.0)))
+        # jnp.linalg.cholesky fills NaN where the factorization fails, which
+        # the reference's bad-estimate guard catches; cholesky_ex reports
+        # it through LAPACK's info instead
+        Lr, info = torch.linalg.cholesky_ex(Hr)
+        zr = torch.linalg.solve_triangular(Lr, -g.unsqueeze(-1), upper=False)
+        dx0 = torch.linalg.solve_triangular(Lr.transpose(-1, -2), zr,
+                                            upper=True).squeeze(-1)
+        y_t = -nlp.jprod_mat(Jc0, dx0)
+        bad = _isbad(y_t) | (info != 0)
+        y_t = torch.where(bad[:, None], torch.ones_like(y_t), y_t)
+        fact = self.form_factor(p0, cache0, self._empty_factor(B))
+        delta0 = self._full((B,), pars.delta.start)
+        LD0, succ = self.factor(fact.Q, delta0, fact=fact)
+        fact = fact._replace(L=self.finalize_solver(LD0[0]), D=LD0[1],
+                             delta=delta0, ok=succ)
+        nfac = torch.ones(B, dtype=INT, device=self.device)
+        return y_t, a, fact, succ, nfac
+
     def _empty_factor(self, B) -> Factor:
         n, m = self.n, self.m
         dt = self.dtype
@@ -1353,9 +1564,10 @@ class OnePhaseKernel:
         H = torch.zeros(B, n, n, dtype=dt, device=self.device)
         return Factor(Jc=self._store_jc(Jc), H=self._store_h(H), Q=None,
                       schur_diag=self._full((B, n), 0.0),
-                      L=torch.eye(n, dtype=dt, device=self.device).expand(
-                          B, n, n),
-                      D=self._full((B, n), 1.0), delta=self._full((B,), 0.0),
+                      L=torch.eye(n, dtype=self.L_store_dtype,
+                                  device=self.device).expand(B, n, n),
+                      D=self._full((B, n), 1.0, self.factor_store_dtype),
+                      delta=self._full((B,), 0.0),
                       s_f=self._full((B, m), 1.0), y_f=self._full((B, m), 1.0),
                       ok=torch.zeros(B, dtype=torch.bool, device=self.device))
 

@@ -401,12 +401,26 @@ class CanonNLP:
         out = _mtv(Jc, wc) if self.m_orig > 0 else self._zeros(w, self.n)
         return out + bnd
 
-    def jtdj_fused(self, Jc, d, H, use_pallas: bool = False):
+    def jtdj(self, Jc, d):
+        """Canonical J^T diag(d) J (B, n, n) = Jc^T diag(wc) Jc + diag(bnd)
+        with wc/bnd from the sign-squared scatter (reference eval_J_T_J,
+        eval.jl:84-86)."""
+        wc, bnd = self.split_canonical_sq(d)
+        if self.m_orig > 0:
+            Q = (Jc * wc[:, :, None]).transpose(-1, -2) @ Jc
+        else:
+            Q = torch.zeros(d.shape[0], self.n, self.n, dtype=d.dtype,
+                            device=d.device)
+        return Q + torch.diag_embed(bnd)
+
+    def jtdj_fused(self, Jc, d, H, use_pallas: bool = False,
+                   mxu_dtype=None):
         """Q = H + J^T diag(d) J (B, n, n), fused: the hand kernel on the
-        pallas lane (ops/schur.py)."""
+        pallas lane (ops/schur.py).  `mxu_dtype` (torch.bfloat16) forms the
+        rank-m update from bf16 operands with float32 accumulation."""
         from .ops.schur import fused_q
         wc, bnd = self.split_canonical_sq(d)
-        return fused_q(Jc, wc, H, bnd, use_pallas)
+        return fused_q(Jc, wc, H, bnd, use_pallas, mxu_dtype)
 
     # ------------------------------------------------------------------
     # Lagrangian Hessian of f(x) - y^T a(x), materialized (B, n, n)

@@ -1,10 +1,15 @@
 """Double-single (compensated) arithmetic for iterative-refinement residuals.
 
-Port of onephase_tpu/ops/refine.py:26-96.  Plain f32 residuals stop
+Port of onephase_tpu/ops/refine.py.  Plain f32 residuals stop
 improving once eps*cond(Q) ~ 1; carrying residual matvecs as (hi, lo)
 pairs, with every product split exactly (Dekker/Veltkamp), gives ~2x the
 working precision from working-precision ops only.  Enabled with
 `kkt.it_refine_highprec = True`.
+
+`pair_matvec64` / `pair_matvec64_t` (`kkt.hi_matvec_f32pair`) run a
+float64 matvec as float32 double-single pairs: each float64 operand is
+split exactly into (hi, lo) float32 parts, the hi-hi products are
+compensated, and the eps32-small cross term is a plain float32 product.
 
 Every step is a separate PyTorch op: Veltkamp splitting is exact only if
 each product is rounded before the following add, so nothing here may be
@@ -14,6 +19,8 @@ fused into an FMA (no `addcmul`, no `torch.compile`).
 from __future__ import annotations
 
 import torch
+
+from ..nlp import _mtv, _mv
 
 
 def _split_const(dtype):
@@ -84,3 +91,34 @@ def ds_axpy(alpha, x_hi, x_lo, y_hi, y_lo):
     p, e = two_prod(torch.full_like(x_hi, alpha), x_hi)
     e = e + alpha * x_lo
     return ds_add(p, e, y_hi, y_lo)
+
+
+def pair_split(A):
+    """Exact float32 (hi, lo) pair of a float64 tensor."""
+    hi = A.to(torch.float32)
+    lo = (A - hi.to(A.dtype)).to(torch.float32)
+    return hi, lo
+
+
+def _pair_result(hi, lo, corr):
+    hi, lo = ds_add(hi, lo, corr, torch.zeros_like(corr))
+    return hi.to(torch.float64) + lo.to(torch.float64)
+
+
+def pair_matvec64(A, x):
+    """A @ x for float64 A, shared (r, k) or batched (B, r, k), and x
+    (B, k) -> float64 (B, r), via float32 double-single (relative error
+    ~1e-13)."""
+    Ah, Al = pair_split(A)
+    xh, xl = pair_split(x)
+    hi, lo = ds_matvec(Ah, xh, xl)
+    return _pair_result(hi, lo, _mv(Al, xh))
+
+
+def pair_matvec64_t(A, w):
+    """A^T @ w for float64 A, shared (r, k) or batched (B, r, k), and w
+    (B, r) -> float64 (B, k), via float32 double-single."""
+    Ah, Al = pair_split(A)
+    wh, wl = pair_split(w)
+    hi, lo = ds_matvec(Ah.transpose(-1, -2), wh, wl)
+    return _pair_result(hi, lo, _mtv(Al, wh))

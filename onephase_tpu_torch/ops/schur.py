@@ -34,12 +34,25 @@ from . import _build
 _FLOATS = (torch.float32, torch.float64)
 
 
-def xla_fused_q(Jc, w, H, bnd):
+def xla_fused_q(Jc, w, H, bnd, mxu_dtype=None):
     """Q = H + J^T diag(w) J + diag(bnd) in plain PyTorch.  H is None for
-    declared-zero Hessians (LPs)."""
+    declared-zero Hessians (LPs).
+
+    `mxu_dtype` (torch.bfloat16) forms the rank-m update by the scale-split
+    J^T W J = (sqrt(w) J)^T (sqrt(w) J) from operands rounded to bf16, with
+    float32 accumulation (onephase_tpu/ops/schur.py:189-215): the sqrt
+    halves the weights' exponent range so bf16 holds them, and the ~3e-3
+    relative error only touches the preconditioner.  A product of two bf16
+    values is exact in float32, so the float32 product of the rounded
+    operands gives the reference's values up to summation order."""
     B, n = bnd.shape
     if Jc.shape[-2] > 0:
-        upd = (Jc * w[:, :, None]).transpose(-1, -2) @ Jc
+        if mxu_dtype is not None:
+            Js = (Jc * torch.sqrt(w)[:, :, None]).to(mxu_dtype)
+            Js = Js.to(torch.float32)
+            upd = (Js.transpose(-1, -2) @ Js).to(bnd.dtype)
+        else:
+            upd = (Jc * w[:, :, None]).transpose(-1, -2) @ Jc
         Q = upd if H is None else H + upd
     elif H is None:
         Q = torch.zeros(B, n, n, dtype=bnd.dtype, device=bnd.device)
@@ -126,9 +139,12 @@ def launch_fused_q(Jc, w, H, bnd, Q, lower: bool = False):
     _build.check(err, "fused_q")
 
 
-def fused_q(Jc, w, H, bnd, use_pallas: bool):
+def fused_q(Jc, w, H, bnd, use_pallas: bool, mxu_dtype=None):
     """Dispatch: the hand kernel on the `pallas` lane, plain PyTorch on the
-    `xla`/`invchol` lanes."""
-    if use_pallas:
+    `xla`/`invchol` lanes.  With `mxu_dtype` set every lane takes the plain
+    bf16 scale-split, as the JAX package's dispatch does
+    (onephase_tpu/ops/schur.py:218-229): the kernel forms Q in its input
+    dtype only, so it is not launched under `kkt.q_form_dtype="bf16"`."""
+    if use_pallas and mxu_dtype is None:
         return pallas_fused_q(Jc, w, H, bnd)
-    return xla_fused_q(Jc, w, H, bnd)
+    return xla_fused_q(Jc, w, H, bnd, mxu_dtype)

@@ -47,7 +47,7 @@ import torch.nn.functional as F
 from torch.func import grad, jvp, vjp, vmap
 
 from ..config import Params
-from ..ipm.core import OnePhaseKernel, _c
+from ..ipm.core import OnePhaseKernel, _c, reject_dense_only
 from ..ipm.state import Cache, Factor, Point
 from ..native import rcm_order
 from ..nlp import CanonNLP, resolve_device
@@ -134,6 +134,7 @@ class BandedKernel(OnePhaseKernel):
             if nlp.parametric:
                 raise ValueError("matrix_free mode supports non-parametric "
                                  "problems (pdata-free oracles)")
+        reject_dense_only(pars, "BandedKernel")
         device = resolve_device(device)
         if nlp.device.type != device.type:
             raise ValueError(f"the problem lives on {nlp.device}, the kernel "
@@ -326,7 +327,7 @@ class BandedKernel(OnePhaseKernel):
         # the structured factor IS the solve operator (block tuple)
         return L
 
-    def factor(self, Q, delta):
+    def factor(self, Q, delta, fact=None):
         Qd, Qs = Q
         D = Qd.new_zeros(Qd.shape[0], 1)
         if self.partitions > 1:

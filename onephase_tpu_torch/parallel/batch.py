@@ -72,11 +72,14 @@ class BatchSolver:
     def recheck_f64(self, st: State) -> State:
         """Re-measure the termination criteria of RUNNING/STALLED instances
         of a non-float64 solve with float64 oracles
-        (`term.batch_f64_recheck`, batch.py:92-115 of the JAX package).
+        (`term.batch_f64_recheck`, batch.py:92-115 of the JAX package);
+        skipped under `kkt.residual_precision="f64"`, whose in-loop test
+        already measures in float64.
         The in-loop measurement only gives false negatives (rounding noise
         sits on top of the true residuals), so this can only release
         instances that the noise floor holds back."""
         if (self.kernel.dtype == torch.float64
+                or self.pars.kkt.residual_precision == "f64"
                 or not self.pars.term.batch_f64_recheck):
             return st
         rc_mask = (st.status == RUNNING) | (st.status == STALLED)

@@ -39,7 +39,7 @@ import torch
 from torch.func import grad, hessian, jacfwd, jacrev, vmap
 
 from ..config import Params
-from ..ipm.core import OnePhaseKernel, _c, _norm_inf
+from ..ipm.core import OnePhaseKernel, _c, _norm_inf, reject_dense_only
 from ..ipm.state import Cache, Dir, Factor, Point
 from ..nlp import NLPSpec, canonicalize, resolve_device
 from ..ops.block_tridiag import (TridiagFactor, partitioned_factor,
@@ -125,6 +125,7 @@ class ChainKernel(OnePhaseKernel):
             raise ValueError(
                 f"chain_partitions={self.partitions} needs K={spec.K} "
                 "= P*Kc with Kc>=2")
+        reject_dense_only(pars, "ChainKernel")
         device = resolve_device(device)
         if spec.device is not None and spec.device.type != device.type:
             raise ValueError(f"the chain's data lives on {spec.device}, the "
@@ -217,7 +218,7 @@ class ChainKernel(OnePhaseKernel):
         # the structured factor IS the solve operator (block tuple)
         return L
 
-    def factor(self, Q, delta):
+    def factor(self, Q, delta, fact=None):
         Qd, Qs = Q
         D = Qd.new_zeros(Qd.shape[0], 1)
         if self.partitions > 1:

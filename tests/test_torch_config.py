@@ -80,19 +80,54 @@ def test_every_module_imports_without_nvcc_or_gpu():
         importlib.import_module(name)
 
 
+# the precision knobs and the Mehrotra init: ported to the dense path
+PORTED_KNOBS = ({"kkt.factor_precision": "f32"},
+                {"kkt.factor_precision": "f32_fallback",
+                 "kkt.fallback_form_f32": True},
+                {"kkt.hi_matvec_f32pair": "refine"},
+                {"kkt.hi_matvec_f32pair": "all"},
+                {"kkt.precond_f32": True},
+                {"kkt.q_form_dtype": "bf16"},
+                {"kkt.residual_precision": "f64"},
+                {"init.init_style": "mehrotra"})
+
+
 def test_unported_options_raise():
+    """The dense kernel takes every ported knob, refuses a value no
+    package knows (ValueError) and still refuses the unported options;
+    the structured kernels refuse the dense-only knobs
+    (NotImplementedError; the banded kernel's factor_precision check is
+    the JAX package's ValueError)."""
     from onephase_tpu_torch.ipm.core import make_kernel
     from onephase_tpu_torch.models import zoo
+    from onephase_tpu_torch.models.examples import chain_ocp
+    from onephase_tpu_torch.parallel.banded import BandedKernel
+    from onephase_tpu_torch.parallel.chain import ChainKernel
     nlp = onephase_tpu_torch.canonicalize(zoo.circle1(), device="cpu")
+    for over in PORTED_KNOBS:
+        make_kernel(nlp, tcfg.Params().with_overrides(over))
     for over in ({"kkt.kkt_solver_type": "symmetric"},
+                 {"kkt.kkt_solver_type": "clever_symmetric"},
                  {"kkt.kkt_solver_type": "schur_dual"},
-                 {"kkt.factor_precision": "f32"},
-                 {"kkt.q_form_dtype": "bf16"},
-                 {"kkt.residual_precision": "f64"},
-                 {"kkt.precond_f32": True},
-                 {"init.init_style": "mehrotra"}):
+                 {"matmul_precision": "high"}):
         with pytest.raises(NotImplementedError):
             make_kernel(nlp, tcfg.Params().with_overrides(over))
+    for over in ({"kkt.factor_precision": "f16"},
+                 {"kkt.q_form_dtype": "fp8"},
+                 {"init.init_style": "mehrotra2"}):
+        with pytest.raises(ValueError):
+            make_kernel(nlp, tcfg.Params().with_overrides(over))
+    spec = chain_ocp(K=4, nx=2, mc=1, device="cpu")
+    flat = onephase_tpu_torch.canonicalize(spec.to_nlpspec(), device="cpu")
+    for over in PORTED_KNOBS:
+        pars = tcfg.Params().with_overrides(
+            dict(over, **{"kkt.linear_solver_type": "xla"}))
+        with pytest.raises(NotImplementedError):
+            ChainKernel(spec, pars, device="cpu")
+        err = (ValueError if "kkt.factor_precision" in over
+               else NotImplementedError)
+        with pytest.raises(err):
+            BandedKernel(flat, pars, device="cpu")
 
 
 def _entry_call(entry):

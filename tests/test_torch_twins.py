@@ -16,8 +16,9 @@ from onephase_tpu_torch.models import zoo as tzoo
 
 INF = np.inf
 
-# the zoo problems of the parity suite with the JAX package's figures on
-# all three lanes (status, outer iterations; max_it=81, a_norm_penalty=1e-4)
+# the zoo problems of the parity suite with the JAX package's figures
+# (status, outer iterations; max_it=81, a_norm_penalty=1e-4): on all three
+# lanes, except the xla lane's for the problems of LANE_SPLIT
 ZOO_FIGURES = {
     "rosenbrook2": ("Optimal", 36),
     "toy_lp0": ("Optimal", 3),
@@ -30,7 +31,34 @@ ZOO_FIGURES = {
     "quad_unbd": ("MAX_IT", 81),
     "unbd_feas": ("Optimal", 15),
     "hs071": ("Optimal", 13),
+    "rosenbrook3": ("Optimal", 46),
+    "rosenbrook4": ("Optimal", 50),
+    "toy_lp2": ("Optimal", 11),
+    "toy_lp3": ("Optimal", 6),
+    "toy_lp5": ("Optimal", 8),
+    "toy_lp6": ("Optimal", 6),
+    "toy_lp7": ("Optimal", 6),
+    "toy_lp8": ("Optimal", 7),
+    "toy_lp_inf2": ("primal_infeasible", 9),
+    "circle2": ("Optimal", 15),
+    "circle_nc2": ("Optimal", 14),
+    "circle_nc_inf1": ("primal_infeasible", 14),
+    "circle_nc_unbd": ("dual_infeasible", 81),
+    "starting_point_0.5": ("Optimal", 6),
+    "starting_point_-0.5": ("Optimal", 6),
+    "bounds_only": ("Optimal", 5),
 }
+# problems whose trajectory the JAX package's own lanes do not agree on:
+# the xla, invchol and pallas lanes end in these outer iterations
+# (Rosenbrock's curved valley turns round-off into another step
+# sequence).  The port is held to status and argmin and, outer iteration
+# by outer iteration, to the JAX package's step from the JAX package's own
+# state (check_carried_steps); its iteration count is not held.
+LANE_SPLIT = {"rosenbrook3": (46, 41, 47), "rosenbrook4": (50, 53, 49)}
+# degenerate LPs (parallel rows) whose last steps amplify round-off: the
+# mu trace is held to 1e-6 relative instead of 1e-8; the JAX package's own
+# xla and invchol lanes differ by 4.2e-9 (toy_lp5) and 4.4e-8 (toy_lp8)
+ZOO_MU_RTOL = {"toy_lp5": 1e-6, "toy_lp8": 1e-6}
 
 
 def jax_hs071():
@@ -45,9 +73,20 @@ def jax_hs071():
 
 
 def zoo_pair(name):
-    """(JAX spec, torch spec) of a zoo problem."""
+    """(JAX spec, torch spec) of a zoo problem; "starting_point_<x0>" is
+    `starting_point_prob(x0)`, "bounds_only" test_zoo.py's bounds-only
+    problem."""
     if name == "hs071":
         return jax_hs071(), tzoo.hs071()
+    if name == "bounds_only":
+        kw = dict(x0=[0.5, 0.5], lvar=[0.0, 0.0], uvar=[1.0, 1.0])
+        return (jnlp.NLPSpec(f=lambda x: (x[0] - 2.0) ** 2
+                             + (x[1] + 1.0) ** 2, **kw),
+                tnlp.NLPSpec(f=lambda x: (x[0] - 2.0) ** 2
+                             + (x[1] + 1.0) ** 2, **kw))
+    if name.startswith("starting_point_"):
+        start = float(name.rsplit("_", 1)[1])
+        return jzoo.starting_point_prob(start), tzoo.starting_point_prob(start)
     return getattr(jzoo, name)(), getattr(tzoo, name)()
 
 
@@ -109,31 +148,110 @@ def compare_states(port, jx, tol, path="state"):
     assert_close(port[0], jx, tol, path)
 
 
-def check_zoo_case(name, lane, jax_results):
-    """Solve `name` with the port on `lane` and hold it to the JAX
-    package's solve (xla lane; the JAX lanes agree exactly on this zoo) and
-    to the recorded figures: status and iteration count equal, argmin to
-    1e-6 (relative to max(1, |x|)), the per-iteration mu trace to 1e-8
-    relative."""
+def jax_solve(jspec, options, lane="xla", dtype=jnp.float64):
+    """The JAX package's `one_phase_solve` on `lane` (its Pallas kernels in
+    interpret mode on the `pallas` lane, as its own tests run them)."""
     import onephase_tpu
+    import onephase_tpu.ops as jops
+    jops.INTERPRET = lane == "pallas"
+    try:
+        return onephase_tpu.one_phase_solve(
+            jnlp.canonicalize(jspec, dtype=dtype),
+            options=dict(options, **{"kkt.linear_solver_type": lane}))
+    finally:
+        jops.INTERPRET = False
+
+
+def port_solve(tspec, options, lane, dtype=torch.float64):
+    """The port's `one_phase_solve` on `lane`, on the CPU."""
     import onephase_tpu_torch
-    jspec, tspec = zoo_pair(name)
-    if name not in jax_results:
-        jax_results[name] = onephase_tpu.one_phase_solve(
-            jspec, options=ZOO_OPTS)
-    rj = jax_results[name]
-    rt = onephase_tpu_torch.one_phase_solve(
-        tnlp.canonicalize(tspec, device="cpu"),
-        options=dict(ZOO_OPTS, **{"kkt.linear_solver_type": lane}))
-    assert (rj.status, rj.iterations) == ZOO_FIGURES[name]
-    assert (rt.status, rt.iterations) == ZOO_FIGURES[name]
+    return onephase_tpu_torch.one_phase_solve(
+        tnlp.canonicalize(tspec, dtype=dtype, device="cpu"),
+        options=dict(options, **{"kkt.linear_solver_type": lane}))
+
+
+def check_solve_parity(rt, rj, x_tol=1e-6, mu_rtol=1e-8, iterations=True):
+    """The port's result `rt` against the JAX package's `rj`: status equal;
+    argmin to `x_tol` relative to max(1, |x|); with `iterations`, the outer
+    iteration count and the history's t column equal and the
+    per-iteration mu trace to `mu_rtol` relative (`mu_rtol=None` holds
+    the count but not the trace)."""
+    assert rt.status == rj.status, (rt.status, rj.status)
     scale = np.maximum(1.0, np.abs(rj.x))
-    np.testing.assert_array_less(np.abs(rt.x - rj.x) / scale, 1e-6)
+    np.testing.assert_array_less(np.abs(rt.x - rj.x) / scale, x_tol)
+    if not iterations:
+        return
+    assert rt.iterations == rj.iterations, (rt.iterations, rj.iterations)
+    assert [h["t"] for h in rt.history] == [h["t"] for h in rj.history]
+    if mu_rtol is None:
+        return
     mu_j = np.array([h["mu"] for h in rj.history])
     mu_t = np.array([h["mu"] for h in rt.history])
-    assert mu_t.shape == mu_j.shape
-    np.testing.assert_allclose(mu_t, mu_j, rtol=1e-8, atol=0)
-    assert [h["t"] for h in rt.history] == [h["t"] for h in rj.history]
+    np.testing.assert_allclose(mu_t, mu_j, rtol=mu_rtol, atol=0)
+
+
+def check_carried_steps(name, options, lane="xla", tol=1e-10,
+                        max_steps=200):
+    """Outer iteration by outer iteration along the JAX package's own
+    trajectory (chunks of one): the port's outer iteration on `lane` from
+    the carried JAX state equals the JAX package's, leaf by leaf to `tol`
+    (relative to max(1, max |leaf|)).  The JAX package runs the xla lane
+    for the port's xla lane and the invchol lane (the same explicit
+    inverse, by XLA) for the port's pallas and invchol lanes.  This holds
+    the port's arithmetic where round-off makes whole trajectories
+    diverge.  Returns the number of steps checked."""
+    from onephase_tpu.config import Params as JParams
+    from onephase_tpu.ipm.core import OnePhaseKernel as JKernel
+    from onephase_tpu_torch.config import Params as TParams
+    from onephase_tpu_torch.interop import state_from_numpy, state_to_numpy
+    from onephase_tpu_torch.ipm.core import OnePhaseKernel as TKernel
+    import jax
+
+    jspec, tspec = zoo_pair(name)
+    opts = dict(options, chunk_size=1)
+    jlane = "xla" if lane == "xla" else "invchol"
+    jk = JKernel(jnlp.canonicalize(jspec), JParams().with_overrides(
+        dict(opts, **{"kkt.linear_solver_type": jlane})))
+    tk = TKernel(tnlp.canonicalize(tspec, device="cpu"),
+                 TParams().with_overrides(
+                     dict(opts, **{"kkt.linear_solver_type": lane})))
+
+    def np_tree(t):
+        return jax.tree_util.tree_map(np.asarray, t)
+
+    jst = jk.initial_state()
+    compare_states(state_to_numpy(tk.initial_state()), np_tree(jst), tol)
+    steps = 0
+    while int(jst.status) == 0 and steps < max_steps:
+        st = tk.run_chunk(state_from_numpy(np_tree(jst), device="cpu"))
+        jst = jk.run_chunk(jst)
+        compare_states(state_to_numpy(st), np_tree(jst), tol,
+                       f"step {steps + 1}")
+        steps += 1
+    return steps
+
+
+def check_zoo_case(name, lane, jax_results):
+    """Solve `name` with the port on `lane` and hold it to the JAX
+    package's solve (xla lane; the JAX lanes agree exactly on this zoo but
+    for LANE_SPLIT) and to the recorded figures: status and iteration count
+    equal, argmin to 1e-6 (relative to max(1, |x|)), the per-iteration mu
+    trace to 1e-8 relative (ZOO_MU_RTOL where stated).  A LANE_SPLIT
+    problem is held to status, argmin and check_carried_steps."""
+    jspec, tspec = zoo_pair(name)
+    if name not in jax_results:
+        jax_results[name] = jax_solve(jspec, ZOO_OPTS)
+    rj = jax_results[name]
+    rt = port_solve(tspec, ZOO_OPTS, lane)
+    assert (rj.status, rj.iterations) == ZOO_FIGURES[name]
+    if name in LANE_SPLIT:
+        check_solve_parity(rt, rj, iterations=False)
+        # the JAX trajectory the steps follow: xla, or invchol (pallas)
+        steps = LANE_SPLIT[name][0 if lane == "xla" else 1]
+        assert check_carried_steps(name, ZOO_OPTS, lane) == steps
+        return
+    assert (rt.status, rt.iterations) == ZOO_FIGURES[name]
+    check_solve_parity(rt, rj, mu_rtol=ZOO_MU_RTOL.get(name, 1e-8))
 
 
 # bench.py:126-140 options with the between-chunk float64 recheck off, so
