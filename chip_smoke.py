@@ -29,7 +29,17 @@ three paths on the `pallas` lane:
   float32, matrix-free, with its block-tridiagonal pattern passed in
   (bandwidth 63 after RCM: K5 and K7 at nb=63), held to the chain path's
   argmin; then K=50 assembled against matrix-free and `pallas` against
-  `xla`.
+  `xla`;
+- every other KKT system of the dense driver (the kkt phase), float64
+  through BatchSolver at tol 1e-6: a pool of 32 LPs (n=1024, m=512,
+  tests/test_dual.py's recipe) on `schur_dual` and on `schur`/`pallas`
+  (K1-K3), which must agree in statuses and objectives; the bench QP at
+  n=256, m=128 on `symmetric` and `clever_symmetric` (batch 8; also with
+  kkt_system_rescale="u_and_x") and `symmetric` with the eigh backend
+  (batch 4).  Every count is held to the JAX package's on the CPU
+  (KKT_JAX_ANCHOR, tools/jax_kkt_anchor.py); the plain LDL^T's and eigh's
+  ms and CUDA launches a factorization, and the dual path's S factor
+  against K2, are printed.
 
 The mixed phase also times K1, K2 and K3 at its shape in float64 and in
 float32, in turns.
@@ -58,7 +68,8 @@ the final line; without a CUDA card it refuses to run.  The line before
 the last lists every kernel with its launches on its path, its error
 against the plain version, its time, the plain version's, a library
 call's where one PyTorch call computes the same function, and its bound
-(K1-K3 also with their launches on the mixed phase's float32 run).
+(K1-K3 also with their launches on the mixed phase's float32 run and on
+the kkt phase's LP pool).
 The last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -127,6 +138,61 @@ MIXED_RUNS = {
 # (same problem, starts and options; tools/jax_dense_anchor.py): none, all
 # 16 end at MAX_IT after 60 outer iterations
 MIXED_JAX_F32_CERTIFIED = []
+# the KKT-system phase: every KKT system of the dense driver in float64
+# through BatchSolver at tol 1e-6.  The LP pool: tests/test_dual.py:19-29's
+# recipe at KKT_LP_SHAPE, one LP a seed, on kkt_solver_type="schur_dual"
+# and on "schur" with the pallas lane (K1-K3).  The bench QP at
+# KKT_QP_SHAPE on each symmetric run of KKT_QP_RUNS (its batch beside it).
+KKT_OPTIONS = {
+    "output_level": 0,
+    "term.max_it": 200,
+    "term.tol_opt": 1e-6,
+    "chunk_size": 25,
+    "history_capacity": 2,
+}
+KKT_LP_SHAPE = {"n": 1024, "m": 512, "seeds": 32}
+KKT_LP_PATHS = {
+    "schur_dual": {"kkt.kkt_solver_type": "schur_dual"},
+    "schur_pallas": {"kkt.linear_solver_type": "pallas"},
+}
+KKT_QP_SHAPE = {"n": 256, "m": 128}
+KKT_QP_RUNS = {
+    "symmetric": ({"kkt.kkt_solver_type": "symmetric"}, 8),
+    "clever_symmetric": ({"kkt.kkt_solver_type": "clever_symmetric"}, 8),
+    "clever_u_and_x": ({"kkt.kkt_solver_type": "clever_symmetric",
+                        "kkt.kkt_system_rescale": "u_and_x"}, 8),
+    "symmetric_eigh": ({"kkt.kkt_solver_type": "symmetric",
+                        "kkt.linear_solver_type": "eigh"}, 4),
+}
+# the LP pool's objective agreement between its two paths: tol_opt, since
+# the JAX package's own pool misses 1e-7 (PERF.md, the kkt phase)
+KKT_LP_OBJ_RTOL = 1e-6
+# runs whose endgame round-off decides (ROADMAP R5): on the dual path the
+# Woodbury form's cancellation leaves the direction with an a-posteriori
+# KKT error of 1e-7..4e-2, and the JAX package's own drivers end one LP in
+# different outer iterations (11, 37, 11, 12 on tests/test_dual.py's seed
+# 0), so only its statuses are held
+KKT_ROUNDOFF = ("schur_dual",)
+# the JAX package's figures for the same data and options on the CPU
+# (tools/jax_kkt_anchor.py): per run, the statuses, and the outer
+# iterations and factorizations in sum; mr of the QP runs; the LP pool's
+# objective gap between its paths
+KKT_JAX_ANCHOR = {
+    "schur_dual": {"statuses": ["Optimal"] * 32, "outer_its_sum": 1518,
+                   "cum_fac_sum": 2372},
+    "schur_pallas": {"statuses": ["Optimal"] * 32, "outer_its_sum": 632,
+                     "cum_fac_sum": 664},
+    "symmetric": {"statuses": ["Optimal"] * 8, "outer_its_sum": 88,
+                  "cum_fac_sum": 96, "mr": 768},
+    "clever_symmetric": {"statuses": ["Optimal"] * 8, "outer_its_sum": 88,
+                         "cum_fac_sum": 96, "mr": 384},
+    "clever_u_and_x": {"statuses": ["Optimal"] * 8, "outer_its_sum": 88,
+                       "cum_fac_sum": 96, "mr": 384},
+    "symmetric_eigh": {"statuses": ["Optimal"] * 4, "outer_its_sum": 44,
+                       "cum_fac_sum": 48, "mr": 768},
+    "lp_obj_gap_max": 2.6257086232504837e-07,
+    "lp_obj_gap_within_1e-7": 15,
+}
 TOL = {"float32": 1e-4, "float64": 1e-10}   # max error / max |reference|
 REPS = 20
 # H100 SXM (NVIDIA's data sheet, dense, at 700 W): HBM3 bytes/s, and the
@@ -1049,6 +1115,172 @@ def mixed_phase(dev):
     return runs
 
 
+def kkt_lp(seed, n, m):
+    """tests/test_dual.py:19-29's feasible LP at (n, m) from `seed`:
+    (cvec, A, lcon, ucon, lvar, uvar) as float64 numpy arrays -- a 0.3
+    density Gaussian A, ranges b -/+ 1 around b = A x_feas, bounds -/+ 5."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(m, n)) * (rng.random((m, n)) < 0.3)
+    A[np.all(A == 0.0, axis=1), 0] = 1.0
+    b = A @ rng.random(n)
+    return (rng.normal(size=n), A, b - 1.0, b + 1.0, np.full(n, -5.0),
+            np.full(n, 5.0))
+
+
+def _counts(name, statuses, outer, fac):
+    """Hold a run's statuses and summed outer iterations and
+    factorizations to the JAX anchor's (KKT_JAX_ANCHOR); a run of
+    KKT_ROUNDOFF to its statuses alone."""
+    ref = KKT_JAX_ANCHOR[name]
+    print(f"kkt {name}: JAX anchor {ref['statuses'].count('Optimal')}/"
+          f"{len(ref['statuses'])} Optimal, {ref['outer_its_sum']} outer "
+          f"its, {ref['cum_fac_sum']} factorizations", flush=True)
+    if statuses != ref["statuses"]:
+        raise RuntimeError(f"kkt {name}: statuses differ from the JAX "
+                           f"anchor's: {statuses} vs {ref['statuses']}")
+    if name in KKT_ROUNDOFF:
+        return
+    if (outer, fac) != (ref["outer_its_sum"], ref["cum_fac_sum"]):
+        raise RuntimeError(f"kkt {name}: {outer} outer its and {fac} "
+                           "factorizations against the JAX anchor's "
+                           f"{ref['outer_its_sum']} and {ref['cum_fac_sum']}")
+
+
+def _profiled_launches(fn) -> int:
+    """CUDA kernels one call of `fn` launches, counted by torch.profiler
+    (0 where the profiler sees no device activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if getattr(ev, "device_time_total", 0))
+
+
+def kkt_lp_pool(dev):
+    """The LP pool on both paths, one BatchSolver (B = 1) an LP, float64:
+    statuses and objectives agree between the paths; each path's counts
+    are held to the JAX anchor.  Returns ({path: summary}, S factor and
+    n x n Cholesky ms)."""
+    import torch
+    from onephase_tpu_torch import ops
+    from onephase_tpu_torch.config import Params
+    from onephase_tpu_torch.models.lp import LPData
+    from onephase_tpu_torch.nlp import canonicalize
+    from onephase_tpu_torch.parallel.batch import BatchSolver
+
+    n, m = KKT_LP_SHAPE["n"], KKT_LP_SHAPE["m"]
+    seeds = range(KKT_LP_SHAPE["seeds"])
+    nlps = [canonicalize(LPData(*kkt_lp(seed, n, m)).to_spec(device=dev),
+                         dtype=torch.float64, device=dev) for seed in seeds]
+    out = {}
+    for path, extra in KKT_LP_PATHS.items():
+        pars = Params().with_overrides(dict(KKT_OPTIONS, **extra))
+        statuses, objs, outer, fac, syncs, secs = [], [], 0, 0, 0, 0.0
+        ops.reset_launch_counts()
+        for seed, nlp in zip(seeds, nlps):
+            solver = BatchSolver(nlp, pars)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = solver.solve(np.zeros((1, n)))
+            torch.cuda.synchronize()
+            secs += time.perf_counter() - t0
+            statuses += solver.statuses(st)
+            objs.append(float(nlp.f(st.p.x)[0]))
+            outer += int(st.t[0]) - 1
+            fac += int(st.cum_fac[0])
+            syncs += solver.kernel.host_syncs
+        launches = ops.launch_counts()
+        out[path] = {"statuses": statuses, "obj": objs, "outer_its": outer,
+                     "cum_fac": fac, "seconds": secs, "host_syncs": syncs,
+                     "launches": launches, "kernel": solver.kernel,
+                     "state": st}
+        print(f"kkt LP pool n={n} m={m} x{len(nlps)} {path}: "
+              f"{statuses.count('Optimal')}/{len(nlps)} Optimal, {outer} "
+              f"outer its, {fac} factorizations, {secs:.3f} s, host_syncs "
+              f"{syncs}, launches {launches}", flush=True)
+        _counts(path, statuses, outer, fac)
+    dual, prim = out["schur_dual"], out["schur_pallas"]
+    if dual["statuses"] != prim["statuses"]:
+        raise RuntimeError("kkt LP pool: the paths' statuses differ")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(dual["obj"], prim["obj"])]
+    print(f"kkt LP pool: objective gap schur_dual vs schur_pallas max "
+          f"{max(gaps):.3e} relative, {sum(g <= 1e-7 for g in gaps)}/"
+          f"{len(gaps)} within 1e-7 (JAX anchor: max "
+          f"{KKT_JAX_ANCHOR['lp_obj_gap_max']:.3e}, "
+          f"{KKT_JAX_ANCHOR['lp_obj_gap_within_1e-7']} within 1e-7)",
+          flush=True)
+    if not max(gaps) <= KKT_LP_OBJ_RTOL:
+        raise RuntimeError("kkt LP pool: the paths' objectives disagree")
+    for k in ("fused_q", "chol", "tri_inv_gram"):
+        if prim["launches"][k] <= 0:
+            raise RuntimeError(f"kkt LP pool: schur_pallas launched no {k}")
+    # S's factor (m x m, the dual path) against the n x n Cholesky of the
+    # same pool's primal factor (K2), at the last LP's final point
+    dk, pk = dual["kernel"], prim["kernel"]
+    dst, pst = dual["state"], prim["state"]
+    dq = dk._fact_q(dk.form_factor(dst.p, dst.cache, dst.fact))
+    delta = torch.full((1,), 1e-8, dtype=torch.float64, device=dev)
+    pq = pk.form_factor(pst.p, pst.cache, pst.fact).Q
+    s_ms, chol_ms = _time_turns(lambda: dk.factor(dq, delta),
+                                lambda: pk.factor(pq, delta))
+    print(f"kkt LP pool: factor ms a factorization: schur_dual S "
+          f"({m}x{m}, formed and factored) {s_ms:.4f}, schur_pallas "
+          f"({n}x{n}, K2) {chol_ms:.4f}", flush=True)
+    return out, {"s_factor_ms": s_ms, "chol_factor_ms": chol_ms}
+
+
+def kkt_qp_runs(dev):
+    """The symmetric paths on the bench QP (float64, tol 1e-6): every run
+    of KKT_QP_RUNS certifies, with the JAX anchor's counts; mr checked
+    against the JAX package's; the plain factor's (LDL^T or eigh) median
+    ms and its CUDA launches a factorization."""
+    import torch
+    from onephase_tpu_torch.ops import ldlt as ldlt_mod
+
+    n, m = KKT_QP_SHAPE["n"], KKT_QP_SHAPE["m"]
+    out = {}
+    for name, (extra, batch) in KKT_QP_RUNS.items():
+        lane = extra.get("kkt.linear_solver_type", "xla")
+        summary, st, kernel = bench_run(
+            dev, n, m, batch, lane, extra=extra, warmup=False,
+            require_all=False, base=KKT_OPTIONS, dtype="float64")
+        _counts(name, summary["statuses"], summary["outer_its"],
+                summary["cum_fac"])
+        N = n + kernel.mr
+        if kernel.mr != KKT_JAX_ANCHOR[name]["mr"]:
+            raise RuntimeError(f"kkt {name}: mr {kernel.mr}, the JAX "
+                               f"package's {KKT_JAX_ANCHOR[name]['mr']}")
+        fact = kernel.form_factor(st.p, st.cache, st.fact)
+        K = fact.Q.clone()
+        K.diagonal(dim1=-2, dim2=-1)[:, :n] += 1e-8
+        fn = (ldlt_mod.eigh_inertia if lane == "eigh" else ldlt_mod.ldlt)
+        ms = _time_ms(lambda: fn(K))
+        per_fac = _profiled_launches(lambda: fn(K))
+        summary.update({"mr": kernel.mr, "N": N, "factor_ms": ms,
+                        "factor_launches": per_fac})
+        print(f"kkt {name}: K {N}x{N} (mr {kernel.mr}) B={batch}: "
+              f"{'eigh' if lane == 'eigh' else 'LDL^T'} {ms:.4f} ms a "
+              f"factorization (median), {per_fac} CUDA launches a "
+              "factorization", flush=True)
+        out[name] = summary
+    return out
+
+
+def kkt_phase(dev):
+    """Every KKT system of the dense driver on the card: the LP pool
+    (schur_dual against schur/pallas) and the symmetric paths on the
+    bench QP, each count held to the JAX anchor."""
+    t0 = time.perf_counter()
+    pool, factor_ms = kkt_lp_pool(dev)
+    qp = kkt_qp_runs(dev)
+    print(f"kkt phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return pool, qp, factor_ms
+
+
 def main() -> int:
     if not (ROOT / "onephase_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: onephase_tpu_torch/ not found next to "
@@ -1131,6 +1363,11 @@ def main() -> int:
     banded = banded_phase(dev, chain, x_chain)
     torch.cuda.synchronize()
 
+    # every KKT system of the dense driver: Schur-dual LPs against the
+    # schur/pallas path (K1-K3), the symmetric paths on the bench QP
+    kkt_pool = kkt_phase(dev)[0]
+    torch.cuda.synchronize()
+
     # launches of each kernel on its own path: K1-K3 on the dense bench
     # run, K5 and K7 on the chain run (with those of the banded run
     # beside them); K6 lies on no path and carries its kernel phase's
@@ -1145,6 +1382,8 @@ def main() -> int:
     for k in ("fused_q", "chol", "tri_inv_gram"):
         record[k]["launches_n1024"] = big["launches"][k]
         record[k]["launches_f32_run"] = mixed["f32"]["launches"][k]
+        record[k]["launches_kkt_lp_pool"] = \
+            kkt_pool["schur_pallas"]["launches"][k]
         record[k].update(record_mixed[k])
     record["fused_q_tri"]["path"] = "none: launches of the kernel phase"
     # K3 is two launches: the inverse (tri_inv.cu), then the Gram product

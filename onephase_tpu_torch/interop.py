@@ -19,6 +19,12 @@ Field names are those of ipm/state.py in both packages.
   its matrix-free mode the `Jc` slot holding x (n,) and the `H` slot
   holding mu (a scalar), which become (B, n) and (B,).  A named tuple there
   (a partitioned factor) is not carried and raises.
+- The symmetric paths' Factor carries K in Q, the LDL^T or eigh pair in
+  (L, D) and, on clever_symmetric under kkt_system_rescale, `rescale`.
+- The Schur-dual kernel's tuples: its Q slot, (wc, bnd, Jc) while forming
+  and an all-empty placeholder tuple when carried, becomes ``None``; its L
+  slot (S^-1, d^-1, A) keeps its elements, with a (0, 0) A (the folded
+  constant Jacobian) as ``None``.
 """
 
 from __future__ import annotations
@@ -50,14 +56,20 @@ def _to_tensor(a, dtype, device, add_batch):
     return torch.as_tensor(arr, dtype=dt, device=device)
 
 
+def _empty_matrix(v):
+    return np.asarray(v).ndim >= 2 and np.asarray(v).shape[-2:] == (0, 0)
+
+
 def _leaf(v, dtype, device, add_batch):
-    """A tensor, or a tuple of them converted element by element."""
+    """A tensor, or a tuple of them converted element by element (a (0, 0)
+    placeholder in a tuple becomes None)."""
     if not isinstance(v, tuple):
         return _to_tensor(v, dtype, device, add_batch)
     if hasattr(v, "_fields"):
         raise TypeError(f"state_from_numpy does not carry a "
                         f"{type(v).__name__}")
-    return tuple(_leaf(x, dtype, device, add_batch) for x in v)
+    return tuple(None if _empty_matrix(x)
+                 else _leaf(x, dtype, device, add_batch) for x in v)
 
 
 def _convert(tree, cls, dtype, device, add_batch):
@@ -72,8 +84,8 @@ def _convert(tree, cls, dtype, device, add_batch):
             vals[name] = {k: _to_tensor(x, dtype, device, add_batch)
                           for k, x in v.items()}
         elif (cls is Factor and name in _PLACEHOLDERS
-              and not isinstance(v, tuple)
-              and np.asarray(v).shape[-2:] == (0, 0)):
+              and (all(np.asarray(x).size == 0 for x in v)
+                   if isinstance(v, tuple) else _empty_matrix(v))):
             vals[name] = None
         else:
             vals[name] = _leaf(v, dtype, device, add_batch)

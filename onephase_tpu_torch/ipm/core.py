@@ -17,15 +17,27 @@ loop (δ search, step attempts, backtracking, adaptive refinement) reads
 once per outer iteration.  Nothing else inside `_run_chunk` reads a device
 value on the host.  `OnePhaseKernel.host_syncs` counts those reads.
 
-Only the `schur` KKT path is ported: dense here, block-tridiagonal in
-the structured subclasses of parallel/chain.py and parallel/banded.py,
-whose Factor fields (Jc, H, Q, L) may be tuples of block tensors -- every
-select over the factor goes through `tree_select`.  The dense path also
-runs the precision knobs of the JAX package (`kkt.factor_precision`,
-`fallback_form_f32`, `hi_matvec_f32pair`, `precond_f32`, `q_form_dtype`,
-`residual_precision`) and the Mehrotra init.  Options outside it (the
-symmetric paths, `matmul_precision` other than "highest"/"default") raise
-`NotImplementedError` instead of quietly running the default.
+KKT paths (`kkt.kkt_solver_type`):
+
+- `schur` (default): the primal Schur complement, dense here and
+  block-tridiagonal in the structured subclasses of parallel/chain.py and
+  parallel/banded.py, whose Factor fields (Jc, H, Q, L) may be tuples of
+  block tensors -- every select over the factor goes through
+  `tree_select`.  The dense path also runs the precision knobs of the JAX
+  package (`kkt.factor_precision`, `fallback_form_f32`,
+  `hi_matvec_f32pair`, `precond_f32`, `q_form_dtype`,
+  `residual_precision`) and the Mehrotra init.
+- `symmetric`: the augmented system K = [[H, J^T], [J, -S/Y]] (n + m
+  square) by unpivoted LDL^T with D-sign inertia, or by `eigh` under
+  `kkt.linear_solver_type="eigh"` (ops/ldlt.py).
+- `clever_symmetric`: the same with parallel rows merged into one row per
+  group (n + mr square), optionally rescaled (`kkt.kkt_system_rescale`).
+- `schur_dual`: the dual normal matrix of LPs, a subclass in ipm/dual.py
+  that `make_kernel` builds.
+
+Options outside the port (`matmul_precision` other than "highest"/
+"default") raise `NotImplementedError` instead of quietly running the
+default.
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ import torch
 
 from ..config import Params
 from ..nlp import CanonNLP, _mtv, _mv
+from ..ops import ldlt as ldlt_mod
 from ..ops import refine as dsr
 from ..ops.cholesky import (pallas_chol, pallas_tri_inv_gram, xla_chol,
                             xla_chol_inv_from_L)
@@ -126,27 +139,34 @@ def reject_dense_only(pars: Params, kernel: str):
                 f"{kernel} (only {ported!r})")
 
 
+SYMMETRIC = ("symmetric", "clever_symmetric")
+
+
 def _check_supported(pars: Params):
     kkt = pars.kkt
-    if kkt.kkt_solver_type != "schur":
-        raise NotImplementedError(
-            f"kkt.kkt_solver_type={kkt.kkt_solver_type!r} is not ported to "
-            "onephase_tpu_torch (only 'schur')")
+    if kkt.kkt_solver_type == "schur_dual":
+        raise ValueError("kkt_solver_type='schur_dual' is the "
+                         "SchurDualKernel of ipm/dual.py (make_kernel)")
     choices = {
+        "kkt.kkt_solver_type": ("schur",) + SYMMETRIC,
         "kkt.factor_precision": ("same", "f32", "f32_fallback"),
         "kkt.hi_matvec_f32pair": ("off", "refine", "all"),
         "kkt.q_form_dtype": ("same", "bf16"),
         "kkt.residual_precision": ("same", "f64"),
         "init.init_style": ("gertz", "mehrotra"),
     }
+    if kkt.kkt_solver_type == "clever_symmetric":
+        choices["kkt.kkt_system_rescale"] = ("none", "u_only", "u_and_x")
     for key, allowed in choices.items():
         val = _option(pars, key)
         if val not in allowed:
             raise ValueError(f"{key}={val!r}: expected one of {allowed}")
-    if kkt.linear_solver_type not in ("xla", "invchol", "pallas"):
+    # "eigh" factors the symmetric paths spectrally; on the schur path the
+    # JAX package runs it as the xla lane, and so does the port
+    if kkt.linear_solver_type not in ("xla", "invchol", "pallas", "eigh"):
         raise NotImplementedError(
             f"kkt.linear_solver_type={kkt.linear_solver_type!r} is not "
-            "ported to onephase_tpu_torch (xla, invchol, pallas)")
+            "ported to onephase_tpu_torch (xla, invchol, pallas, eigh)")
     with _mm_precision_ctx(pars.matmul_precision):
         pass
 
@@ -194,9 +214,16 @@ class OnePhaseKernel:
         # a float32 attempt, redone in float64 where the strict pivot
         # screen rejects it, carried in float64).
         kkt = pars.kkt
+        self.kkt_type = kkt.kkt_solver_type
+        schur = self.kkt_type == "schur"
         f32, f64 = torch.float32, torch.float64
         fp = kkt.factor_precision
         mixed = fp in ("f32", "f32_fallback") and self.dtype == f64
+        # the symmetric paths refine against the stored K, which a float32
+        # factor would leave at float32 quality
+        if mixed and not schur:
+            raise ValueError(
+                "kkt.factor_precision requires kkt_solver_type='schur'")
         self.factor_dtype = f32 if mixed else self.dtype
         self.factor_store_dtype = (f32 if (mixed and fp == "f32")
                                    else self.dtype)
@@ -209,10 +236,11 @@ class OnePhaseKernel:
         # kkt.hi_matvec_f32pair: the refinement's ("refine") and also the
         # direction's ("all") J products as float32 pairs (ops/refine.py)
         hip = kkt.hi_matvec_f32pair
-        self._hi_pair = hip in ("all", "refine") and self.dtype == f64
+        self._hi_pair = (hip in ("all", "refine") and self.dtype == f64
+                         and schur)
         self._hi_pair_dir = self._hi_pair and hip == "all"
         # kkt.precond_f32: the solve operator M carried in float32
-        self._precond_f32 = (kkt.precond_f32 and self.dtype == f64
+        self._precond_f32 = (kkt.precond_f32 and self.dtype == f64 and schur
                              and self.lane in ("invchol", "pallas"))
         self.L_store_dtype = (f32 if self._precond_f32
                               else self.factor_store_dtype)
@@ -227,7 +255,9 @@ class OnePhaseKernel:
         # `_skip_const_fold` before this constructor runs: it never
         # materializes J or H, not even as folded constants
         fold = not getattr(self, "_skip_const_fold", False)
-        self._H_zero = bool(spec.zero_hess)
+        # the symmetric paths block H into K: a declared-zero Hessian is
+        # then a folded constant zero block, as in the JAX package
+        self._H_zero = bool(spec.zero_hess) and schur
         chess = spec.constant_hess and not self._H_zero and fold
         self._Jc_const = (nlp.jac_orig(x0)[0].contiguous()
                           if spec.constant_jac and fold else None)
@@ -239,8 +269,39 @@ class OnePhaseKernel:
         # state.  Structured subclasses (parallel/chain.py) keep their own Q
         # representation in the Factor (onephase_tpu/ipm/core.py:228-233).
         self._q_store_placeholder = (
-            type(self).form_factor is OnePhaseKernel.form_factor
+            schur and type(self).form_factor is OnePhaseKernel.form_factor
             and type(self).factor is OnePhaseKernel.factor)
+
+        # clever_symmetric: groups of parallel canonical rows, detected once
+        # at the projected start (reference initialize!,
+        # clever_symmetric.jl:54-62) by the port's native library.  A
+        # group's sums run over its member table in row order (padding
+        # points at a zero column): deterministic, where index_add_ on
+        # the card accumulates with atomics.
+        self.mr = m
+        if self.kkt_type == "clever_symmetric":
+            from ..native import detect_parallel_rows
+            x_init = self.project_bounds(x0, nlp.default_bvals())
+            Jcan0 = nlp.jac_canonical(nlp.jac_orig(x_init))[0]
+            group_id, ratio, _ = detect_parallel_rows(Jcan0.cpu().numpy())
+            roots, row2group = np.unique(group_id, return_inverse=True)
+            self.mr = len(roots)
+            counts = np.bincount(row2group, minlength=self.mr)
+            members = np.full((self.mr, counts.max()), m, dtype=np.int64)
+            fill = np.zeros(self.mr, dtype=np.int64)
+            for row, g in enumerate(row2group):
+                members[g, fill[g]] = row
+                fill[g] += 1
+
+            def idx(a):
+                return torch.as_tensor(a, dtype=torch.long,
+                                       device=self.device)
+
+            self.clever_roots = idx(roots)                      # (mr,)
+            self.clever_row2group = idx(row2group)              # (m,)
+            self.clever_members = idx(members)                  # (mr, g)
+            self.clever_ratio = torch.as_tensor(ratio, dtype=self.dtype,
+                                                device=self.device)
 
     # ------------------------------------------------------------------
     def _full(self, shape, val, dtype=None):
@@ -251,6 +312,15 @@ class OnePhaseKernel:
         """The one host read a loop trip may make (counted)."""
         self.host_syncs += 1
         return bool(mask.any())
+
+    def _group_sum(self, v):
+        """Per clever group, the sum of v (B, m) over its rows in row order
+        -> (B, mr): jax.ops.segment_sum's sequential order."""
+        vp = torch.cat([v, v.new_zeros(v.shape[0], 1)], -1)
+        out = v.new_zeros(v.shape[0], self.mr)
+        for k in range(self.clever_members.shape[1]):
+            out = out + vp[:, self.clever_members[:, k]]
+        return out
 
     def initial_state(self):
         x0 = torch.as_tensor(self.nlp.x0, dtype=self.dtype,
@@ -357,11 +427,18 @@ class OnePhaseKernel:
     # ==================================================================
     # linear algebra: factor + solve (reference: julia.jl:21-97)
     # ==================================================================
-    def factor(self, Q, delta, fact=None):
-        """Cholesky of Q + delta*I per instance; returns ((L, D), ok).
+    def factor(self, Q, delta, rescale=None, fact=None):
+        """Factor the KKT matrix with delta on the x-diagonal per instance;
+        returns ((L, D), ok).
 
-        Inertia == Cholesky success, with the relative pivot screen of
-        `_chol_ok` (the dense stand-in for CHOLMOD's PosDefException).
+        Symmetric paths: unpivoted LDL^T (or eigh) of K + diag(delta r_x^2,
+        0), inertia from the signs of D (or of the eigenvalues), which must
+        be (n, mr) (julia.jl:70-90).  `rescale` (clever_symmetric under
+        kkt_system_rescale): Q holds R K R, so the shift is delta * r^2.
+
+        Schur path: Cholesky of Q + delta*I; inertia == Cholesky success,
+        with the relative pivot screen of `_chol_ok` (the dense stand-in for
+        CHOLMOD's PosDefException).
 
         Under `kkt.factor_precision="f32_fallback"` (float64 solves) every
         instance first takes a float32 factor under the strict screen; where
@@ -371,6 +448,16 @@ class OnePhaseKernel:
         runs only when some instance needs it (one host read).  Under
         `kkt.fallback_form_f32` Q is float32 and the fallback re-forms the
         float64 Q from `fact`'s float64 J/H, with the lane's Q kernel."""
+        if self.kkt_type in SYMMETRIC:
+            n = self.n
+            Kd = Q.clone(memory_format=torch.contiguous_format)
+            Kd.diagonal(dim1=-2, dim2=-1)[:, :n].add_(
+                self._x_shift(delta.to(Q.dtype), rescale))
+            if self.lane == "eigh":
+                V, w = ldlt_mod.eigh_inertia(Kd)
+                return (V, w), ldlt_mod.inertia_status(w, n, self.mr)
+            L, d = ldlt_mod.ldlt(Kd)
+            return (L, d), ldlt_mod.inertia_status(d, n, self.mr)
         Qd = Q.clone(memory_format=torch.contiguous_format)
         Qd.diagonal(dim1=-2, dim2=-1).add_(_c(delta.to(Q.dtype)))
         D = torch.ones(Q.shape[:-1], dtype=self.factor_store_dtype,
@@ -480,7 +567,10 @@ class OnePhaseKernel:
         """Turn an accepted Cholesky factor into the solve operator: the
         explicit inverse M = L^-T L^-1 on the pallas/invchol lanes (every
         backsolve is then one batched matvec), L itself on the xla lane.
-        Under `kkt.precond_f32` M is built and carried in float32."""
+        Under `kkt.precond_f32` M is built and carried in float32.  The
+        symmetric paths carry their factor as it is."""
+        if self.kkt_type != "schur":
+            return L
         if self._precond_f32:
             L = L.to(torch.float32)
         if self.lane == "pallas":
@@ -501,12 +591,28 @@ class OnePhaseKernel:
         return torch.linalg.solve_triangular(
             L.transpose(-1, -2), z, upper=True).squeeze(-1).to(out_dt)
 
+    def sym_backsolve(self, fact: Factor, b):
+        """Backsolve with the symmetric paths' factor: LDL^T, or the
+        spectral pair under linear_solver_type="eigh"."""
+        out_dt = b.dtype
+        b = b.to(fact.L.dtype)
+        if self.lane == "eigh":
+            return ldlt_mod.eigh_solve(fact.L, fact.D, b).to(out_dt)
+        return ldlt_mod.ldlt_solve(fact.L, fact.D, b).to(out_dt)
+
     # ==================================================================
-    # KKT system (reference: schur.jl)
+    # KKT system (reference: schur.jl, symmetric.jl, clever_symmetric.jl)
     # ==================================================================
     def form_factor(self, p: Point, cache: Cache, prev: Factor) -> Factor:
         """form_system!: Q = H_L + J^T diag(y/s) J with H at the shifted
-        duals y + mu*theta (update_H!, Class_iterate.jl:279-311)."""
+        duals y + mu*theta (update_H!, Class_iterate.jl:279-311).
+
+        Symmetric path: Q holds K = [[H, J^T], [J, -S/Y]]
+        (symmetric.jl:35-53); clever_symmetric: the merged system
+        [[H, J_root^T], [J_root, -diag(group_u)]] with group_u =
+        1 / sum(ratio^2 / u) over each group (clever_symmetric.jl:271-393),
+        as R K R under kkt_system_rescale.  Both keep the Schur diagonal
+        in `schur_diag` for the tau test (kkt_system_solver.jl:296-300)."""
         nlp = self.nlp
         y_eff = p.y + _c(p.mu * self.pars.a_norm_penalty)
         if self._H_zero:
@@ -517,12 +623,46 @@ class OnePhaseKernel:
             H = nlp.lag_hess(p.x, y_eff).contiguous()
         Jc = self._Jc_const if self._Jc_const is not None \
             else nlp.jac_orig(p.x).contiguous()
+        if self.kkt_type in SYMMETRIC:
+            return self._form_sym(p, prev, Jc, H)
         Q = self._form_q(Jc, H, p.y / p.s)
         return Factor(Jc=self._store_jc(Jc), H=self._store_h(H), Q=Q,
                       schur_diag=torch.diagonal(Q, dim1=-2, dim2=-1).to(
                           self.dtype, copy=True),
                       L=prev.L, D=prev.D, delta=prev.delta, s_f=p.s, y_f=p.y,
                       ok=torch.zeros_like(prev.ok))
+
+    def _form_sym(self, p: Point, prev: Factor, Jc, H) -> Factor:
+        nlp = self.nlp
+        B, n = p.x.shape
+        Jcan = nlp.jac_canonical(Jc)
+        r = None
+        if self.kkt_type == "symmetric":
+            J, C = Jcan, p.s / p.y
+        else:
+            u = p.s / p.y
+            C = 1.0 / self._group_sum(self.clever_ratio ** 2 / u)  # group_u
+            J = Jcan[..., self.clever_roots, :]
+            rmode = self.pars.kkt.kkt_system_rescale
+            if rmode != "none":
+                rx = torch.ones_like(p.x)
+                if rmode == "u_and_x":
+                    rx = rx / _c(torch.sqrt(1.0 + _norm_inf(p.x)))
+                r = torch.cat([rx, _c(p.mu) / torch.sqrt(C)], -1)
+        N = n + J.shape[-2]
+        K = p.x.new_zeros(B, N, N)
+        K[:, :n, :n] = H
+        K[:, :n, n:] = J.transpose(-1, -2)
+        K[:, n:, :n] = J
+        K[:, n:, n:] = -torch.diag_embed(C)
+        if r is not None:
+            K = r[:, :, None] * K * r[:, None, :]
+        H_diag = torch.diagonal(H, dim1=-2, dim2=-1)
+        schur_diag = H_diag + nlp.jtdj_diag(Jc, p.y / p.s)
+        return Factor(Jc=self._store_jc(Jc), H=self._store_h(H), Q=K,
+                      schur_diag=schur_diag, L=prev.L, D=prev.D,
+                      delta=prev.delta, s_f=p.s, y_f=p.y,
+                      ok=torch.zeros_like(prev.ok), rescale=r)
 
     def _refine_tol(self):
         return self.pars.kkt.it_refine_tol or 10.0 * float(
@@ -654,11 +794,15 @@ class OnePhaseKernel:
         y_f, s_f = fact.y_f, fact.s_f
         S_vec = y_f / s_f
         sym_primal = primal_r + comp_r / y_f
-        schur_rhs = dual_r + self.fact_jtprod(
-            fact, primal_r * S_vec + comp_r / s_f)
-        dx = self.refine_solve(fact, schur_rhs)
-        jdx = self.fact_jprod(fact, dx)
-        dy = -(jdx - sym_primal) * S_vec
+        if self.kkt_type == "schur":
+            schur_rhs = dual_r + self.fact_jtprod(
+                fact, primal_r * S_vec + comp_r / s_f)
+            dx = self.refine_solve(fact, schur_rhs)
+            jdx = self.fact_jprod(fact, dx)
+            dy = -(jdx - sym_primal) * S_vec
+        else:
+            dx, dy = self._sym_direction(fact, dual_r, sym_primal)
+            jdx = self.fact_jprod(fact, dx)
         ds = jdx - primal_r
         dmu = -(1.0 - eta_mu) * p.mu
         dbeta = -(1.0 - eta_P) * p.beta
@@ -672,6 +816,48 @@ class OnePhaseKernel:
         overall = _norm_inf(torch.cat([err_D, err_P, err_mu], -1))
         rhs_norm = _norm_inf(torch.cat([dual_r, primal_r, comp_r], -1))
         return direction, overall / rhs_norm
+
+    def _x_shift(self, delta, rescale):
+        """The delta shift of the x-diagonal (B, n): delta, or delta r_x^2
+        when Q holds the rescaled R K R."""
+        xs = _c(delta).expand(-1, self.n)
+        return xs if rescale is None else xs * rescale[:, :self.n] ** 2
+
+    def _sym_direction(self, fact: Factor, dual_r, sym_primal):
+        """(dx, dy) of the symmetric paths.  symmetric: the joint solve
+        K [dx; -dy] = [dual_r; sym_primal] (symmetric.jl:59-83).
+        clever_symmetric: the reduced joint solve and the per-row dual
+        reconstitution (clever_symmetric.jl:425-493), in the rescaled
+        variables: (RKR + delta RER) w = R rhs, then the direction R w.
+        Both refine it_refine_num fixed passes against the stored K (the
+        unpivoted LDL^T loses digits the reference's pivoted CHOLMOD
+        keeps; refinement restores them)."""
+        n = self.n
+        if self.kkt_type == "symmetric":
+            rhs = torch.cat([dual_r, sym_primal], -1)
+        else:
+            u = fact.s_f / fact.y_f
+            seg, ratio = self.clever_row2group, self.clever_ratio
+            group_u = 1.0 / self._group_sum(ratio ** 2 / u)
+            rhs_red = self._group_sum(group_u[:, seg] * ratio / u
+                                      * sym_primal)
+            rhs = torch.cat([dual_r, rhs_red], -1)
+        if fact.rescale is not None:
+            rhs = rhs * fact.rescale
+        shift = torch.cat([self._x_shift(fact.delta, fact.rescale),
+                           rhs.new_zeros(rhs.shape[0], rhs.shape[1] - n)],
+                          -1)
+        sol = torch.zeros_like(rhs)
+        res = rhs
+        for _ in range(self.pars.kkt.it_refine_num):
+            sol = sol + self.sym_backsolve(fact, res)
+            res = rhs - (_mv(fact.Q, sol) + shift * sol)
+        if fact.rescale is not None:
+            sol = sol * fact.rescale
+        if self.kkt_type == "symmetric":
+            return sol[:, :n], -sol[:, n:]
+        tmp = -(rhs_red + group_u * sol[:, n:])
+        return sol[:, :n], sym_primal / u + (ratio / u) * tmp[:, seg]
 
     # ==================================================================
     # delta / inertia strategy (reference: delta_strategy.jl:37-121)
@@ -689,7 +875,7 @@ class OnePhaseKernel:
         try_zero = tau > 0.0
         # both cond branches: the zero-delta attempt runs for every instance
         LD0, ok0 = self.factor(fact.Q, self._full((B,), pars.delta.zero),
-                               fact=fact)
+                               fact.rescale, fact=fact)
         # the stale factor of the other branch is the finalized operator,
         # carried in L_store_dtype; the raw factor's dtype is
         # factor_store_dtype (they differ under kkt.precond_f32)
@@ -714,7 +900,8 @@ class OnePhaseKernel:
                     & (delta <= self.delta_max))
             if not self._any(trip):
                 break
-            (Lc, Dc), okc = self.factor(fact.Q, delta, fact=fact)
+            (Lc, Dc), okc = self.factor(fact.Q, delta, fact.rescale,
+                                        fact=fact)
             upd = trip & okc       # keep the stale factor on failure
             L = tree_select(upd, Lc, L)
             D = tree_select(upd, Dc, D)
@@ -1237,7 +1424,7 @@ class OnePhaseKernel:
             nd = base
         nd = torch.where(can_escalate, nd, delta)
         (Lc, Dc), okc = self.factor(self._fact_q(st_c.fact), nd,
-                                    fact=st_c.fact)
+                                    st_c.fact.rescale, fact=st_c.fact)
         Lc = self.finalize_solver(Lc)
         fact = st_c.fact._replace(L=tree_select(okc, Lc, st_c.fact.L),
                                   D=tree_select(okc, Dc, st_c.fact.D),
@@ -1551,31 +1738,30 @@ class OnePhaseKernel:
         y_t = torch.where(bad[:, None], torch.ones_like(y_t), y_t)
         fact = self.form_factor(p0, cache0, self._empty_factor(B))
         delta0 = self._full((B,), pars.delta.start)
-        LD0, succ = self.factor(fact.Q, delta0, fact=fact)
+        LD0, succ = self.factor(fact.Q, delta0, fact.rescale, fact=fact)
         fact = fact._replace(L=self.finalize_solver(LD0[0]), D=LD0[1],
                              delta=delta0, ok=succ)
         nfac = torch.ones(B, dtype=INT, device=self.device)
         return y_t, a, fact, succ, nfac
 
     def _empty_factor(self, B) -> Factor:
+        """The factor before the first factorization: (n + mr) square on
+        the symmetric paths, with a unit rescale where one is carried."""
         n, m = self.n, self.m
         dt = self.dtype
+        N = n + self.mr if self.kkt_type in SYMMETRIC else n
+        rescale = (self._full((B, N), 1.0)
+                   if (self.kkt_type == "clever_symmetric"
+                       and self.pars.kkt.kkt_system_rescale != "none")
+                   else None)
         Jc = torch.zeros(B, self.nlp.m_orig, n, dtype=dt, device=self.device)
         H = torch.zeros(B, n, n, dtype=dt, device=self.device)
         return Factor(Jc=self._store_jc(Jc), H=self._store_h(H), Q=None,
                       schur_diag=self._full((B, n), 0.0),
-                      L=torch.eye(n, dtype=self.L_store_dtype,
-                                  device=self.device).expand(B, n, n),
-                      D=self._full((B, n), 1.0, self.factor_store_dtype),
+                      L=torch.eye(N, dtype=self.L_store_dtype,
+                                  device=self.device).expand(B, N, N),
+                      D=self._full((B, N), 1.0, self.factor_store_dtype),
                       delta=self._full((B,), 0.0),
                       s_f=self._full((B, m), 1.0), y_f=self._full((B, m), 1.0),
-                      ok=torch.zeros(B, dtype=torch.bool, device=self.device))
-
-
-def make_kernel(nlp: CanonNLP, pars: Params) -> OnePhaseKernel:
-    """Kernel factory: dispatch kkt.kkt_solver_type to the implementing
-    class.  Only the dense schur kernel is ported."""
-    if pars.kkt.kkt_solver_type == "schur_dual":
-        raise NotImplementedError(
-            "kkt_solver_type='schur_dual' is not ported to onephase_tpu_torch")
-    return OnePhaseKernel(nlp, pars)
+                      ok=torch.zeros(B, dtype=torch.bool, device=self.device),
+                      rescale=rescale)

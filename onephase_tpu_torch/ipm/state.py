@@ -81,11 +81,19 @@ class Cache(NamedTuple):
 
 
 class Factor(NamedTuple):
-    """KKT factorization state at the factorization point."""
+    """KKT factorization state at the factorization point.
+
+    Shapes of the dense schur path; N = n + mr on the symmetric paths
+    (mr = m on `symmetric`, the number of row groups on
+    `clever_symmetric`), where Q holds K and (L, D) the LDL^T pair or, under
+    linear_solver_type="eigh", (V, w).  The structured kernels and the
+    Schur-dual kernel hold tuples in the Jc, H, Q and L slots (see
+    parallel/chain.py, parallel/banded.py and ipm/dual.py)."""
 
     Jc: Optional[Tensor]     # (B, m_orig, n); None when folded constant
     H: Optional[Tensor]      # (B, n, n); None when folded constant / zero
     Q: Optional[Tensor]      # (B, n, n) while forming; None when carried
+    #                          on the schur path, K (B, N, N) when symmetric
     schur_diag: Tensor       # (B, n)
     L: Tensor                # (B, n, n): Cholesky factor or M = Q^-1
     D: Tensor                # (B, n): ones on the schur path
@@ -93,7 +101,9 @@ class Factor(NamedTuple):
     s_f: Tensor              # (B, m)
     y_f: Tensor              # (B, m)
     ok: Tensor               # (B,) bool
-    rescale: Optional[Tensor] = None   # clever-symmetric only (not ported)
+    # clever_symmetric under kkt_system_rescale: r (B, N), Q = R K R
+    # with R = diag(r) (clever_symmetric.jl:310-338); None otherwise
+    rescale: Optional[Tensor] = None
 
 
 class Dir(NamedTuple):

@@ -401,6 +401,29 @@ class CanonNLP:
         out = _mtv(Jc, wc) if self.m_orig > 0 else self._zeros(w, self.n)
         return out + bnd
 
+    def jac_canonical(self, Jc):
+        """The canonical Jacobian [Jc[li]; -Jc[ui]; I_l; -I_u] (m, n), or
+        (B, m, n) from a batched Jc (reference eval_jac,
+        Class_cutest.jl:451-503): the symmetric KKT paths only; the Schur
+        paths never form it."""
+        j = self._j
+        eye = torch.eye(self.n, dtype=Jc.dtype, device=Jc.device)
+        lead = Jc.shape[:-2]
+        return torch.cat([
+            Jc.index_select(-2, j["li"]), -Jc.index_select(-2, j["ui"]),
+            eye[j["lvi"]].expand(*lead, -1, -1),
+            -eye[j["uvi"]].expand(*lead, -1, -1)], -2)
+
+    def jtdj_diag(self, Jc, d):
+        """diag(J^T diag(d) J) (B, n) for d (B, m) and a shared or batched
+        Jc (reference eval_diag_J_T_J, eval.jl:88-99)."""
+        wc, bnd = self.split_canonical_sq(d)
+        if self.m_orig == 0:
+            return bnd
+        if Jc.dim() == 2:
+            return wc @ (Jc * Jc) + bnd
+        return torch.einsum("bij,bi,bij->bj", Jc, wc, Jc) + bnd
+
     def jtdj(self, Jc, d):
         """Canonical J^T diag(d) J (B, n, n) = Jc^T diag(wc) Jc + diag(bnd)
         with wc/bnd from the sign-squared scatter (reference eval_J_T_J,

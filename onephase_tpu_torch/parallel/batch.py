@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..config import Params
-from ..ipm.core import make_kernel
+from ..ipm.dual import make_kernel
 from ..ipm.state import MAX_TIME, RUNNING, STALLED, STATUS_NAMES, State
 from ..nlp import CanonNLP
 

@@ -218,7 +218,7 @@ class ChainKernel(OnePhaseKernel):
         # the structured factor IS the solve operator (block tuple)
         return L
 
-    def factor(self, Q, delta, fact=None):
+    def factor(self, Q, delta, rescale=None, fact=None):
         Qd, Qs = Q
         D = Qd.new_zeros(Qd.shape[0], 1)
         if self.partitions > 1:

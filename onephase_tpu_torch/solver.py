@@ -17,7 +17,8 @@ import torch
 
 from .config import Params
 from .ipm import history as hist_mod
-from .ipm.core import OnePhaseKernel, make_kernel
+from .ipm.core import OnePhaseKernel
+from .ipm.dual import make_kernel
 from .ipm.state import MAX_TIME, RUNNING, STATUS_NAMES, State
 from .nlp import CanonNLP, canonicalize
 from .utils.timer import Timer

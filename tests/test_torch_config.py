@@ -93,30 +93,57 @@ PORTED_KNOBS = ({"kkt.factor_precision": "f32"},
 
 
 def test_unported_options_raise():
-    """The dense kernel takes every ported knob, refuses a value no
-    package knows (ValueError) and still refuses the unported options;
-    the structured kernels refuse the dense-only knobs
-    (NotImplementedError; the banded kernel's factor_precision check is
-    the JAX package's ValueError)."""
-    from onephase_tpu_torch.ipm.core import make_kernel
+    """The dense kernel takes every ported knob, `make_kernel` builds every
+    KKT system (symmetric and clever_symmetric, also with the eigh
+    backend, and schur_dual on an LP), refuses a value no package knows
+    and the JAX package's invalid combinations (ValueError) and still
+    refuses the unported options; the structured kernels refuse the
+    dense-only knobs (NotImplementedError; the banded kernel's
+    factor_precision check is the JAX package's ValueError)."""
+    from onephase_tpu_torch.ipm.core import OnePhaseKernel
+    from onephase_tpu_torch.ipm.dual import SchurDualKernel, make_kernel
     from onephase_tpu_torch.models import zoo
     from onephase_tpu_torch.models.examples import chain_ocp
+    from onephase_tpu_torch.models.lp import lp_spec
     from onephase_tpu_torch.parallel.banded import BandedKernel
     from onephase_tpu_torch.parallel.chain import ChainKernel
     nlp = onephase_tpu_torch.canonicalize(zoo.circle1(), device="cpu")
+    lp = onephase_tpu_torch.canonicalize(lp_spec(
+        [1.0, 2.0], [[1.0, 1.0]], [1.0], [2.0], [0.0, 0.0], [3.0, 3.0],
+        device="cpu"), device="cpu")
     for over in PORTED_KNOBS:
         make_kernel(nlp, tcfg.Params().with_overrides(over))
     for over in ({"kkt.kkt_solver_type": "symmetric"},
-                 {"kkt.kkt_solver_type": "clever_symmetric"},
-                 {"kkt.kkt_solver_type": "schur_dual"},
-                 {"matmul_precision": "high"}):
+                 {"kkt.kkt_solver_type": "symmetric",
+                  "kkt.linear_solver_type": "eigh"},
+                 {"kkt.kkt_solver_type": "clever_symmetric",
+                  "kkt.kkt_system_rescale": "u_and_x"},
+                 {"kkt.kkt_solver_type": "clever_symmetric",
+                  "kkt.linear_solver_type": "eigh"}):
+        k = make_kernel(nlp, tcfg.Params().with_overrides(over))
+        assert type(k) is OnePhaseKernel and k.kkt_type == \
+            over["kkt.kkt_solver_type"]
+    dual = {"kkt.kkt_solver_type": "schur_dual"}
+    for over in (dual, dict(dual, **{"kkt.factor_precision": "f32"})):
+        k = make_kernel(lp, tcfg.Params().with_overrides(over))
+        assert type(k) is SchurDualKernel
+    for over in ({"matmul_precision": "high"},
+                 {"kkt.linear_solver_type": "cholmod"}):
         with pytest.raises(NotImplementedError):
             make_kernel(nlp, tcfg.Params().with_overrides(over))
-    for over in ({"kkt.factor_precision": "f16"},
-                 {"kkt.q_form_dtype": "fp8"},
-                 {"init.init_style": "mehrotra2"}):
+    for prob, over in (
+            (nlp, {"kkt.factor_precision": "f16"}),
+            (nlp, {"kkt.q_form_dtype": "fp8"}),
+            (nlp, {"init.init_style": "mehrotra2"}),
+            (nlp, {"kkt.kkt_solver_type": "ldl"}),
+            (nlp, {"kkt.kkt_solver_type": "symmetric",
+                   "kkt.factor_precision": "f32"}),
+            (nlp, {"kkt.kkt_solver_type": "clever_symmetric",
+                   "kkt.kkt_system_rescale": "x_only"}),
+            (nlp, dual),                               # a Hessian
+            (lp, dict(dual, **{"kkt.factor_precision": "f32_fallback"}))):
         with pytest.raises(ValueError):
-            make_kernel(nlp, tcfg.Params().with_overrides(over))
+            make_kernel(prob, tcfg.Params().with_overrides(over))
     spec = chain_ocp(K=4, nx=2, mc=1, device="cpu")
     flat = onephase_tpu_torch.canonicalize(spec.to_nlpspec(), device="cpu")
     for over in PORTED_KNOBS:
@@ -136,6 +163,7 @@ def _entry_call(entry):
     from onephase_tpu_torch.ipm.core import OnePhaseKernel
     from onephase_tpu_torch.models import zoo
     from onephase_tpu_torch.models.examples import chain_ocp
+    from onephase_tpu_torch.models.lp import lp_spec
     from onephase_tpu_torch.models.qp import make_qp
     from onephase_tpu_torch.parallel.chain import ChainKernel
     pars = tcfg.Params().with_overrides({"output_level": 0})
@@ -160,12 +188,13 @@ def _entry_call(entry):
             zoo.circle1(), pars),
         "make_qp": lambda: make_qp(8, 4),
         "chain_ocp": lambda: chain_ocp(K=4, nx=2, mc=1),
+        "lp_spec": lambda: lp_spec([1.0], [[1.0]], [0.0], [1.0]),
     }[entry]
 
 
 @pytest.mark.parametrize("entry", [
     "canonicalize", "one_phase_solve", "make_qp", "chain_ocp",
-    "ChainKernel", "BandedKernel", "state_from_numpy"])
+    "ChainKernel", "BandedKernel", "state_from_numpy", "lp_spec"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Without a device and without a card every entry point raises and
     says how to ask for the CPU; it never carries on quietly there."""

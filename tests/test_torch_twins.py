@@ -191,30 +191,36 @@ def check_solve_parity(rt, rj, x_tol=1e-6, mu_rtol=1e-8, iterations=True):
 
 
 def check_carried_steps(name, options, lane="xla", tol=1e-10,
-                        max_steps=200):
+                        max_steps=200, specs=None, ratio_cap=None):
     """Outer iteration by outer iteration along the JAX package's own
     trajectory (chunks of one): the port's outer iteration on `lane` from
     the carried JAX state equals the JAX package's, leaf by leaf to `tol`
     (relative to max(1, max |leaf|)).  The JAX package runs the xla lane
     for the port's xla lane and the invchol lane (the same explicit
-    inverse, by XLA) for the port's pallas and invchol lanes.  This holds
-    the port's arithmetic where round-off makes whole trajectories
-    diverge.  Returns the number of steps checked."""
+    inverse, by XLA) for the port's pallas and invchol lanes (the eigh
+    lane for eigh).  Both kernels come from their package's
+    `make_kernel` (`options` may name any KKT system).  `specs` gives the
+    (JAX, torch) problem pair in place of the zoo's `name`.  With
+    `ratio_cap`, the walk ends before the first step whose JAX
+    a-posteriori KKT error ratio exceeds it: past that point the direction
+    carries round-off of that relative size.  This holds the port's
+    arithmetic where round-off makes whole trajectories diverge.  Returns
+    the number of steps checked."""
     from onephase_tpu.config import Params as JParams
-    from onephase_tpu.ipm.core import OnePhaseKernel as JKernel
+    from onephase_tpu.ipm.dual import make_kernel as jmake
     from onephase_tpu_torch.config import Params as TParams
     from onephase_tpu_torch.interop import state_from_numpy, state_to_numpy
-    from onephase_tpu_torch.ipm.core import OnePhaseKernel as TKernel
+    from onephase_tpu_torch.ipm.dual import make_kernel as tmake
     import jax
 
-    jspec, tspec = zoo_pair(name)
+    jspec, tspec = specs or zoo_pair(name)
     opts = dict(options, chunk_size=1)
-    jlane = "xla" if lane == "xla" else "invchol"
-    jk = JKernel(jnlp.canonicalize(jspec), JParams().with_overrides(
+    jlane = lane if lane in ("xla", "eigh") else "invchol"
+    jk = jmake(jnlp.canonicalize(jspec), JParams().with_overrides(
         dict(opts, **{"kkt.linear_solver_type": jlane})))
-    tk = TKernel(tnlp.canonicalize(tspec, device="cpu"),
-                 TParams().with_overrides(
-                     dict(opts, **{"kkt.linear_solver_type": lane})))
+    tk = tmake(tnlp.canonicalize(tspec, device="cpu"),
+               TParams().with_overrides(
+                   dict(opts, **{"kkt.linear_solver_type": lane})))
 
     def np_tree(t):
         return jax.tree_util.tree_map(np.asarray, t)
@@ -225,6 +231,8 @@ def check_carried_steps(name, options, lane="xla", tol=1e-10,
     while int(jst.status) == 0 and steps < max_steps:
         st = tk.run_chunk(state_from_numpy(np_tree(jst), device="cpu"))
         jst = jk.run_chunk(jst)
+        if ratio_cap is not None and float(jst.kkt_ratio) > ratio_cap:
+            break
         compare_states(state_to_numpy(st), np_tree(jst), tol,
                        f"step {steps + 1}")
         steps += 1
