@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 It builds the hand-written kernels from `onephase_tpu_torch/csrc/`, holds
 each against its plain PyTorch version on the card, then drives the port's
-three paths on the `pallas` lane:
+four paths on the `pallas` lane:
 
 - the dense path (`NLPSpec -> canonicalize -> OnePhaseKernel (dense Schur)
   -> one_phase_solve / BatchSolver`): HS071 in float64, the bench
@@ -39,7 +39,17 @@ three paths on the `pallas` lane:
   (batch 4).  Every count is held to the JAX package's on the CPU
   (KKT_JAX_ANCHOR, tools/jax_kkt_anchor.py); the plain LDL^T's and eigh's
   ms and CUDA launches a factorization, and the dual path's S factor
-  against K2, are printed.
+  against K2, are printed;
+- the scenario path (`TwoStageSpec -> ScenarioKernel (arrow Schur) ->
+  run_chunk`, the scenario phase): two_stage_qp(K=256, nz=16, nx=64,
+  mc=32) in float32 (flat n = 16,400) on the `pallas` lane (K2 on the
+  (256, 64, 64) scenario blocks and the 16 x 16 border) and the `xla`
+  lane; two_stage_qp(K=64) and tax_grouped(G=64, na_g=8, "banded") in
+  float64, each against the dense path of its flat NLP; ECON50 and six
+  example problems on the dense path.  Every status is held to the JAX
+  package's on the CPU (SCEN_JAX_ANCHOR, tools/jax_scenario_anchor.py),
+  and K2 is held to its plain version and timed at the path's shapes, down
+  to n = 1.
 
 The mixed phase also times K1, K2 and K3 at its shape in float64 and in
 float32, in turns.
@@ -69,7 +79,8 @@ the last lists every kernel with its launches on its path, its error
 against the plain version, its time, the plain version's, a library
 call's where one PyTorch call computes the same function, and its bound
 (K1-K3 also with their launches on the mixed phase's float32 run and on
-the kkt phase's LP pool).
+the kkt phase's LP pool; K2 also with its launches on the scenario run and
+its times at the scenario shapes).
 The last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -192,6 +203,69 @@ KKT_JAX_ANCHOR = {
                        "cum_fac_sum": 48, "mr": 768},
     "lp_obj_gap_max": 2.6257086232504837e-07,
     "lp_obj_gap_within_1e-7": 15,
+}
+# the scenario phase: the arrow-KKT path (ScenarioKernel), each run from
+# its start to termination.  S1: scripts/bench_scenario.py's shape and dtype
+# (flat n = 16,400, float32, tol 1e-4) on the pallas lane (K2 on the scenario blocks
+# and the border) and the xla lane; S2: the JAX scale test's shape
+# (tests/test_scenario.py:110-148) in float64 on the arrow path against the
+# dense path of the flat NLP (K1-K3); S3: the multichip dryrun's ECON leg
+# (__graft_entry__.py:77-87: tax_grouped, 64 groups of 8 agent types,
+# max_it 160, chunk_size 40) on one card, arrow against dense; S4: ECON50
+# and the six examples of scripts/run_examples.py:55-60 on the dense path
+# in float64 at tol 1e-6 (its options).
+SCEN_OPTIONS = {
+    "output_level": 0,
+    "term.max_it": 200,
+    "chunk_size": 25,
+    "history_capacity": 2,
+}
+SCEN_S1 = {"K": 256, "nz": 16, "nx": 64, "mc": 32}
+# float32 at tol 1e-4, the float32 tolerance of bench.py and
+# scripts/bench_large.py: at the default 1e-6 the float32 run ends at
+# MAX_IT (200 outer iterations on the card)
+SCEN_S1_OPTIONS = dict(SCEN_OPTIONS, **{"term.tol_opt": 1e-4})
+SCEN_S2 = {"K": 64, "nz": 16, "nx": 64, "mc": 32}
+SCEN_S3 = {"G": 64, "na_g": 8, "wage_spread": "banded"}
+SCEN_S3_OPTIONS = dict(SCEN_OPTIONS, **{"term.max_it": 160,
+                                        "chunk_size": 40})
+SCEN_S4_OPTIONS = {"output_level": 0, "term.max_it": 600, "chunk_size": 50,
+                   "history_capacity": 2}
+SCEN_S4 = {
+    "ECON50": ("tax", "tax1d", (50,)),
+    "kissing12d3": ("examples", "kissing", (12, 3)),
+    "kissing25d4": ("examples", "kissing", (25, 4)),
+    "polygon20": ("examples", "largest_small_polygon", (20,)),
+    "electron25": ("examples", "electron", (25,)),
+    "maxcut30": ("examples", "max_cut", (30, 5)),
+    "chain50": ("examples", "chain", (50,)),
+}
+# the arrow and dense runs of S2 and S3 agree: status, argmin to this
+# (relative to max |x|) and outer iterations within one, but on the runs of
+# SCEN_ROUNDOFF (ROADMAP R5): S3's start puts s y / mu of its clamped rows
+# on the comp_feas_agg bound (center_dual), so rounding decides the first
+# switching test and with it the trajectory; the JAX package's own arrow
+# and dense runs end in 98 and 104 outer iterations
+SCEN_X_RTOL = 1e-6
+SCEN_ROUNDOFF = ("S3",)
+# K2 at the scenario path's shapes: (B K, n) of S1's blocks, S3's blocks,
+# S3's border batched, and one 1 x 1 border
+SCEN_CHOL_SHAPES = ((256, 64), (64, 16), (64, 1), (1, 1))
+# the JAX package's figures for the same data, options and dtype on the CPU
+# (tools/jax_scenario_anchor.py): status, outer iterations, factorizations
+SCEN_JAX_ANCHOR = {
+    "S1": {"status": "Optimal", "outer_its": 11, "cum_fac": 12},
+    "S2_arrow": {"status": "Optimal", "outer_its": 13, "cum_fac": 14},
+    "S2_dense": {"status": "Optimal", "outer_its": 13, "cum_fac": 14},
+    "S3_arrow": {"status": "Optimal", "outer_its": 98, "cum_fac": 174},
+    "S3_dense": {"status": "Optimal", "outer_its": 104, "cum_fac": 180},
+    "ECON50": {"status": "Optimal", "outer_its": 84, "cum_fac": 116},
+    "kissing12d3": {"status": "Optimal", "outer_its": 52, "cum_fac": 122},
+    "kissing25d4": {"status": "Optimal", "outer_its": 184, "cum_fac": 459},
+    "polygon20": {"status": "Optimal", "outer_its": 17, "cum_fac": 38},
+    "electron25": {"status": "Optimal", "outer_its": 28, "cum_fac": 49},
+    "maxcut30": {"status": "Optimal", "outer_its": 24, "cum_fac": 60},
+    "chain50": {"status": "Optimal", "outer_its": 123, "cum_fac": 255},
 }
 TOL = {"float32": 1e-4, "float64": 1e-10}   # max error / max |reference|
 REPS = 20
@@ -1281,6 +1355,177 @@ def kkt_phase(dev):
     return pool, qp, factor_ms
 
 
+def _run_kernel(kernel, warmup=False):
+    """A kernel's run from its initial state to termination, chunk by
+    chunk (after one warm-up chunk from a fresh state with `warmup`: the
+    first call of a path's operations pays their CUDA module loads);
+    launches are counted from the initial state on, the seconds and host
+    syncs over the same span.  Returns (summary, final state)."""
+    import torch
+    from onephase_tpu_torch import ops
+    from onephase_tpu_torch.ipm.state import RUNNING, STATUS_NAMES
+
+    if warmup:
+        kernel.run_chunk(kernel.initial_state())
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    kernel.host_syncs = 0
+    t0 = time.perf_counter()
+    st = kernel.initial_state()
+    while int(st.status[0]) == RUNNING:
+        st = kernel.run_chunk(st)
+    torch.cuda.synchronize()
+    return {"status": STATUS_NAMES[int(st.status[0])],
+            "outer_its": int(st.t[0]) - 1, "cum_fac": int(st.cum_fac[0]),
+            "seconds": time.perf_counter() - t0,
+            "host_syncs": kernel.host_syncs,
+            "launches": ops.launch_counts()}, st
+
+
+def _scen_line(key, label, summary):
+    """Print a run beside the JAX anchor's `key` and hold its status."""
+    ref = SCEN_JAX_ANCHOR[key]
+    print(f"scenario {label}: {summary['status']} in {summary['outer_its']} "
+          f"outer its, {summary['cum_fac']} factorizations, "
+          f"{summary['seconds']:.4f} s, host_syncs {summary['host_syncs']}, "
+          f"K2 launches {summary['launches']['chol']}, launches "
+          f"{summary['launches']} | JAX anchor "
+          f"{ref['status']} in {ref['outer_its']} outer its, "
+          f"{ref['cum_fac']} factorizations", flush=True)
+    if summary["status"] != ref["status"]:
+        raise RuntimeError(f"scenario {label}: {summary['status']}, the "
+                           f"JAX anchor's {ref['status']}")
+
+
+def _arrow_vs_dense(key, name, arrow, x_arrow, dense, x_dense):
+    """S2/S3: the arrow and dense runs agree (status, argmin to
+    SCEN_X_RTOL, outer iterations within one but on SCEN_ROUNDOFF)."""
+    gap = _rel_diff(x_arrow, x_dense)
+    held = key not in SCEN_ROUNDOFF
+    print(f"scenario {name}: arrow vs dense argmin max rel diff {gap:.3e}, "
+          f"outer its {arrow['outer_its']} vs {dense['outer_its']}"
+          + ("" if held else " (not held: rounding decides the trajectory)"),
+          flush=True)
+    if (arrow["status"] != dense["status"]
+            or (held and abs(arrow["outer_its"] - dense["outer_its"]) > 1)
+            or not gap <= SCEN_X_RTOL):
+        raise RuntimeError(f"scenario {name}: the arrow and dense runs "
+                           "disagree")
+
+
+def scenario_chol_shapes(dev):
+    """K2 at the scenario path's shapes (SCEN_CHOL_SHAPES) in float32 and
+    float64 against its plain version (cholesky_ex, also the library call),
+    timed in turns; a non-PD 1 x 1 gives ok = 0.  Returns the records."""
+    import torch
+    from onephase_tpu_torch.ops import cholesky as ch
+
+    rng = np.random.default_rng(3)
+    out = []
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        for B, n in SCEN_CHOL_SHAPES:
+            Q = _spd(rng, B, n, dtype, dev)
+            L, d, ok = ch.pallas_chol(Q)
+            Lr, dr, okr = ch.xla_chol(Q)
+            torch.cuda.synchronize()
+            if not (bool(ok.all()) and bool(okr.all())):
+                raise RuntimeError(f"K2 rejected an SPD matrix (B={B} "
+                                   f"n={n})")
+            e, ea = _err(L, Lr)
+            e = max(e, _err(d, dr)[0])
+            ms, lms = _time_turns(lambda: ch.pallas_chol(Q),
+                                  lambda: torch.linalg.cholesky_ex(Q))
+            el = Q.element_size()
+            bd = _bound(el * (2 * B * n * n + B * n) + 4 * B,
+                        B * n ** 3 / 3, dname)
+            print(f"K2 chol {dname} scenario shape B={B} n={n}: err "
+                  f"{e:.3e} kernel {ms:.4f} ms cholesky_ex (plain and "
+                  f"library) {lms:.4f} ms ({ms / lms:.2f}x, in turns) bound "
+                  f"{bd[0]:.6f} ms ({bd[1]})", flush=True)
+            if not e <= TOL[dname]:
+                raise RuntimeError(f"K2 disagrees at B={B} n={n}: {e}")
+            out.append({"dtype": dname, "B": B, "n": n, "max_abs_err": ea,
+                        "ms": ms, "plain_ms": lms, "library_ms": lms,
+                        "bound_ms": bd[0], "bound_by": bd[1]})
+        Q = -torch.ones(3, 1, 1, dtype=dtype, device=dev)
+        if bool(ch.pallas_chol(Q)[2].any()):
+            raise RuntimeError("K2 accepted a negative 1 x 1 pivot")
+    return out
+
+
+def scenario_phase(dev):
+    """The arrow-KKT path on the card (S1-S4, see SCEN_*).  Every status is
+    held to the JAX anchor's; S1 must launch K2 on the pallas lane and no
+    kernel on the xla lane; S2 and S3 hold the arrow run to the dense one.
+    Returns (S1's pallas summary, K2's records at the scenario shapes)."""
+    import torch
+    import onephase_tpu_torch as opt
+    from onephase_tpu_torch.config import Params
+    from onephase_tpu_torch.ipm.core import OnePhaseKernel
+    from onephase_tpu_torch.models import examples, tax
+    from onephase_tpu_torch.parallel.scenario import ScenarioKernel
+
+    t_phase = time.perf_counter()
+    chol_shapes = scenario_chol_shapes(dev)
+
+    def pars(base, lane):
+        return Params().with_overrides(
+            dict(base, **{"kkt.linear_solver_type": lane}))
+
+    # S1: full width, float32, both lanes
+    spec = examples.two_stage_qp(**SCEN_S1, device=dev)
+    s1, xs = {}, {}
+    for lane in ("pallas", "xla"):
+        sk = ScenarioKernel(spec, pars(SCEN_S1_OPTIONS, lane),
+                            dtype=torch.float32, device=dev)
+        s1[lane], st = _run_kernel(sk, warmup=True)
+        xs[lane] = st.p.x[0]
+        _scen_line("S1", f"S1 two_stage_qp{tuple(SCEN_S1.values())} f32 "
+                   f"{lane}", s1[lane])
+        if s1[lane]["status"] != "Optimal":
+            raise RuntimeError(f"scenario S1 {lane}: {s1[lane]['status']}")
+    if s1["pallas"]["launches"]["chol"] <= 0:
+        raise RuntimeError("scenario S1: the pallas lane launched no K2")
+    if any(s1["xla"]["launches"].values()):
+        raise RuntimeError("scenario S1: the xla lane launched a kernel")
+    print(f"scenario S1: argmin pallas vs xla max rel diff "
+          f"{_rel_diff(xs['pallas'], xs['xla']):.3e}", flush=True)
+    del spec, st, sk
+
+    # S2 and S3: the arrow path against the dense path of the flat NLP
+    twins = (("S2", f"S2 two_stage_qp{tuple(SCEN_S2.values())} f64",
+              examples.two_stage_qp(**SCEN_S2, device=dev), SCEN_OPTIONS),
+             ("S3", "S3 tax_grouped(G=64, na_g=8, banded) f64",
+              tax.tax_grouped(**SCEN_S3, device=dev), SCEN_S3_OPTIONS))
+    for key, name, spec, base in twins:
+        p = pars(base, "pallas")
+        warm = key == "S2"
+        arrow, st = _run_kernel(ScenarioKernel(spec, p, device=dev), warm)
+        x_arrow = st.p.x[0]
+        _scen_line(key + "_arrow", name + " arrow", arrow)
+        nlp = opt.canonicalize(spec.to_nlpspec(), dtype=torch.float64,
+                               device=dev)
+        dense, st = _run_kernel(OnePhaseKernel(nlp, p), warm)
+        _scen_line(key + "_dense", name + " dense", dense)
+        _arrow_vs_dense(key, name, arrow, x_arrow, dense, st.p.x[0])
+        if arrow["launches"]["chol"] <= 0 or dense["launches"]["chol"] <= 0:
+            raise RuntimeError(f"scenario {name}: no K2 launch")
+        del spec, nlp, st
+
+    # S4: ECON50 and the examples on the dense path
+    mods = {"examples": examples, "tax": tax}
+    for name, (mod, fn, args) in SCEN_S4.items():
+        nlp = opt.canonicalize(getattr(mods[mod], fn)(*args, device=dev),
+                               dtype=torch.float64, device=dev)
+        summary, _ = _run_kernel(OnePhaseKernel(
+            nlp, pars(SCEN_S4_OPTIONS, "pallas")))
+        _scen_line(name, f"S4 {name} f64 dense", summary)
+    print(f"scenario phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return s1["pallas"], chol_shapes
+
+
 def main() -> int:
     if not (ROOT / "onephase_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: onephase_tpu_torch/ not found next to "
@@ -1368,6 +1613,10 @@ def main() -> int:
     kkt_pool = kkt_phase(dev)[0]
     torch.cuda.synchronize()
 
+    # the scenario path: K2 on many small blocks and a border down to 1 x 1
+    scen_s1, scen_chol = scenario_phase(dev)
+    torch.cuda.synchronize()
+
     # launches of each kernel on its own path: K1-K3 on the dense bench
     # run, K5 and K7 on the chain run (with those of the banded run
     # beside them); K6 lies on no path and carries its kernel phase's
@@ -1385,6 +1634,10 @@ def main() -> int:
         record[k]["launches_kkt_lp_pool"] = \
             kkt_pool["schur_pallas"]["launches"][k]
         record[k].update(record_mixed[k])
+    # K2 on the scenario path: its launches on S1's pallas run and its
+    # times at the scenario shapes
+    record["chol"]["launches_scenario_s1"] = scen_s1["launches"]["chol"]
+    record["chol"]["scenario_shapes"] = scen_chol
     record["fused_q_tri"]["path"] = "none: launches of the kernel phase"
     # K3 is two launches: the inverse (tri_inv.cu), then the Gram product
     # on K1's kernel

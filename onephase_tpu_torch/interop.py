@@ -19,6 +19,9 @@ Field names are those of ipm/state.py in both packages.
   its matrix-free mode the `Jc` slot holding x (n,) and the `H` slot
   holding mu (a scalar), which become (B, n) and (B,).  A named tuple there
   (a partitioned factor) is not carried and raises.
+- The scenario kernel's tuples (Jc=(Jx, Jz), H=(Hzz, Hkk, Hkz),
+  Q=(Qzz, Qkk, Bk), L=(Lk, LS)) are carried element by element, each with
+  the batch axis added.
 - The symmetric paths' Factor carries K in Q, the LDL^T or eigh pair in
   (L, D) and, on clever_symmetric under kkt_system_rescale, `rescale`.
 - The Schur-dual kernel's tuples: its Q slot, (wc, bnd, Jc) while forming

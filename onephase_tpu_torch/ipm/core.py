@@ -19,14 +19,16 @@ value on the host.  `OnePhaseKernel.host_syncs` counts those reads.
 
 KKT paths (`kkt.kkt_solver_type`):
 
-- `schur` (default): the primal Schur complement, dense here and
+- `schur` (default): the primal Schur complement, dense here,
   block-tridiagonal in the structured subclasses of parallel/chain.py and
-  parallel/banded.py, whose Factor fields (Jc, H, Q, L) may be tuples of
-  block tensors -- every select over the factor goes through
-  `tree_select`.  The dense path also runs the precision knobs of the JAX
-  package (`kkt.factor_precision`, `fallback_form_f32`,
-  `hi_matvec_f32pair`, `precond_f32`, `q_form_dtype`,
-  `residual_precision`) and the Mehrotra init.
+  parallel/banded.py and arrow-shaped in parallel/scenario.py, whose
+  Factor fields (Jc, H, Q, L) may be tuples of block tensors -- every
+  select over the factor goes through `tree_select`.  The dense path runs
+  the precision knobs of the JAX package (`kkt.factor_precision`,
+  `fallback_form_f32`, `hi_matvec_f32pair`, `precond_f32`,
+  `q_form_dtype`, `residual_precision`) and the Mehrotra init; the
+  structured kernels take them as the JAX package's do
+  (`check_structured`).
 - `symmetric`: the augmented system K = [[H, J^T], [J, -S/Y]] (n + m
   square) by unpivoted LDL^T with D-sign inertia, or by `eigh` under
   `kkt.linear_solver_type="eigh"` (ops/ldlt.py).
@@ -91,6 +93,14 @@ def _c(v):
     return v[:, None]
 
 
+def _factor_to(L, dtype):
+    """A factor, or a structured kernel's tuple of factor blocks, in
+    `dtype`."""
+    if isinstance(L, tuple):
+        return tuple(t.to(dtype) for t in L)
+    return L.to(dtype)
+
+
 @contextlib.contextmanager
 def _mm_precision_ctx(name: str):
     """Matmul precision for the solver's entry points (Params.
@@ -110,33 +120,26 @@ def _mm_precision_ctx(name: str):
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-# options the dense Schur path runs and the structured kernels do not:
-# (key, value of the structured kernels)
-DENSE_ONLY = (
-    ("kkt.factor_precision", "same"),
-    ("kkt.fallback_form_f32", False),
-    ("kkt.hi_matvec_f32pair", "off"),
-    ("kkt.precond_f32", False),
-    ("kkt.q_form_dtype", "same"),
-    ("kkt.residual_precision", "same"),
-    ("init.init_style", "gertz"),
-)
-
-
 def _option(pars: Params, key: str):
     group, name = key.split(".")
     return getattr(getattr(pars, group), name)
 
 
-def reject_dense_only(pars: Params, kernel: str):
-    """A structured kernel's check: the precision knobs and the Mehrotra
-    init run on the dense path only."""
-    for key, ported in DENSE_ONLY:
-        val = _option(pars, key)
-        if val != ported:
-            raise NotImplementedError(
-                f"{key}={val!r} is not ported to onephase_tpu_torch's "
-                f"{kernel} (only {ported!r})")
+def check_structured(pars: Params, dtype):
+    """A structured kernel's check of the precision knobs, as the JAX
+    package's structured kernels behave (decided by running them): every
+    knob runs (most are read only by the dense Schur path, and
+    `residual_precision` and the Mehrotra init reach the structured paths
+    through the base class), except `kkt.factor_precision="f32"` under a
+    float64 solve, whose float32 stale factor the JAX delta search cannot
+    select against the solve-dtype block factor (a TypeError in its
+    `lax.cond`).  The banded kernel raises its own ValueError for any
+    factor_precision but "same" instead."""
+    if pars.kkt.factor_precision == "f32" and dtype == torch.float64:
+        raise TypeError(
+            "kkt.factor_precision='f32' carries a float32 factor, which a "
+            "structured kernel's float64 block factor cannot replace (the "
+            "JAX package's delta search raises the same TypeError)")
 
 
 SYMMETRIC = ("symmetric", "clever_symmetric")
@@ -878,10 +881,11 @@ class OnePhaseKernel:
                                fact.rescale, fact=fact)
         # the stale factor of the other branch is the finalized operator,
         # carried in L_store_dtype; the raw factor's dtype is
-        # factor_store_dtype (they differ under kkt.precond_f32)
+        # factor_store_dtype (they differ under kkt.precond_f32).  A
+        # structured kernel's factor is a tuple of blocks.
         L_prev = fact.L
         if self.L_store_dtype != self.factor_store_dtype:
-            L_prev = L_prev.to(self.factor_store_dtype)
+            L_prev = _factor_to(L_prev, self.factor_store_dtype)
         L = tree_select(try_zero, LD0[0], L_prev)
         D = tree_select(try_zero, LD0[1], fact.D)
         ok0 = try_zero & ok0

@@ -39,7 +39,7 @@ import torch
 from torch.func import grad, hessian, jacfwd, jacrev, vmap
 
 from ..config import Params
-from ..ipm.core import OnePhaseKernel, _c, _norm_inf, reject_dense_only
+from ..ipm.core import OnePhaseKernel, _c, _norm_inf, check_structured
 from ..ipm.state import Cache, Dir, Factor, Point
 from ..nlp import NLPSpec, canonicalize, resolve_device
 from ..ops.block_tridiag import (TridiagFactor, partitioned_factor,
@@ -125,7 +125,7 @@ class ChainKernel(OnePhaseKernel):
             raise ValueError(
                 f"chain_partitions={self.partitions} needs K={spec.K} "
                 "= P*Kc with Kc>=2")
-        reject_dense_only(pars, "ChainKernel")
+        check_structured(pars, dtype or torch.float64)
         device = resolve_device(device)
         if spec.device is not None and spec.device.type != device.type:
             raise ValueError(f"the chain's data lives on {spec.device}, the "

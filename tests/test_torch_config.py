@@ -57,6 +57,9 @@ def _modules():
 
 
 def test_no_jax_import_anywhere():
+    names = {p.relative_to(PKG).as_posix() for p in _modules()}
+    assert {"ops/block_schur.py", "parallel/scenario.py",
+            "models/tax.py"} <= names
     for path in _modules():
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -75,7 +78,9 @@ def test_no_jax_import_anywhere():
 def test_every_module_imports_without_nvcc_or_gpu():
     names = [m.name for m in pkgutil.walk_packages([str(PKG)],
                                                    "onephase_tpu_torch.")]
-    assert "onephase_tpu_torch.ops.cholesky" in names
+    for mod in ("ops.cholesky", "ops.block_schur", "parallel.scenario",
+                "models.examples", "models.tax"):
+        assert f"onephase_tpu_torch.{mod}" in names
     for name in names:
         importlib.import_module(name)
 
@@ -97,16 +102,19 @@ def test_unported_options_raise():
     KKT system (symmetric and clever_symmetric, also with the eigh
     backend, and schur_dual on an LP), refuses a value no package knows
     and the JAX package's invalid combinations (ValueError) and still
-    refuses the unported options; the structured kernels refuse the
-    dense-only knobs (NotImplementedError; the banded kernel's
-    factor_precision check is the JAX package's ValueError)."""
+    refuses the unported options: `matmul_precision` on every kernel and a
+    device mesh on the structured ones (NotImplementedError).  The
+    structured kernels take the dense-path knobs as the JAX package's do
+    (tests/test_torch_structured_options.py)."""
     from onephase_tpu_torch.ipm.core import OnePhaseKernel
     from onephase_tpu_torch.ipm.dual import SchurDualKernel, make_kernel
     from onephase_tpu_torch.models import zoo
     from onephase_tpu_torch.models.examples import chain_ocp
     from onephase_tpu_torch.models.lp import lp_spec
     from onephase_tpu_torch.parallel.banded import BandedKernel
+    from onephase_tpu_torch.models.examples import two_stage_qp
     from onephase_tpu_torch.parallel.chain import ChainKernel
+    from onephase_tpu_torch.parallel.scenario import ScenarioKernel
     nlp = onephase_tpu_torch.canonicalize(zoo.circle1(), device="cpu")
     lp = onephase_tpu_torch.canonicalize(lp_spec(
         [1.0, 2.0], [[1.0, 1.0]], [1.0], [2.0], [0.0, 0.0], [3.0, 3.0],
@@ -146,27 +154,37 @@ def test_unported_options_raise():
             make_kernel(prob, tcfg.Params().with_overrides(over))
     spec = chain_ocp(K=4, nx=2, mc=1, device="cpu")
     flat = onephase_tpu_torch.canonicalize(spec.to_nlpspec(), device="cpu")
-    for over in PORTED_KNOBS:
-        pars = tcfg.Params().with_overrides(
-            dict(over, **{"kkt.linear_solver_type": "xla"}))
+    scen = two_stage_qp(device="cpu")
+    structured = (lambda p, **kw: ChainKernel(spec, p, device="cpu", **kw),
+                  lambda p, **kw: BandedKernel(flat, p, device="cpu", **kw),
+                  lambda p, **kw: ScenarioKernel(scen, p, device="cpu", **kw))
+    xla = {"kkt.linear_solver_type": "xla"}
+    for make in structured:
+        make(tcfg.Params().with_overrides(xla))
         with pytest.raises(NotImplementedError):
-            ChainKernel(spec, pars, device="cpu")
-        err = (ValueError if "kkt.factor_precision" in over
-               else NotImplementedError)
-        with pytest.raises(err):
-            BandedKernel(flat, pars, device="cpu")
+            make(tcfg.Params().with_overrides(
+                dict(xla, matmul_precision="high")))
+        with pytest.raises(NotImplementedError):
+            make(tcfg.Params().with_overrides(xla), mesh=object())
 
 
 def _entry_call(entry):
     """A call of the entry point `entry` that gives it no device."""
     from onephase_tpu_torch.interop import state_from_numpy, state_to_numpy
     from onephase_tpu_torch.ipm.core import OnePhaseKernel
-    from onephase_tpu_torch.models import zoo
+    from onephase_tpu_torch.models import examples, tax, zoo
     from onephase_tpu_torch.models.examples import chain_ocp
     from onephase_tpu_torch.models.lp import lp_spec
     from onephase_tpu_torch.models.qp import make_qp
     from onephase_tpu_torch.parallel.chain import ChainKernel
     pars = tcfg.Params().with_overrides({"output_level": 0})
+    if entry == "ScenarioKernel":
+        from onephase_tpu_torch.parallel.scenario import ScenarioKernel
+        spec = examples.two_stage_qp(device="cpu")
+        return lambda: ScenarioKernel(spec, pars)
+    if entry in MODEL_FNS:
+        return lambda: getattr(examples if hasattr(examples, entry)
+                               else tax, entry)()
     if entry == "ChainKernel":
         spec = chain_ocp(K=4, nx=2, mc=1, device="cpu")
         return lambda: ChainKernel(spec, pars)
@@ -192,9 +210,15 @@ def _entry_call(entry):
     }[entry]
 
 
+# the example families and the tax models
+MODEL_FNS = ("largest_small_polygon", "electron", "max_cut", "kissing",
+            "chain", "two_stage_qp", "tax1d", "tax_grouped")
+
+
 @pytest.mark.parametrize("entry", [
     "canonicalize", "one_phase_solve", "make_qp", "chain_ocp",
-    "ChainKernel", "BandedKernel", "state_from_numpy", "lp_spec"])
+    "ChainKernel", "BandedKernel", "ScenarioKernel", "state_from_numpy",
+    "lp_spec", *MODEL_FNS])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Without a device and without a card every entry point raises and
     says how to ask for the CPU; it never carries on quietly there."""

@@ -208,6 +208,50 @@ def test_chol_rejects_non_pd(cuda, dt):
     assert not bool(ch.xla_chol(Q)[2].any())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B, n", [(256, 64), (64, 16), (64, 1), (1, 1)])
+def test_chol_at_scenario_shapes(cuda, dt, B, n):
+    """K2 on the scenario path's blocks and borders, down to 1 x 1."""
+    Q = _spd(np.random.default_rng(B + n), B, n, dt, cuda)
+    L, d, ok = ch.pallas_chol(Q)
+    Lr, dr, okr = ch.xla_chol(Q)
+    assert bool(ok.all()) and bool(okr.all())
+    assert _rel_err(L, Lr) <= TOL[dt] and _rel_err(d, dr) <= TOL[dt]
+    assert not bool(ch.pallas_chol(-Q)[2].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nz", [16, 1])
+def test_arrow_factor_on_k2_matches_plain(cuda, dt, nz):
+    """The arrow factor with K2 (two launches: blocks, border) against the
+    cholesky_ex route, and its solve; an indefinite block and an indefinite
+    border flag their instance alone."""
+    from onephase_tpu_torch.ops.block_schur import arrow_factor, arrow_solve
+    rng = np.random.default_rng(nz)
+    B, K, nx = 3, 64, 16
+    Qkk = _spd(rng, B * K, nx, dt, cuda).reshape(B, K, nx, nx)
+    Qzz = _spd(rng, B, nz, dt, cuda) * K
+    Bk = torch.as_tensor(rng.normal(size=(B, K, nx, nz)) * 0.3, dtype=dt,
+                         device=cuda)
+    delta = torch.full((B,), 1e-6, dtype=dt, device=cuda)
+    before = ops.launch_counts()["chol"]
+    f = arrow_factor(Qzz, Qkk, Bk, delta, use_pallas=True)
+    assert ops.launch_counts()["chol"] == before + 2
+    fr = arrow_factor(Qzz, Qkk, Bk, delta)
+    assert f.ok.tolist() == fr.ok.tolist() == [True] * B
+    assert _rel_err(f.Lk, fr.Lk) <= TOL[dt] and _rel_err(f.LS, fr.LS) <= TOL[dt]
+    rz = torch.as_tensor(rng.normal(size=(B, nz)), dtype=dt, device=cuda)
+    rk = torch.as_tensor(rng.normal(size=(B, K, nx)), dtype=dt, device=cuda)
+    (dz, dx), (dzr, dxr) = arrow_solve(f, Bk, rz, rk), arrow_solve(fr, Bk, rz, rk)
+    assert _rel_err(dz, dzr) <= TOL[dt] and _rel_err(dx, dxr) <= TOL[dt]
+    Qkk[1, 5] -= 1e3 * torch.eye(nx, dtype=dt, device=cuda)
+    Qzz[2] -= 1e6 * torch.eye(nz, dtype=dt, device=cuda)
+    f = arrow_factor(Qzz, Qkk, Bk, delta, use_pallas=True)
+    assert f.ok.tolist() == [True, False, False]
+
+
 def _band(rng, B, K, nb, dt, dev, shift=3.0):
     """Block-tridiagonal SPD band: A_k = G G^T + shift I, B_k ~ 0.3 N(0, 1)."""
     G = rng.normal(size=(B, K, nb, nb))

@@ -191,7 +191,8 @@ def check_solve_parity(rt, rj, x_tol=1e-6, mu_rtol=1e-8, iterations=True):
 
 
 def check_carried_steps(name, options, lane="xla", tol=1e-10,
-                        max_steps=200, specs=None, ratio_cap=None):
+                        max_steps=200, specs=None, ratio_cap=None,
+                        kernels=None):
     """Outer iteration by outer iteration along the JAX package's own
     trajectory (chunks of one): the port's outer iteration on `lane` from
     the carried JAX state equals the JAX package's, leaf by leaf to `tol`
@@ -203,9 +204,11 @@ def check_carried_steps(name, options, lane="xla", tol=1e-10,
     (JAX, torch) problem pair in place of the zoo's `name`.  With
     `ratio_cap`, the walk ends before the first step whose JAX
     a-posteriori KKT error ratio exceeds it: past that point the direction
-    carries round-off of that relative size.  This holds the port's
-    arithmetic where round-off makes whole trajectories diverge.  Returns
-    the number of steps checked."""
+    carries round-off of that relative size.  `kernels` gives a
+    (JAX, torch) kernel pair built with chunk_size 1 (a structured kernel)
+    in place of `make_kernel`'s.  This holds the port's arithmetic where
+    round-off makes whole trajectories diverge.  Returns the number of
+    steps checked."""
     from onephase_tpu.config import Params as JParams
     from onephase_tpu.ipm.dual import make_kernel as jmake
     from onephase_tpu_torch.config import Params as TParams
@@ -213,14 +216,18 @@ def check_carried_steps(name, options, lane="xla", tol=1e-10,
     from onephase_tpu_torch.ipm.dual import make_kernel as tmake
     import jax
 
-    jspec, tspec = specs or zoo_pair(name)
-    opts = dict(options, chunk_size=1)
-    jlane = lane if lane in ("xla", "eigh") else "invchol"
-    jk = jmake(jnlp.canonicalize(jspec), JParams().with_overrides(
-        dict(opts, **{"kkt.linear_solver_type": jlane})))
-    tk = tmake(tnlp.canonicalize(tspec, device="cpu"),
-               TParams().with_overrides(
-                   dict(opts, **{"kkt.linear_solver_type": lane})))
+    if kernels is not None:
+        jk, tk = kernels
+        assert jk.pars.chunk_size == tk.pars.chunk_size == 1
+    else:
+        jspec, tspec = specs or zoo_pair(name)
+        opts = dict(options, chunk_size=1)
+        jlane = lane if lane in ("xla", "eigh") else "invchol"
+        jk = jmake(jnlp.canonicalize(jspec), JParams().with_overrides(
+            dict(opts, **{"kkt.linear_solver_type": jlane})))
+        tk = tmake(tnlp.canonicalize(tspec, device="cpu"),
+                   TParams().with_overrides(
+                       dict(opts, **{"kkt.linear_solver_type": lane})))
 
     def np_tree(t):
         return jax.tree_util.tree_map(np.asarray, t)
