@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 It builds the hand-written kernels from `onephase_tpu_torch/csrc/`, holds
 each against its plain PyTorch version on the card, then drives the port's
-four paths on the `pallas` lane:
+paths on the `pallas` lane:
 
 - the dense path (`NLPSpec -> canonicalize -> OnePhaseKernel (dense Schur)
   -> one_phase_solve / BatchSolver`): HS071 in float64, the bench
@@ -51,6 +51,20 @@ four paths on the `pallas` lane:
   and K2 is held to its plain version and timed at the path's shapes, down
   to n = 1.
 
+- the LP campaign path (`cli.main` / `harness.run_lp_directory` ->
+  `parallel/buckets.solve_bucketed`, the campaign phase): shape-bucketed
+  parametric LP batches in float32 on the `pallas` lane, each instance its
+  own A (K1 on a (B, m, n) Jc, K2, K3), with one float64 escalation pass
+  on the card.  C1: 64 LPs at n=1024, m=512 (one shape class), cold and
+  warm, and on `invchol` (no kernel); C2: the 96-instance mixed pool (six
+  shape classes); C3: seven MPS files through run_lp_directory, then the
+  CLI twice into one directory (the second call skips every problem).
+  Every final status must be its ground truth (the `_feas` / `_infeas`
+  suffix) or, for an escalated instance, the JAX package's float64 status
+  (CAMP_JAX_ANCHOR, tools/jax_campaign_anchor.py); every Optimal
+  objective within CAMP_OBJ_RTOL of HiGHS's.  K1 with a per-instance Jc
+  is held to its plain version and timed at C1's shape.
+
 The mixed phase also times K1, K2 and K3 at its shape in float64 and in
 float32, in turns.
 
@@ -78,8 +92,9 @@ the final line; without a CUDA card it refuses to run.  The line before
 the last lists every kernel with its launches on its path, its error
 against the plain version, its time, the plain version's, a library
 call's where one PyTorch call computes the same function, and its bound
-(K1-K3 also with their launches on the mixed phase's float32 run and on
-the kkt phase's LP pool; K2 also with its launches on the scenario run and
+(K1-K3 also with their launches on the mixed phase's float32 run, on
+the kkt phase's LP pool and on the campaign's C1 run, K1 also with its
+per-instance-Jc record; K2 also with its launches on the scenario run and
 its times at the scenario shapes).
 The last line is `{"ok": true, "device": {...}}`.
 """
@@ -267,7 +282,369 @@ SCEN_JAX_ANCHOR = {
     "maxcut30": {"status": "Optimal", "outer_its": 24, "cum_fac": 60},
     "chain50": {"status": "Optimal", "outer_its": 123, "cum_fac": 255},
 }
-TOL = {"float32": 1e-4, "float64": 1e-10}   # max error / max |reference|
+# the campaign phase: shape-bucketed parametric LP batches
+# (parallel/buckets.solve_bucketed), float32 with one float64 escalation
+# pass on the card.  C1: the throughput-crossover record's n=1024 dense
+# row (scripts/run_throughput_crossover.py:44-56, its options :138-158) on
+# the pallas lane, one shape class of 64 LPs, each with its own A; C2: the
+# 96-instance mixed pool of results/mixed_parity_lanes.md with
+# scripts/run_mixed_lanes.py's options; C3: seven small MPS files of
+# results/lpi_mps/ through harness.run_lp_directory (scripts/run_lpi.py's
+# options), then the CLI twice into one directory (the second resumes)
+CAMP_OPTIONS = {
+    "output_level": 0, "term.max_it": 120, "term.tol_opt": 1e-4,
+    "term.tol_inf_2": 1e-3, "chunk_size": 25,
+    "kkt.linear_solver_type": "pallas",
+    "kkt.it_refine_adaptive": True, "kkt.it_refine_max": 8,
+    "kkt.it_refine_tol": 5e-7, "kkt.it_refine_highprec": True,
+    "term.stall_patience": 25,
+}
+CAMP_C1 = {"n": 1024, "m": 512, "n_pairs": 32, "density": 0.5}
+CAMP_C2 = {"n_pairs": 48, "max_n": 600}
+CAMP_C2_OPTIONS = dict(CAMP_OPTIONS, **{"term.max_it": 200})
+CAMP_ROUND_TO = 128
+CAMP_C3_FILES = ("galenet", "itest2", "itest6", "bgprtr", "woodinfe",
+                 "klein1", "forest6")
+CAMP_C3_OPTIONS = {
+    "output_level": 0, "term.max_it": 120, "term.tol_opt": 1e-4,
+    "term.tol_inf_2": 1e-3, "chunk_size": 25,
+    "kkt.linear_solver_type": "pallas", "kkt.it_refine_highprec": True,
+    "term.max_time": 600.0,
+}
+# an Optimal feasible member's objective against HiGHS's
+# (scripts/run_mixed_parity.py:124-129)
+CAMP_OBJ_RTOL = 5e-3
+# the JAX package's figures for the same pools and options on the CPU
+# (tools/jax_campaign_anchor.py): per instance, its float64 status,
+# objective and outer iterations under the escalation pass's options
+# (term.max_it 80), and HiGHS's objective of each feasible member
+CAMP_JAX_ANCHOR = {
+    "C1": {
+        "mix1024_0_feas": (
+            "Optimal", -2230.947964445202, 18, -2230.990299526675),
+        "mix1024_0_infeas": (
+            "primal_infeasible", 147.8438150672009, 27, None),
+        "mix1024_10_feas": (
+            "Optimal", -1994.07378963598, 17, -1994.1067821529598),
+        "mix1024_10_infeas": (
+            "primal_infeasible", 65.9761425779092, 36, None),
+        "mix1024_11_feas": (
+            "Optimal", -2192.707366480132, 17, -2192.729489213822),
+        "mix1024_11_infeas": (
+            "primal_infeasible", -1743.8120727618111, 22, None),
+        "mix1024_12_feas": (
+            "Optimal", -2108.652046216346, 17, -2108.680147779838),
+        "mix1024_12_infeas": (
+            "primal_infeasible", 90.55469181521224, 27, None),
+        "mix1024_13_feas": (
+            "Optimal", -1842.7256921944888, 17, -1842.7682160936738),
+        "mix1024_13_infeas": (
+            "primal_infeasible", -1277.0282437492506, 8, None),
+        "mix1024_14_feas": (
+            "Optimal", -2329.4575919976305, 17, -2329.509990803256),
+        "mix1024_14_infeas": (
+            "primal_infeasible", 53.309089951800075, 36, None),
+        "mix1024_15_feas": (
+            "Optimal", -2139.9328977295922, 17, -2139.9742561072376),
+        "mix1024_15_infeas": (
+            "primal_infeasible", -2078.5507330549817, 24, None),
+        "mix1024_16_feas": (
+            "Optimal", -2197.3597269280417, 16, -2197.4053526922703),
+        "mix1024_16_infeas": (
+            "primal_infeasible", -26.78917896080158, 26, None),
+        "mix1024_17_feas": (
+            "Optimal", -2077.927993283051, 18, -2077.9660904740417),
+        "mix1024_17_infeas": (
+            "primal_infeasible", -1245.108985046242, 8, None),
+        "mix1024_18_feas": (
+            "Optimal", -2157.736138062773, 17, -2157.771755556191),
+        "mix1024_18_infeas": (
+            "primal_infeasible", 30.856209604626557, 36, None),
+        "mix1024_19_feas": (
+            "Optimal", -2050.3518554441284, 17, -2050.391581362737),
+        "mix1024_19_infeas": (
+            "primal_infeasible", -1674.3866215381595, 21, None),
+        "mix1024_1_feas": (
+            "Optimal", -2336.515201374753, 17, -2336.5594505798354),
+        "mix1024_1_infeas": (
+            "primal_infeasible", -1412.466852764577, 9, None),
+        "mix1024_20_feas": (
+            "Optimal", -2021.0827976325854, 17, -2021.1481777571587),
+        "mix1024_20_infeas": (
+            "primal_infeasible", -200.6824606444878, 29, None),
+        "mix1024_21_feas": (
+            "Optimal", -2047.4511106692482, 17, -2047.479774458434),
+        "mix1024_21_infeas": (
+            "primal_infeasible", -1375.4269487517392, 8, None),
+        "mix1024_22_feas": (
+            "Optimal", -2206.5828039465937, 17, -2206.621273301349),
+        "mix1024_22_infeas": (
+            "primal_infeasible", 68.56367782848885, 38, None),
+        "mix1024_23_feas": (
+            "Optimal", -1982.687128402565, 18, -1982.7514148040152),
+        "mix1024_23_infeas": (
+            "primal_infeasible", -1579.6620157654688, 22, None),
+        "mix1024_24_feas": (
+            "Optimal", -2400.024087797983, 17, -2400.0717510308555),
+        "mix1024_24_infeas": (
+            "primal_infeasible", 5.365391762840145, 26, None),
+        "mix1024_25_feas": (
+            "Optimal", -2374.953415537856, 18, -2374.9960574222528),
+        "mix1024_25_infeas": (
+            "primal_infeasible", -1046.4336180707012, 8, None),
+        "mix1024_26_feas": (
+            "Optimal", -2250.0585472708526, 18, -2250.1123718363833),
+        "mix1024_26_infeas": (
+            "primal_infeasible", 16.55498944633875, 37, None),
+        "mix1024_27_feas": (
+            "Optimal", -2283.282522063369, 17, -2283.324748660911),
+        "mix1024_27_infeas": (
+            "primal_infeasible", -2258.521374201002, 25, None),
+        "mix1024_28_feas": (
+            "Optimal", -2310.048199304344, 17, -2310.07866900103),
+        "mix1024_28_infeas": (
+            "primal_infeasible", -168.85041938019518, 28, None),
+        "mix1024_29_feas": (
+            "Optimal", -2330.162070329459, 17, -2330.196452348521),
+        "mix1024_29_infeas": (
+            "primal_infeasible", -1155.714231646649, 8, None),
+        "mix1024_2_feas": (
+            "Optimal", -1925.679132710181, 17, -1925.7081929776),
+        "mix1024_2_infeas": (
+            "primal_infeasible", 65.2176301200429, 35, None),
+        "mix1024_30_feas": (
+            "Optimal", -2445.667000068395, 17, -2445.697040822692),
+        "mix1024_30_infeas": (
+            "primal_infeasible", 56.77135779182514, 36, None),
+        "mix1024_31_feas": (
+            "Optimal", -2074.1765092739893, 17, -2074.2338653511106),
+        "mix1024_31_infeas": (
+            "primal_infeasible", -1705.2084183521606, 24, None),
+        "mix1024_3_feas": (
+            "Optimal", -1868.8749774286289, 18, -1868.9032490327722),
+        "mix1024_3_infeas": (
+            "primal_infeasible", -1685.3092635628013, 21, None),
+        "mix1024_4_feas": (
+            "Optimal", -1918.4526336107965, 17, -1918.4819869306523),
+        "mix1024_4_infeas": (
+            "primal_infeasible", -72.5864858276141, 26, None),
+        "mix1024_5_feas": (
+            "Optimal", -2042.1844283556247, 17, -2042.2295464549459),
+        "mix1024_5_infeas": (
+            "primal_infeasible", -1103.0120014401512, 8, None),
+        "mix1024_6_feas": (
+            "Optimal", -2148.6795158647524, 18, -2148.7158094435354),
+        "mix1024_6_infeas": (
+            "primal_infeasible", -32.87652389751722, 39, None),
+        "mix1024_7_feas": (
+            "Optimal", -2069.2673539372677, 16, -2069.3247525738493),
+        "mix1024_7_infeas": (
+            "primal_infeasible", -1396.6423450420505, 22, None),
+        "mix1024_8_feas": (
+            "Optimal", -2413.159632550417, 18, -2413.2111208202823),
+        "mix1024_8_infeas": (
+            "primal_infeasible", 125.35765423886582, 27, None),
+        "mix1024_9_feas": (
+            "Optimal", -2127.7317285006, 17, -2127.7703086105626),
+        "mix1024_9_infeas": (
+            "primal_infeasible", -1445.4722269278577, 9, None),
+    },
+    "C2": {
+        "lpi_bgdbg1_0_feas": (
+            "Optimal", -619.590214669496, 14, -619.5986976337863),
+        "lpi_bgdbg1_0_infeas": (
+            "primal_infeasible", 313.39595548289475, 23, None),
+        "lpi_bgdbg1_17_feas": (
+            "Optimal", -617.6792367640397, 15, -617.6821677980247),
+        "lpi_bgdbg1_17_infeas": (
+            "primal_infeasible", -375.77730518556604, 7, None),
+        "lpi_bgdbg1_34_feas": (
+            "Optimal", -572.1971424347397, 15, -572.2053496929626),
+        "lpi_bgdbg1_34_infeas": (
+            "primal_infeasible", 5.017861985256398, 43, None),
+        "lpi_bgprtr_18_feas": (
+            "Optimal", -74.12142235136687, 9, -74.12166798051346),
+        "lpi_bgprtr_18_infeas": (
+            "primal_infeasible", 19.190817534681887, 32, None),
+        "lpi_bgprtr_1_feas": (
+            "Optimal", -96.02548795997699, 9, -96.02621078840642),
+        "lpi_bgprtr_1_infeas": (
+            "primal_infeasible", -62.58225581332473, 5, None),
+        "lpi_bgprtr_35_feas": (
+            "Optimal", -51.29798283918353, 9, -51.29852133892623),
+        "lpi_bgprtr_35_infeas": (
+            "primal_infeasible", -10.424591265746196, 20, None),
+        "lpi_box1_19_feas": (
+            "Optimal", -334.3206503135674, 14, -334.3210834151286),
+        "lpi_box1_19_infeas": (
+            "primal_infeasible", -231.9330482294349, 22, None),
+        "lpi_box1_2_feas": (
+            "Optimal", -347.41061638328233, 14, -347.41319359325456),
+        "lpi_box1_2_infeas": (
+            "primal_infeasible", 1.7700426010081194, 37, None),
+        "lpi_box1_36_feas": (
+            "Optimal", -340.2530488051556, 14, -340.2545257164393),
+        "lpi_box1_36_infeas": (
+            "primal_infeasible", 31.751157739438234, 20, None),
+        "lpi_ex72a_20_feas": (
+            "Optimal", -261.052620251126, 14, -261.0553854766767),
+        "lpi_ex72a_20_infeas": (
+            "primal_infeasible", -37.667779674434215, 22, None),
+        "lpi_ex72a_37_feas": (
+            "Optimal", -213.1201326701884, 14, -213.12209926208547),
+        "lpi_ex72a_37_infeas": (
+            "primal_infeasible", -168.971425797076, 6, None),
+        "lpi_ex72a_3_feas": (
+            "Optimal", -334.9504535394942, 14, -334.9524611128589),
+        "lpi_ex72a_3_infeas": (
+            "primal_infeasible", -287.342175904345, 22, None),
+        "lpi_ex73a_21_feas": (
+            "Optimal", -465.24615144937746, 13, -465.24996765322675),
+        "lpi_ex73a_21_infeas": (
+            "primal_infeasible", -171.5041314230676, 7, None),
+        "lpi_ex73a_38_feas": (
+            "Optimal", -334.7051759608414, 13, -334.70877068445503),
+        "lpi_ex73a_38_infeas": (
+            "primal_infeasible", -11.87685601829342, 35, None),
+        "lpi_ex73a_4_feas": (
+            "Optimal", -267.82736769786493, 13, -267.8306633850743),
+        "lpi_ex73a_4_infeas": (
+            "primal_infeasible", -90.29963627004021, 20, None),
+        "lpi_forest6_22_feas": (
+            "Optimal", -203.7825421223898, 12, -203.7849120707316),
+        "lpi_forest6_22_infeas": (
+            "primal_infeasible", -4.682803714139486, 32, None),
+        "lpi_forest6_39_feas": (
+            "Optimal", -186.55064056012995, 12, -186.5535889582332),
+        "lpi_forest6_39_infeas": (
+            "primal_infeasible", -114.59314262036492, 22, None),
+        "lpi_forest6_5_feas": (
+            "Optimal", -227.00915488037927, 11, -227.00964705497287),
+        "lpi_forest6_5_infeas": (
+            "primal_infeasible", -136.87304002578108, 6, None),
+        "lpi_galenet_23_feas": (
+            "Optimal", -34.54966438007946, 7, -34.54958306314743),
+        "lpi_galenet_23_infeas": (
+            "primal_infeasible", -14.679663693598247, 22, None),
+        "lpi_galenet_40_feas": (
+            "Optimal", -2.083999110308015, 8, -2.0839219101862563),
+        "lpi_galenet_40_infeas": (
+            "primal_infeasible", 8.132223245320864, 10, None),
+        "lpi_galenet_6_feas": (
+            "Optimal", -5.818589433991047, 6, -5.818566589092984),
+        "lpi_galenet_6_infeas": (
+            "primal_infeasible", -2.661077782503318, 24, None),
+        "lpi_itest2_24_feas": (
+            "Optimal", 5.834776142551985, 8, 5.835015405084105),
+        "lpi_itest2_24_infeas": (
+            "primal_infeasible", 6.016775796463325, 10, None),
+        "lpi_itest2_41_feas": (
+            "Optimal", 5.355397400216694, 6, 5.355463036542318),
+        "lpi_itest2_41_infeas": (
+            "primal_infeasible", -1.567663765039085, 6, None),
+        "lpi_itest2_7_feas": (
+            "Optimal", -3.7265391416405613, 9, -3.726196516406259),
+        "lpi_itest2_7_infeas": (
+            "primal_infeasible", -3.040374368055125, 20, None),
+        "lpi_itest6_25_feas": (
+            "Optimal", 5.79901190348546, 8, 5.799018987408456),
+        "lpi_itest6_25_infeas": (
+            "primal_infeasible", -4.424149423243778, 7, None),
+        "lpi_itest6_42_feas": (
+            "Optimal", -2.0325691398981034, 7, -2.0325694198993167),
+        "lpi_itest6_42_infeas": (
+            "primal_infeasible", -0.615456532728266, 24, None),
+        "lpi_itest6_8_feas": (
+            "Optimal", -5.919874133807862, 8, -5.9197886682836245),
+        "lpi_itest6_8_infeas": (
+            "primal_infeasible", -2.9478090662108998, 13, None),
+        "lpi_klein1_26_feas": (
+            "Optimal", -40.89212252606896, 10, -40.892247353913355),
+        "lpi_klein1_26_infeas": (
+            "primal_infeasible", 12.695204273335913, 31, None),
+        "lpi_klein1_43_feas": (
+            "Optimal", -42.205051273751785, 12, -42.204733269396804),
+        "lpi_klein1_43_infeas": (
+            "primal_infeasible", -120.83388325398144, 21, None),
+        "lpi_klein1_9_feas": (
+            "Optimal", -47.30273313899784, 10, -47.30237841880369),
+        "lpi_klein1_9_infeas": (
+            "primal_infeasible", -23.967740764680915, 6, None),
+        "lpi_klein2_10_feas": (
+            "Optimal", -14.072301498785572, 5, -14.072321919134804),
+        "lpi_klein2_10_infeas": (
+            "primal_infeasible", -0.9511135122570494, 37, None),
+        "lpi_klein2_27_feas": (
+            "Optimal", 17.470557412284037, 6, 17.470557796539694),
+        "lpi_klein2_27_infeas": (
+            "primal_infeasible", -20.0086872795978, 24, None),
+        "lpi_klein2_44_feas": (
+            "Optimal", 3.1588005618524733, 7, 3.1588064101191),
+        "lpi_klein2_44_infeas": (
+            "primal_infeasible", 10.989435514233687, 19, None),
+        "lpi_klein3_11_feas": (
+            "Optimal", 61.01813209490135, 7, 61.0183362229601),
+        "lpi_klein3_11_infeas": (
+            "primal_infeasible", 16.936407961293153, 22, None),
+        "lpi_klein3_28_feas": (
+            "Optimal", 31.945351538632757, 6, 31.945337505397266),
+        "lpi_klein3_28_infeas": (
+            "primal_infeasible", 23.463496131929297, 21, None),
+        "lpi_klein3_45_feas": (
+            "Optimal", -44.82649851920681, 7, -44.82649617963823),
+        "lpi_klein3_45_infeas": (
+            "primal_infeasible", 2.447484071084862, 9, None),
+        "lpi_pang_12_feas": (
+            "Optimal", -660.7353396818077, 15, -660.7407989061102),
+        "lpi_pang_12_infeas": (
+            "primal_infeasible", 149.56710003813546, 26, None),
+        "lpi_pang_29_feas": (
+            "Optimal", -812.2729434714319, 14, -812.2826405282946),
+        "lpi_pang_29_infeas": (
+            "primal_infeasible", -190.4151549184783, 6, None),
+        "lpi_pang_46_feas": (
+            "Optimal", -774.699030056334, 15, -774.7077157608159),
+        "lpi_pang_46_infeas": (
+            "primal_infeasible", 1.1795736242127892, 46, None),
+        "lpi_qual_13_feas": (
+            "Optimal", -934.8962155528671, 14, -934.904395975563),
+        "lpi_qual_13_infeas": (
+            "primal_infeasible", -545.7820052340857, 8, None),
+        "lpi_qual_30_feas": (
+            "Optimal", -801.8428145784039, 14, -801.8603121967775),
+        "lpi_qual_30_infeas": (
+            "primal_infeasible", -14.354125474022707, 42, None),
+        "lpi_qual_47_feas": (
+            "Optimal", -827.121394030212, 14, -827.1355803552334),
+        "lpi_qual_47_infeas": (
+            "primal_infeasible", -458.99473392082234, 22, None),
+        "lpi_refinery_14_feas": (
+            "Optimal", -754.7821244764202, 16, -754.7895364633788),
+        "lpi_refinery_14_infeas": (
+            "primal_infeasible", 28.783135620220552, 45, None),
+        "lpi_refinery_31_feas": (
+            "Optimal", -899.7680260572955, 14, -899.780764900745),
+        "lpi_refinery_31_infeas": (
+            "primal_infeasible", -569.1785419010337, 22, None),
+        "lpi_vol1_15_feas": (
+            "Optimal", -911.4893923599166, 15, -911.4975653408696),
+        "lpi_vol1_15_infeas": (
+            "primal_infeasible", -733.5965957324819, 23, None),
+        "lpi_vol1_32_feas": (
+            "Optimal", -807.0621327855897, 15, -807.0771116862642),
+        "lpi_vol1_32_infeas": (
+            "primal_infeasible", 236.8743532798196, 23, None),
+        "lpi_woodinfe_16_feas": (
+            "Optimal", -201.2123719873475, 11, -201.21420884405606),
+        "lpi_woodinfe_16_infeas": (
+            "primal_infeasible", 20.606904206114915, 17, None),
+        "lpi_woodinfe_33_feas": (
+            "Optimal", -207.39662227199688, 11, -207.39811446456787),
+        "lpi_woodinfe_33_infeas": (
+            "primal_infeasible", -63.78009775621329, 6, None),
+    },
+}
+TOL ={"float32": 1e-4, "float64": 1e-10}   # max error / max |reference|
 REPS = 20
 # H100 SXM (NVIDIA's data sheet, dense, at 700 W): HBM3 bytes/s, and the
 # FLOP/s outside the tensor cores for each type
@@ -572,6 +949,52 @@ def kernel_parity(dev):
         print(f"K2 chol {dname} non-PD n=130 B=4: ok = 0 for every instance",
               flush=True)
     return record
+
+
+def fused_q_per_instance(dev):
+    """K1 with a (B, m, n) Jacobian, each instance its own A, and no H (a
+    declared-zero Hessian): the campaign path's call at its full width
+    (B = 64, m = 512, n = 1024, float32), held to its plain version and
+    timed in turns with it and `torch.baddbmm`.  The inputs are scaled as
+    the kernel phase's (Jc / sqrt(n), w in [0.1, 10]), so that diag(bnd)
+    is a fifth or more of max |Q|, and the diagonal is also held on its
+    own: a kernel that drops bnd, or reads one instance's for all, fails.
+    The bound reads the whole (B, m, n) Jc."""
+    import torch
+    from onephase_tpu_torch.ops import schur
+
+    B, m, n = 2 * CAMP_C1["n_pairs"], CAMP_C1["m"], CAMP_C1["n"]
+    rng = np.random.default_rng(13)
+    A = rng.normal(size=(B, m, n)) / np.sqrt(n) * \
+        (rng.random((B, m, n)) < 0.5)
+    Jc = torch.as_tensor(A, dtype=torch.float32, device=dev)
+    w = torch.as_tensor(rng.uniform(0.1, 10.0, size=(B, m)),
+                        dtype=torch.float32, device=dev)
+    bnd = torch.as_tensor(rng.uniform(0.0, 5.0, size=(B, n)),
+                          dtype=torch.float32, device=dev)
+    got = schur.pallas_fused_q(Jc, w, None, bnd)
+    ref = schur.xla_fused_q(Jc, w, None, bnd)
+    torch.cuda.synchronize()
+    e, ea = _err(got, ref)
+    ed, _ = _err(got.diagonal(dim1=1, dim2=2), ref.diagonal(dim1=1, dim2=2))
+    Hb, Aw, Jb = _baddbmm_operands(Jc, w, None, B)
+    ms, pms, lms = _time_turns(
+        lambda: schur.pallas_fused_q(Jc, w, None, bnd),
+        lambda: schur.xla_fused_q(Jc, w, None, bnd),
+        lambda: torch.baddbmm(Hb, Aw, Jb))
+    bd = _bound(4 * (B * m * n + B * m + B * n + B * n * n),
+                B * m * n * (n + 1))
+    print(f"K1 fused_q float32 per-instance Jc (B={B}, m={m}, n={n}, H=None):"
+          f" err {e:.3e} kernel {ms:.4f} ms "
+          f"({B * m * n * (n + 1) / (ms * 1e-3) / 1e12:.2f} TFLOP/s of the "
+          f"symmetric work) plain {pms:.4f} ms baddbmm {lms:.4f} ms (in "
+          f"turns; {ms / pms:.2f}x plain, {ms / lms:.2f}x baddbmm) bound "
+          f"{bd[0]:.4f} ms ({bd[1]}); diagonal err {ed:.3e}", flush=True)
+    if not (e <= TOL["float32"] and ed <= TOL["float32"]):
+        raise RuntimeError(f"K1 with a per-instance Jc disagrees: {e}, "
+                           f"diagonal {ed}")
+    return {"max_abs_err": ea, "ms": ms, "plain_ms": pms, "library_ms": lms,
+            **_kv(bd), "shape": [B, m, n]}
 
 
 def chain_pattern(K, nx):
@@ -1526,7 +1949,188 @@ def scenario_phase(dev):
     return s1["pallas"], chol_shapes
 
 
+def _camp_problems(key):
+    from onephase_tpu_torch.models.netlib import mixed_suite, sized_mixed_suite
+    if key == "C1":
+        return sized_mixed_suite(CAMP_C1["n"], CAMP_C1["m"],
+                                 n_pairs=CAMP_C1["n_pairs"],
+                                 density=CAMP_C1["density"])
+    return mixed_suite(**CAMP_C2)
+
+
+def _camp_run(dev, key, label, problems, base):
+    """One bucketed campaign, float32 with the float64 escalation pass, on
+    the card: every instance held to its ground truth (the `_feas` /
+    `_infeas` suffix) or, when escalated, to the JAX float64 anchor's
+    status; every Optimal feasible member's objective to HiGHS's; the
+    escalation kernels on the card.  Returns its summary."""
+    import torch
+    from onephase_tpu_torch import ops
+    from onephase_tpu_torch.config import Params
+    from onephase_tpu_torch.parallel import buckets
+
+    pars = Params().with_overrides(base)
+
+    def host_syncs():
+        return sum(s.host_syncs for s in buckets.bucket_solvers())
+
+    syncs0 = host_syncs()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = buckets.solve_bucketed(problems, pars, round_to=CAMP_ROUND_TO,
+                                 dtype=torch.float32, escalate_f64=True,
+                                 device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    syncs = host_syncs() - syncs0
+    anchor = CAMP_JAX_ANCHOR[key]
+    wrong, misses, escalated, off_anchor, gaps = [], [], [], [], []
+    for name, r in sorted(res.items()):
+        truth = "Optimal" if name.endswith("_feas") else "primal_infeasible"
+        if r.escalated:
+            escalated.append(name)
+        if r.status != truth:
+            misses.append(f"{name}:{r.status}@{r.iterations}it")
+            # a certificate of the other class is wrong whatever the pass
+            if r.status in ("Optimal", "primal_infeasible") or \
+                    not r.escalated:
+                wrong.append(name)
+        if r.escalated and r.status != anchor[name][0]:
+            off_anchor.append(f"{name}:{r.status} (JAX f64 "
+                              f"{anchor[name][0]})")
+        if r.status == "Optimal" and truth == "Optimal":
+            highs = anchor[name][3]
+            gaps.append((abs(r.obj - highs) / max(1.0, abs(highs)), name))
+    buckets_f64 = [s for s in buckets.bucket_solvers()
+                   if s.dtype == torch.float64]
+    off_card = [(s.n_pad, s.m_pad) for s in buckets_f64 if s.device != dev]
+    n_ok = sum(1 for name, r in res.items() if r.status == (
+        "Optimal" if name.endswith("_feas") else "primal_infeasible"))
+    worst = max(gaps) if gaps else (0.0, "")
+    summary = {
+        "label": label, "instances": len(res), "resolved": n_ok,
+        "escalated": escalated, "misses": misses, "wall": wall,
+        "outer_its": sum(r.iterations for r in res.values()),
+        "host_syncs": syncs, "launches": launches,
+        "worst_obj_gap": worst[0], "statuses": {
+            n: r.status for n, r in res.items()},
+        "shape_classes": len(buckets.bucket_shapes(
+            [buckets.eliminate_fixed(d)[0] for d in problems.values()],
+            CAMP_ROUND_TO))}
+    print(f"campaign {label}: {n_ok}/{len(res)} resolved vs ground truth, "
+          f"{len(escalated)} escalated to float64 on the card "
+          f"{escalated}, {summary['outer_its']} outer its (final passes), "
+          f"{summary['shape_classes']} shape classes, {wall:.4f} s, "
+          f"host_syncs {syncs}, launches {launches}; objective vs HiGHS "
+          f"worst {worst[0]:.3e} ({worst[1]}); misses {misses}",
+          flush=True)
+    if wrong:
+        raise RuntimeError(f"campaign {label}: wrong certificates {wrong}")
+    if off_anchor:
+        raise RuntimeError(f"campaign {label}: escalated instances off the "
+                           f"JAX float64 anchor: {off_anchor}")
+    if worst[0] >= CAMP_OBJ_RTOL:
+        raise RuntimeError(f"campaign {label}: objective {worst[1]} off "
+                           f"HiGHS's by {worst[0]:.3e}")
+    if escalated and not buckets_f64:
+        raise RuntimeError(f"campaign {label}: no float64 escalation kernel")
+    if off_card:
+        raise RuntimeError(f"campaign {label}: escalation off the card "
+                           f"{off_card}")
+    return summary
+
+
+def campaign_c3(dev):
+    """C3: seven small MPS files through harness.run_lp_directory on the
+    card (every one certified primal_infeasible), then the CLI twice into
+    one output directory (the second call skips every problem)."""
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+    from onephase_tpu_torch import cli
+    from onephase_tpu_torch.config import Params
+    from onephase_tpu_torch.harness import run_lp_directory
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mps = Path(tmp) / "mps"
+        mps.mkdir()
+        for name in CAMP_C3_FILES:
+            shutil.copy(ROOT / "results" / "lpi_mps" / f"lpi_{name}.mps",
+                        mps / f"lpi_{name}.mps")
+        t0 = time.perf_counter()
+        summ = run_lp_directory(str(mps), "c3",
+                                Params().with_overrides(CAMP_C3_OPTIONS),
+                                out_root=str(Path(tmp) / "out"),
+                                round_to=CAMP_ROUND_TO, escalate_f64=True,
+                                dtype=torch.float32, device=dev)
+        wall = time.perf_counter() - t0
+        statuses = {k: (v.status, v.it_count) for k, v in summ.items()}
+        print(f"campaign C3 run_lp_directory x{len(summ)}: {statuses}, "
+              f"{wall:.4f} s", flush=True)
+        if len(summ) != len(CAMP_C3_FILES) or any(
+                v.status != "primal_infeasible" for v in summ.values()):
+            raise RuntimeError(f"campaign C3: not all primal_infeasible: "
+                               f"{statuses}")
+        argv = ["--problem-set", "netlib_infeasible", "--max-it", "200",
+                "--output-level", "0", "--linear-solver", "pallas", "--x64",
+                "--output-dir", str(Path(tmp) / "cli"), "--test-name", "c3"]
+        outs = []
+        for _ in range(2):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                summary = cli.main(argv)
+            outs.append((summary, buf.getvalue()))
+        (first, out1), (second, out2) = outs
+        skipped = out2.count("already solved")
+        print(f"campaign C3 cli: {out1.strip().splitlines()[-1]}; second "
+              f"call skipped {skipped}/{len(second)}", flush=True)
+        bad = {k: v.status for k, v in first.items()
+               if v.status in ("ERR", "NaN_ERR")}
+        if bad:
+            raise RuntimeError(f"campaign C3 cli: {bad}")
+        if skipped != len(first) or "RUNNING" in out2:
+            raise RuntimeError("campaign C3 cli: the second call re-ran "
+                               "problems")
+    return {"run_lp_directory": statuses, "wall": wall}
+
+
+def campaign_phase(dev):
+    """The LP campaign path on the card (C1-C3, see CAMP_*): shape-bucketed
+    parametric batches, float32 with the float64 escalation pass on the
+    card.  Returns C1's pallas summary."""
+    t_phase = time.perf_counter()
+    c1 = _camp_problems("C1")
+    cold = _camp_run(dev, "C1", "C1 pallas cold", c1, CAMP_OPTIONS)
+    warm = _camp_run(dev, "C1", "C1 pallas warm", c1, CAMP_OPTIONS)
+    for k in ("fused_q", "chol", "tri_inv_gram"):
+        if warm["launches"][k] <= 0:
+            raise RuntimeError(f"campaign C1: the pallas lane launched no {k}")
+    if warm["statuses"] != cold["statuses"]:
+        raise RuntimeError("campaign C1: the warm run's statuses differ")
+    inv = _camp_run(dev, "C1", "C1 invchol", c1,
+                    dict(CAMP_OPTIONS, **{"kkt.linear_solver_type":
+                                          "invchol"}))
+    if any(inv["launches"].values()):
+        raise RuntimeError("campaign C1: the invchol lane launched a kernel")
+    same = sum(inv["statuses"][k] == warm["statuses"][k] for k in c1)
+    print(f"campaign C1 lanes: pallas and invchol statuses agree on "
+          f"{same}/{len(c1)}", flush=True)
+    del c1
+    c2 = _camp_run(dev, "C2", f"C2 mixed_suite{tuple(CAMP_C2.values())} "
+                   "pallas", _camp_problems("C2"), CAMP_C2_OPTIONS)
+    c3 = campaign_c3(dev)
+    print(f"campaign phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"C1": warm, "C1_cold": cold, "C1_invchol": inv, "C2": c2,
+            "C3": c3}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not (ROOT / "onephase_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: onephase_tpu_torch/ not found next to "
                          "this script; run it from a checkout of the repo")
@@ -1553,6 +2157,7 @@ def main() -> int:
         print(f"  ptxas: {ln}", flush=True)
 
     record = kernel_parity(dev)
+    k1_per_instance = fused_q_per_instance(dev)
     record["fused_q_tri"] = fused_q_tri_parity(dev)
     record.update(tridiag_parity(dev))
     torch.cuda.synchronize()
@@ -1617,6 +2222,11 @@ def main() -> int:
     scen_s1, scen_chol = scenario_phase(dev)
     torch.cuda.synchronize()
 
+    # the LP campaign path: bucketed parametric batches, K1 on a (B, m, n)
+    # Jc, K2 and K3, float64 escalation on the card
+    campaign = campaign_phase(dev)
+    torch.cuda.synchronize()
+
     # launches of each kernel on its own path: K1-K3 on the dense bench
     # run, K5 and K7 on the chain run (with those of the banded run
     # beside them); K6 lies on no path and carries its kernel phase's
@@ -1638,6 +2248,11 @@ def main() -> int:
     # times at the scenario shapes
     record["chol"]["launches_scenario_s1"] = scen_s1["launches"]["chol"]
     record["chol"]["scenario_shapes"] = scen_chol
+    # K1-K3 on the campaign path: launches on C1's warm pallas run (K1 on
+    # the per-instance Jc, timed alone at its shape)
+    for k in ("fused_q", "chol", "tri_inv_gram"):
+        record[k]["launches_campaign_c1"] = campaign["C1"]["launches"][k]
+    record["fused_q"]["per_instance_jc"] = k1_per_instance
     record["fused_q_tri"]["path"] = "none: launches of the kernel phase"
     # K3 is two launches: the inverse (tri_inv.cu), then the Gram product
     # on K1's kernel
@@ -1665,6 +2280,8 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches[name],
                         **record[name]})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start "
+          "to the kernels line", flush=True)
     print(f"card: {_card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

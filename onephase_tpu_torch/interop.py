@@ -24,6 +24,12 @@ Field names are those of ipm/state.py in both packages.
   the batch axis added.
 - The symmetric paths' Factor carries K in Q, the LDL^T or eigh pair in
   (L, D) and, on clever_symmetric under kkt_system_rescale, `rescale`.
+- A parametric problem's `pdata` (and the bound values `bvals`) are
+  dicts: each leaf becomes a tensor with the batch axis (float leaves in
+  `dtype`), so both packages can start from one state.  A non-parametric
+  state's empty `pdata` stays empty.  Under parametric constant structure
+  the Factor's Jc (H) holds the instance's own matrix and is carried as
+  it is.
 - The Schur-dual kernel's tuples: its Q slot, (wc, bnd, Jc) while forming
   and an all-empty placeholder tuple when carried, becomes ``None``; its L
   slot (S^-1, d^-1, A) keeps its elements, with a (0, 0) A (the folded

@@ -37,6 +37,13 @@ KKT paths (`kkt.kkt_solver_type`):
 - `schur_dual`: the dual normal matrix of LPs, a subclass in ipm/dual.py
   that `make_kernel` builds.
 
+Parametric problems (`NLPSpec.pdata`): the batch's data rides in
+`State.pdata` and every oracle call takes it, as in the JAX core.  With
+`constant_jac` (or `constant_hess`) on a parametric problem the Jacobian
+(Hessian) is evaluated once per solve, in the initial state, and carried in
+`Factor.Jc` (`Factor.H`) per instance: a (B, m_orig, n) Jc, which the Q
+kernel takes as it is.
+
 Options outside the port (`matmul_precision` other than "highest"/
 "default") raise `NotImplementedError` instead of quietly running the
 default.
@@ -261,11 +268,17 @@ class OnePhaseKernel:
         # the symmetric paths block H into K: a declared-zero Hessian is
         # then a folded constant zero block, as in the JAX package
         self._H_zero = bool(spec.zero_hess) and schur
+        cjac = spec.constant_jac and fold
         chess = spec.constant_hess and not self._H_zero and fold
+        # parametric constant structure: evaluated once per solve from the
+        # instance's data (_initial_state) and carried in the Factor
+        self._param_const_jac = cjac and nlp.parametric
+        self._param_const_hess = chess and nlp.parametric
         self._Jc_const = (nlp.jac_orig(x0)[0].contiguous()
-                          if spec.constant_jac and fold else None)
+                          if cjac and not nlp.parametric else None)
         self._H_const = (nlp.lag_hess(x0, self._full((1, m), 0.0))[0]
-                         .contiguous() if chess else None)
+                         .contiguous()
+                         if chess and not nlp.parametric else None)
 
         # the dense path carries no Q: it is cheap to rebuild from the J/H at
         # the factor point (_fact_q), and carrying it doubles the factor
@@ -330,9 +343,9 @@ class OnePhaseKernel:
                              device=self.device)
         return self.initial_state_from(x0[None])
 
-    def initial_state_from(self, x0, bvals=None):
+    def initial_state_from(self, x0, bvals=None, pdata=None):
         with _mm_precision_ctx(self.pars.matmul_precision):
-            return self._initial_state(x0, bvals)
+            return self._initial_state(x0, bvals, pdata)
 
     def run_chunk(self, st: State) -> State:
         return self._run_chunk(st)
@@ -416,14 +429,14 @@ class OnePhaseKernel:
     # ==================================================================
     # cache construction
     # ==================================================================
-    def make_cache(self, x, y, bvals=None):
+    def make_cache(self, x, y, bvals=None, pdata=None):
         nlp = self.nlp
-        cons = nlp.c(x)
+        cons = nlp.c(x, pdata)
         a = nlp.a_of(x, cons, bvals)
-        fval = nlp.f(x)
-        g = nlp.grad_f(x)
-        jt_y = nlp.jtprod(x, y)
-        jt_ones = nlp.jtprod_ones(x)
+        fval = nlp.f(x, pdata)
+        g = nlp.grad_f(x, pdata)
+        jt_y = nlp.jtprod(x, y, pdata)
+        jt_ones = nlp.jtprod_ones(x, pdata)
         return Cache(fval=fval, cons=cons, a=a, g=g, jt_y=jt_y,
                      jt_ones=jt_ones)
 
@@ -606,7 +619,8 @@ class OnePhaseKernel:
     # ==================================================================
     # KKT system (reference: schur.jl, symmetric.jl, clever_symmetric.jl)
     # ==================================================================
-    def form_factor(self, p: Point, cache: Cache, prev: Factor) -> Factor:
+    def form_factor(self, p: Point, cache: Cache, prev: Factor,
+                    pdata=None) -> Factor:
         """form_system!: Q = H_L + J^T diag(y/s) J with H at the shifted
         duals y + mu*theta (update_H!, Class_iterate.jl:279-311).
 
@@ -618,14 +632,7 @@ class OnePhaseKernel:
         in `schur_diag` for the tau test (kkt_system_solver.jl:296-300)."""
         nlp = self.nlp
         y_eff = p.y + _c(p.mu * self.pars.a_norm_penalty)
-        if self._H_zero:
-            H = None
-        elif self._H_const is not None:
-            H = self._H_const
-        else:
-            H = nlp.lag_hess(p.x, y_eff).contiguous()
-        Jc = self._Jc_const if self._Jc_const is not None \
-            else nlp.jac_orig(p.x).contiguous()
+        H, Jc = self._factor_point_jh(p, prev, y_eff, pdata)
         if self.kkt_type in SYMMETRIC:
             return self._form_sym(p, prev, Jc, H)
         Q = self._form_q(Jc, H, p.y / p.s)
@@ -634,6 +641,27 @@ class OnePhaseKernel:
                           self.dtype, copy=True),
                       L=prev.L, D=prev.D, delta=prev.delta, s_f=p.s, y_f=p.y,
                       ok=torch.zeros_like(prev.ok))
+
+    def _factor_point_jh(self, p: Point, prev: Factor, y_eff, pdata):
+        """(H, Jc) at the factor point: None for a declared-zero H, the
+        folded constant, the per-solve value carried in `prev` (parametric
+        constant structure) or a fresh evaluation."""
+        nlp = self.nlp
+        if self._H_zero:
+            H = None
+        elif self._H_const is not None:
+            H = self._H_const
+        elif self._param_const_hess:
+            H = prev.H          # evaluated once per solve in _initial_state
+        else:
+            H = nlp.lag_hess(p.x, y_eff, pdata).contiguous()
+        if self._Jc_const is not None:
+            Jc = self._Jc_const
+        elif self._param_const_jac:
+            Jc = prev.Jc        # evaluated once per solve in _initial_state
+        else:
+            Jc = nlp.jac_orig(p.x, pdata).contiguous()
+        return H, Jc
 
     def _form_sym(self, p: Point, prev: Factor, Jc, H) -> Factor:
         nlp = self.nlp
@@ -772,15 +800,16 @@ class OnePhaseKernel:
                                   lambda c: c[1], schur_rhs)
         return dx
 
-    def build_rhs(self, p: Point, cache: Cache, eta_P, eta_D, eta_mu):
+    def build_rhs(self, p: Point, cache: Cache, eta_P, eta_D, eta_mu,
+                  pdata=None):
         """System_rhs (system_rhs.jl:39-74); eta_* are (B,) tensors.  Under
         `kkt.residual_precision="f64"` the dual residual comes from one
         float64 oracle pass (only its float cast enters the solve dtype)."""
         if self.pars.kkt.residual_precision == "f64":
             th = self.pars.a_norm_penalty
             gl = self.nlp.grad_lag_hi(
-                p.x, p.y, (p.mu * eta_mu * th).to(torch.float64)).to(
-                    self.dtype)
+                p.x, p.y, (p.mu * eta_mu * th).to(torch.float64),
+                pdata).to(self.dtype)
         else:
             gl = self.grad_lag(cache, p.y, p.mu * eta_mu)
         dual_r = -_c(1.0 - eta_D) * gl
@@ -789,11 +818,12 @@ class OnePhaseKernel:
         return dual_r, primal_r, comp_r
 
     def compute_direction(self, fact: Factor, p: Point, cache: Cache,
-                          eta_P, eta_D, eta_mu) -> Tuple[Dir, torch.Tensor]:
+                          eta_P, eta_D, eta_mu,
+                          pdata=None) -> Tuple[Dir, torch.Tensor]:
         """compute_direction_implementation! (schur.jl:89-128) + the
         a-posteriori KKT error ratio (kkt_system_solver.jl:49-96)."""
         dual_r, primal_r, comp_r = self.build_rhs(p, cache, eta_P, eta_D,
-                                                  eta_mu)
+                                                  eta_mu, pdata)
         y_f, s_f = fact.y_f, fact.s_f
         S_vec = y_f / s_f
         sym_primal = primal_r + comp_r / y_f
@@ -1020,7 +1050,7 @@ class OnePhaseKernel:
             dual_ok = dual_ok & (lb <= alpha) & (alpha <= ub)
 
         # --- move_dual (move.jl:81-133) --------------------------
-        g_new = nlp.grad_f(x_new)
+        g_new = nlp.grad_f(x_new, st.pdata)
         jt_y_old, jt_dy, jt_ones_new = jt_new
         th = pars.a_norm_penalty
         dual_res = g_new - jt_y_old + _c(mu_new * th) * jt_ones_new
@@ -1056,7 +1086,7 @@ class OnePhaseKernel:
 
         # --- candidate cache -------------------------------------
         jt_y_new = jt_y_old + _c(alpha_D) * jt_dy
-        fval_new = nlp.f(x_new)
+        fval_new = nlp.f(x_new, st.pdata)
         cand_c = Cache(fval=fval_new, cons=cons_new, a=a_new, g=g_new,
                        jt_y=jt_y_new, jt_ones=jt_ones_new)
         nan_any = nan_move | _isbad(g_new) | ~torch.isfinite(fval_new)
@@ -1143,7 +1173,8 @@ class OnePhaseKernel:
         bnd1 = nlp._bnd_ones.to(self.dtype)
         if nlp.m_orig > 0:
             wc1 = nlp._wc_ones.to(self.dtype).expand_as(wc_y)
-            cons_new, (jy, jdy, j1) = nlp.c_jtprod(x_new, [wc_y, wc_dy, wc1])
+            cons_new, (jy, jdy, j1) = nlp.c_jtprod(
+                x_new, [wc_y, wc_dy, wc1], st.pdata)
             jt_new = (jy + bnd_y, jdy + bnd_dy, j1 + bnd1)
         else:
             cons_new = torch.zeros(x_new.shape[0], 0, dtype=self.dtype,
@@ -1185,14 +1216,14 @@ class OnePhaseKernel:
         lb_y_vec = self.lb_y(p.y, direction.x)
 
         # --- do_ls preconditions -------------------------------------
-        jt_mus = nlp.jtprod(p.x, _c(p.mu) / p.s)
+        jt_mus = nlp.jtprod(p.x, _c(p.mu) / p.s, st.pdata)
         grad_phi = cache.g - jt_mus + _c(p.mu * th) * cache.jt_ones
         gdx = (grad_phi * direction.x).sum(-1)
         ls_mode = pars.ls.ls_mode_stable
         comp_merit = _norm_inf(self.comp(p)) ** 3 / p.mu ** 2
         if ls_mode in ("accept_stable", "accept_kkt"):
             # merit_function_predicted_reduction(iter, dir, 1.0)
-            jdx_c = nlp.jprod(p.x, direction.x)
+            jdx_c = nlp.jprod(p.x, direction.x, st.pdata)
             j_gain = (jdx_c ** 2 * (p.y / p.s)).sum(-1)
             hdx = self.fact_hmul(st.fact, direction.x)
             phi_red = gdx + 0.5 * ((direction.x * hdx).sum(-1) + j_gain)
@@ -1215,7 +1246,7 @@ class OnePhaseKernel:
         gam = 1.0 - eta_probe
         r_P = cache.a - p.s
         y_tilde = (_c(gam * p.mu) - _c(eta_probe) * p.y * r_P) / p.s
-        jt_yt = nlp.jtprod(p.x, y_tilde)
+        jt_yt = nlp.jtprod(p.x, y_tilde, st.pdata)
         grad_lag_t = cache.g - jt_yt + _c(p.mu * gam * th) * cache.jt_ones
         do_ls_agg = (grad_lag_t * direction.x).sum(-1) < 0.0
 
@@ -1274,7 +1305,8 @@ class OnePhaseKernel:
 
         # aggressive factors: Mehrotra probe (affine direction, max step)
         z = self._full((B,), 0.0)
-        adir, _ = self.compute_direction(st.fact, p, cache, z, z, z)
+        adir, _ = self.compute_direction(st.fact, p, cache, z, z, z,
+                                         st.pdata)
         lb_sp = self.lb_s_predict(p.s, adir.x)
         a_s = self.simple_max_step(p.s, adir.s, lb_sp)
         a_y = self.simple_max_step(p.y, adir.y, torch.zeros_like(p.y))
@@ -1300,7 +1332,7 @@ class OnePhaseKernel:
                                self._full((B,), pars.ls.min_step_size_stable))
 
         direction, ratio = self.compute_direction(
-            st.fact, p, cache, eta[:, 0], eta[:, 1], eta[:, 2])
+            st.fact, p, cache, eta[:, 0], eta[:, 1], eta[:, 2], st.pdata)
         accepted, cand_p, cand_c, info = self.line_search(
             st, direction, be_agg, min_step, active)
         return accepted, cand_p, cand_c, info, direction, ratio, eta
@@ -1328,9 +1360,9 @@ class OnePhaseKernel:
     # ==================================================================
     # termination (reference: terminate.jl:3-23)
     # ==================================================================
-    def terminate(self, p: Point, cache: Cache, bvals=None):
+    def terminate(self, p: Point, cache: Cache, bvals=None, pdata=None):
         if self.pars.kkt.residual_precision == "f64":
-            return self.terminate_f64(p, cache, bvals)
+            return self.terminate_f64(p, cache, bvals, pdata)
         scale = self.dual_scale(p.y, p.s)
         sdf0 = _norm_inf(cache.g - cache.jt_y) * scale
         comp_scaled = (p.s * p.y).amax(-1) * scale
@@ -1343,21 +1375,22 @@ class OnePhaseKernel:
         return self._term_verdict(p, cache, sdf0, comp_scaled, max_vio,
                                   fark1, fark2)
 
-    def terminate_f64(self, p: Point, cache: Cache, bvals=None):
+    def terminate_f64(self, p: Point, cache: Cache, bvals=None,
+                      pdata=None):
         """Termination with every measured quantity evaluated by float64
         oracles (`kkt.residual_precision="f64"`, and the between-chunk
         batch recheck of parallel/batch.py)."""
         f64 = torch.float64
         dt = self.dtype
         scale = self.dual_scale(p.y, p.s)
-        gl64 = self.nlp.grad_lag_hi(p.x, p.y, 0.0)
+        gl64 = self.nlp.grad_lag_hi(p.x, p.y, 0.0, pdata)
         sdf0 = (_norm_inf(gl64) * scale.to(f64)).to(dt)
         sy64 = p.s.to(f64) * p.y.to(f64)
         comp_scaled = (sy64.amax(-1) * scale.to(f64)).to(dt)
-        a64 = self.nlp.a_of_hi(p.x, bvals)
+        a64 = self.nlp.a_of_hi(p.x, bvals, pdata)
         max_vio = (-torch.clamp(a64.amin(-1), max=0.0)).to(dt)
         y64 = p.y.to(f64)
-        jt_y_1 = _norm1(self.nlp.jtprod_hi(p.x, p.y))
+        jt_y_1 = _norm1(self.nlp.jtprod_hi(p.x, p.y, pdata))
         feas_obj = -(a64 * y64).sum(-1)
         fark1 = torch.where(feas_obj > 0.0, jt_y_1 / feas_obj,
                             torch.full_like(feas_obj, float("inf"))).to(dt)
@@ -1474,7 +1507,8 @@ class OnePhaseKernel:
         y_new = _c(st_c.p.mu) / st_c.p.s
         st_reset = st_c._replace(
             p=st_c.p._replace(y=y_new),
-            cache=st_c.cache._replace(jt_y=self.nlp.jtprod(st_c.p.x, y_new)),
+            cache=st_c.cache._replace(jt_y=self.nlp.jtprod(
+                st_c.p.x, y_new, st_c.pdata)),
             step_ok=torch.ones_like(acc))
         st_dead = st_c._replace(
             status=torch.full_like(st_c.status, MAX_DELTA),
@@ -1491,7 +1525,7 @@ class OnePhaseKernel:
 
         if first:
             # -- factor at current point -------------------------------
-            fact = self.form_factor(st.p, st.cache, st.fact)
+            fact = self.form_factor(st.p, st.cache, st.fact, st.pdata)
             success, nfac_inertia, new_delta, LD = self.ipopt_strategy(
                 fact, st.delta, active=do)
             # on the dense path the freshly-formed Q was a temporary of the
@@ -1523,7 +1557,7 @@ class OnePhaseKernel:
 
         # filter update + termination + history (one_phase.jl:288-321)
         st = st._replace(filt=self.filter_add(st), agg_mask=be_agg)
-        new_status = self.terminate(st.p, st.cache, st.bvals)
+        new_status = self.terminate(st.p, st.cache, st.bvals, st.pdata)
         st = st._replace(status=torch.where(st.status == RUNNING, new_status,
                                             st.status))
         step_type = torch.where(be_agg, STEP_AGG, STEP_STB)
@@ -1602,7 +1636,7 @@ class OnePhaseKernel:
         b_U = torch.where(torch.isfinite(uv), uv - p_U, uv)
         return torch.minimum(torch.maximum(x0, b_L), b_U)
 
-    def _initial_state(self, x0, bvals=None) -> State:
+    def _initial_state(self, x0, bvals=None, pdata=None) -> State:
         nlp, pars = self.nlp, self.pars
         dt = self.dtype
         m = self.m
@@ -1611,39 +1645,57 @@ class OnePhaseKernel:
         B = x0.shape[0]
         if bvals is None:
             bvals = {k: v.expand(B, -1) for k, v in nlp.default_bvals().items()}
+        if pdata is None:
+            # the template's data, one copy per instance (a parametric
+            # batch carries its own)
+            pdata = ({k: v.expand(B, *v.shape)
+                      for k, v in nlp._pdata0.items()}
+                     if nlp.parametric else {})
         x = (self.project_bounds(x0, bvals)
              if pars.init.start_satisfying_bounds else x0)
 
         y0 = self._full((B, m), 1.0)
-        cons = nlp.c(x)
+        cons = nlp.c(x, pdata)
         a = nlp.a_of(x, cons, bvals)
-        g = nlp.grad_f(x)
+        g = nlp.grad_f(x, pdata)
 
         d_s = torch.clamp(-2.0 * a.amin(-1), min=1e-4)
         s0 = a + _c(d_s)
         p0 = Point(x=x, y=y0, s=s0, mu=d_s, beta=self._full((B,), 1.0))
-        cache0 = self.make_cache(x, y0, bvals)
+        cache0 = self.make_cache(x, y0, bvals, pdata)
 
+        empty_fact = self._empty_factor(B)
+        if self._param_const_jac or self._param_const_hess:
+            # parametric constant structure: evaluated once per solve; the
+            # Factor carries it through every iteration (form_factor)
+            empty_fact = empty_fact._replace(
+                Jc=(nlp.jac_orig(x, pdata).contiguous()
+                    if self._param_const_jac else empty_fact.Jc),
+                H=(nlp.lag_hess(x, self._full((B, m), 0.0), pdata)
+                   .contiguous()
+                   if self._param_const_hess else empty_fact.H))
         z = self._full((B,), 0.0)
         if pars.init.init_style == "gertz":
             # one full KKT cycle at the guarded start (gertz_init.jl:22-28)
-            fact = self.form_factor(p0, cache0, self._empty_factor(B))
+            fact = self.form_factor(p0, cache0, empty_fact, pdata)
             succ, nfac, delta0, LD = self.ipopt_strategy(fact, z)
             fact = fact._replace(L=self.finalize_solver(LD[0]), D=LD[1],
                                  delta=delta0, ok=succ)
-            adir, _ = self.compute_direction(fact, p0, cache0, z, z, z)
+            adir, _ = self.compute_direction(fact, p0, cache0, z, z, z,
+                                             pdata)
             y_t = y0 + adir.y
             s_t = torch.cat([-a[:, :mc], a[:, mc:]], -1)  # bound rows keep a_i
         else:
             y_t, s_t, fact, succ, nfac = self._mehrotra_start(
-                x, a, g, p0, cache0)
+                x, a, g, p0, cache0, empty_fact, pdata)
 
         if mc > 0:
             min_s_cons = s_t[:, :mc].amin(-1)
         else:
             min_s_cons = z
         d_s2 = (torch.clamp(-2.0 * min_s_cons, min=0.0)
-                + _norm_inf(g - nlp.jtprod(x, y_t)) / (1.0 + _norm_inf(y_t)))
+                + _norm_inf(g - nlp.jtprod(x, y_t, pdata))
+                / (1.0 + _norm_inf(y_t)))
         d_y = torch.clamp(-2.0 * y_t.amin(-1), min=0.0)
         s_t = torch.cat([s_t[:, :mc] + _c(d_s2 + 1e-8), s_t[:, mc:]], -1)
         y_t = y_t + _c(d_y)
@@ -1680,7 +1732,7 @@ class OnePhaseKernel:
         y = torch.minimum(y_c / cfa, torch.maximum(y_t, cfa * y_c))
 
         p = Point(x=x, y=y, s=s, mu=mu, beta=self._full((B,), 1.0))
-        cache = self.make_cache(x, y, bvals)
+        cache = self.make_cache(x, y, bvals, pdata)
         r0 = cache.a - s
         fact = fact._replace(Q=self._store_q(fact.Q))
 
@@ -1708,17 +1760,17 @@ class OnePhaseKernel:
                    step_ok=bools(True), last_superlinear=bools(False),
                    kkt_ratio=z, eta=self._full((B, 3), 0.0), ls=ls0,
                    agg_mask=bools(False), num_fac_inertia=ints(0),
-                   tot_num_fac=ints(0), cum_fac=nfac, bvals=bvals, pdata={},
+                   tot_num_fac=ints(0), cum_fac=nfac, bvals=bvals, pdata=pdata,
                    best_prog=self._full((B,), inf) if track else None,
                    last_prog_t=ints(0) if track else None)
         # init factorization failure -> MAX_DELTA (reference errors out)
         status = torch.where(succ, ints(RUNNING), ints(MAX_DELTA))
-        status = torch.where(status == RUNNING, self.terminate(p, cache, bvals),
-                             status)
+        status = torch.where(status == RUNNING,
+                             self.terminate(p, cache, bvals, pdata), status)
         st = st._replace(status=status)
         return st._replace(hist=hist_mod.record(self, st, STEP_IT0))
 
-    def _mehrotra_start(self, x, a, g, p0, cache0):
+    def _mehrotra_start(self, x, a, g, p0, cache0, empty_fact, pdata):
         """The Mehrotra init's dual estimate and first factor
         (onephase_tpu/ipm/core.py:1835-1855): y from the ridge least
         squares (lam I + J^T J) dx = -g, y = -J dx (estimate_y_tilde,
@@ -1726,7 +1778,7 @@ class OnePhaseKernel:
         delta.start.  Returns (y_t, s_t, fact, succ, nfac)."""
         nlp, pars = self.nlp, self.pars
         B, n, m = x.shape[0], self.n, self.m
-        Jc0 = nlp.jac_orig(x)
+        Jc0 = nlp.jac_orig(x, pdata)
         lam = 1e-4
         Hr = (lam * torch.eye(n, dtype=self.dtype, device=self.device)
               + nlp.jtdj(Jc0, self._full((B, m), 1.0)))
@@ -1740,7 +1792,7 @@ class OnePhaseKernel:
         y_t = -nlp.jprod_mat(Jc0, dx0)
         bad = _isbad(y_t) | (info != 0)
         y_t = torch.where(bad[:, None], torch.ones_like(y_t), y_t)
-        fact = self.form_factor(p0, cache0, self._empty_factor(B))
+        fact = self.form_factor(p0, cache0, empty_fact, pdata)
         delta0 = self._full((B,), pars.delta.start)
         LD0, succ = self.factor(fact.Q, delta0, fact.rescale, fact=fact)
         fact = fact._replace(L=self.finalize_solver(LD0[0]), D=LD0[1],

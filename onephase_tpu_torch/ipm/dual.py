@@ -71,10 +71,9 @@ class SchurDualKernel(OnePhaseKernel):
         self._mo = nlp.m_orig
 
     # ---------------- factorization pieces ---------------------------
-    def form_factor(self, p, cache, prev: Factor) -> Factor:
+    def form_factor(self, p, cache, prev: Factor, pdata=None) -> Factor:
         nlp = self.nlp
-        Jc = self._Jc_const if self._Jc_const is not None \
-            else nlp.jac_orig(p.x).contiguous()
+        _, Jc = self._factor_point_jh(p, prev, None, pdata)
         d = p.y / p.s
         wc, bnd = nlp.split_canonical_sq(d)
         schur_diag = nlp.jtdj_diag(Jc, d)

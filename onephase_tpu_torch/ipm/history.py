@@ -47,7 +47,7 @@ def record(kernel, st, step_type):
     fark2 = (jt_y_1 + (p.s * p.y).sum(-1)) / p.y.abs().sum(-1)
     phi = kernel.eval_phi(p, cache, mu)
     # grad phi = grad_lag with y_tilde = mu/s
-    jt_mus = kernel.nlp.jtprod(p.x, mu[:, None] / p.s)
+    jt_mus = kernel.nlp.jtprod(p.x, mu[:, None] / p.s, st.pdata)
     gphi = cache.g - jt_mus + (mu * kernel.pars.a_norm_penalty)[:, None] * cache.jt_ones
     s_n = _amax(p.s.abs())
     y_n = _amax(p.y.abs())

@@ -9,7 +9,8 @@ axis B (a single solve is a batch of 1), scalars of the JAX state become
 - a folded constant (constant-structure Jacobian/Hessian) or the dense
   schur path's rebuilt-on-demand Q is carried as ``None`` (the JAX package
   carries a (0, 0) placeholder array);
-- ``pdata`` is an empty dict (parametric problems are not ported yet).
+- ``pdata`` holds a parametric batch's problem data (a dict of tensors,
+  each with the batch axis; NLPSpec.pdata), an empty dict otherwise.
 """
 
 from __future__ import annotations
@@ -154,7 +155,8 @@ class State(NamedTuple):
     tot_num_fac: Tensor        # (B,) int32
     cum_fac: Tensor            # (B,) int32
     bvals: dict                # bound values {l, u, lv, uv}, each (B, k)
-    pdata: dict                # always {} in the port (parametric not ported)
+    pdata: dict                # parametric problem data, each (B, ...);
+    #                            {} when the problem is not parametric
     best_prog: Optional[Tensor] = None
     last_prog_t: Optional[Tensor] = None
 

@@ -20,6 +20,15 @@ x); derivatives come from `torch.func` (grad, jacrev/jacfwd, hessian, jvp,
 vjp) and the batch axis from `torch.func.vmap`.  `f` and `c` must compute
 in the dtype of the x they are given: the solve dtype for the in-loop
 oracles and float64 for the `_hi` oracles.
+
+Parametric problems (`NLPSpec.pdata`): `f(x, pdata)`, `c(x, pdata)` and
+the optional user Jacobian `jac(x, pdata) -> (m_orig, n)` take the
+instance's data, a dict of tensors.  Every oracle takes a `pdata`
+argument: the batch's own data (each leaf with the leading batch axis,
+vmapped beside x) or None for the template `_pdata0` (the spec's data in
+the NLP's dtype and on its device), shared by the batch.  The `_hi`
+oracles see the data in float64.  With `jac` given, `jac_orig` returns the
+oracle's matrix and no derivative of c is taken for it.
 """
 
 from __future__ import annotations
@@ -65,7 +74,10 @@ class NLPSpec:
     constant_jac: bool = False
     constant_hess: bool = False
     zero_hess: bool = False
-    # parametric problem data and a user Jacobian oracle: not ported yet
+    # parametric problem data: f(x, pdata) / c(x, pdata) with pdata a dict
+    # of arrays (a batch of same-structure instances differing only in
+    # data shares one kernel); `jac` ((x, pdata) -> (m_orig, n), or x ->
+    # (m_orig, n) without pdata) bypasses autodiff for the Jacobian
     pdata: Optional[dict] = None
     jac: Optional[Callable] = None
 
@@ -110,18 +122,10 @@ class CanonNLP:
     """
 
     def __init__(self, spec: NLPSpec, dtype=torch.float64, device=None):
-        if spec.pdata is not None:
-            raise NotImplementedError(
-                "parametric NLPSpec.pdata is not ported to onephase_tpu_torch")
-        if spec.jac is not None:
-            raise NotImplementedError(
-                "a user Jacobian oracle (NLPSpec.jac) is not ported to "
-                "onephase_tpu_torch")
         self.spec = spec
         self.name = spec.name
         self.dtype = dtype
         self.device = resolve_device(device)
-        self.parametric = False
 
         lvar, uvar = spec.lvar, spec.uvar
         nv_full = lvar.shape[0]
@@ -209,6 +213,44 @@ class CanonNLP:
 
         self._f_raw = spec.f
         self._c_raw = spec.c
+        self._jac_raw = spec.jac
+
+        # parametric problem data: the template on the device; a batch's
+        # own data flows in through the oracles' `pdata` argument (from
+        # State.pdata)
+        self.parametric = spec.pdata is not None
+        self._pdata0 = (self.pdata_to(spec.pdata) if self.parametric
+                        else None)
+
+    def pdata_to(self, pdata, dtype=None):
+        """`pdata` (a dict of arrays or tensors) as tensors on the NLP's
+        device, the floating leaves in `dtype` (default: the NLP's)."""
+        dt = dtype or self.dtype
+        out = {}
+        for k, v in pdata.items():
+            t = torch.as_tensor(v, device=self.device)
+            out[k] = t.to(dt) if t.is_floating_point() else t
+        return out
+
+    def _pd(self, pdata, hi=False):
+        """(data, batched): the batch's own pdata (its leaves vmapped with
+        x), or the template shared by the batch; None when the problem is
+        not parametric.  `hi`: the floating leaves in float64."""
+        if not self.parametric:
+            return None, False
+        batched = bool(pdata)
+        pd = pdata if batched else self._pdata0
+        if hi:
+            pd = self.pdata_to(pd, torch.float64)
+        return pd, batched
+
+    def _bmap(self, fn, pdata, *args, hi=False):
+        """vmap `fn(*args_b, pd_b)` over the batch axis of `args` (and of
+        pdata when it is the batch's own)."""
+        pd, batched = self._pd(pdata, hi)
+        if batched:
+            return vmap(fn)(*args, pd)
+        return vmap(lambda *a: fn(*a, pd))(*args)
 
     # ------------------------------------------------------------------
     # single-instance raw oracles (1-D x, any float dtype)
@@ -217,20 +259,34 @@ class CanonNLP:
             return x
         return self._tmpl[x.dtype].index_copy(0, self._free_t, x)
 
-    def _f1(self, x):
-        v = self._f_raw(self._full_x1(x))
+    def _call(self, fn, x, pd):
+        xf = self._full_x1(x)
+        return fn(xf, pd) if self.parametric else fn(xf)
+
+    def _f1(self, x, pd=None):
+        v = self._call(self._f_raw, x, pd)
         if not isinstance(v, torch.Tensor):
             v = torch.as_tensor(v, dtype=x.dtype, device=x.device)
         return v.to(x.dtype).reshape(())
 
-    def _c1(self, x):
-        v = self._c_raw(self._full_x1(x))
+    def _c1(self, x, pd=None):
+        v = self._call(self._c_raw, x, pd)
         return v.to(x.dtype).reshape(self.m_orig)
 
-    def _c_jtw1(self, x, W):
+    def _jac1(self, x, pd=None):
+        """The user Jacobian oracle's (m_orig, n) matrix in reduced space."""
+        J = self._call(self._jac_raw, x, pd)
+        if not isinstance(J, torch.Tensor):
+            J = torch.as_tensor(np.asarray(J), device=x.device)
+        J = J.to(x.dtype).reshape(self.m_orig, self.n_full)
+        if self.n != self.n_full:
+            J = J.index_select(1, self._free_t)
+        return J
+
+    def _c_jtw1(self, x, W, pd=None):
         """c(x) and J(x)^T w for each row w of W (k, m_orig): one forward
         pass, k reverse passes."""
-        cval, pull = vjp(self._c1, x)
+        cval, pull = vjp(lambda xx: self._c1(xx, pd), x)
         return cval, torch.stack([pull(W[i])[0] for i in range(W.shape[0])])
 
     def _zeros(self, x, k):
@@ -240,17 +296,17 @@ class CanonNLP:
     # batched raw oracles in reduced space
     def f(self, x, pdata=None):
         """Objective (B,) (reference eval_f)."""
-        return vmap(self._f1)(x)
+        return self._bmap(self._f1, pdata, x)
 
     def c(self, x, pdata=None):
         """Original constraint body c(x) -> (B, m_orig)."""
         if self._c_raw is None:
             return self._zeros(x, 0)
-        return vmap(self._c1)(x)
+        return self._bmap(self._c1, pdata, x)
 
     def grad_f(self, x, pdata=None):
         """Objective gradient (B, n) (reference eval_grad_f)."""
-        return vmap(grad(self._f1))(x)
+        return self._bmap(grad(self._f1), pdata, x)
 
     # ------------------------------------------------------------------
     # canonical constraint vector a(x) >= 0 (reference eval_a)
@@ -263,7 +319,7 @@ class CanonNLP:
         b = bvals if bvals is not None else self._j
         j = self._j
         if cvals is None:
-            cvals = self.c(x)
+            cvals = self.c(x, pdata)
         return torch.cat([
             cvals[:, j["li"]] - b["l"],
             b["u"] - cvals[:, j["ui"]],
@@ -280,7 +336,8 @@ class CanonNLP:
     def jprod(self, x, v, pdata=None):
         """Canonical J(x) @ v via one JVP on c."""
         if self.m_orig > 0:
-            jc_v = vmap(lambda xx, vv: jvp(self._c1, (xx,), (vv,))[1])(x, v)
+            jc_v = self._bmap(lambda xx, vv, pd: jvp(
+                lambda z: self._c1(z, pd), (xx,), (vv,))[1], pdata, x, v)
         else:
             jc_v = self._zeros(x, 0)
         return self.jprod_from(jc_v, v)
@@ -312,24 +369,25 @@ class CanonNLP:
         bnd = bnd.index_add(1, j["uvi"], d[:, nl + nu + nbl:])
         return wc, bnd
 
-    def _vjp_c(self, x, wc):
-        return vmap(lambda xx, ww: vjp(self._c1, xx)[1](ww)[0])(x, wc)
+    def _vjp_c(self, x, wc, pdata=None, hi=False):
+        return self._bmap(lambda xx, ww, pd: vjp(
+            lambda z: self._c1(z, pd), xx)[1](ww)[0], pdata, x, wc, hi=hi)
 
     def jtprod(self, x, w, pdata=None):
         """Canonical J(x)^T @ w via one VJP on c."""
         wc, bnd = self.split_canonical(w)
         if self.m_orig > 0:
-            out = self._vjp_c(x, wc)
+            out = self._vjp_c(x, wc, pdata)
         else:
             out = self._zeros(x, self.n)
         return out + bnd
 
-    def c_jtprod(self, x, wcs):
+    def c_jtprod(self, x, wcs, pdata=None):
         """c(x) and the original-row products J_c(x)^T wc for every wc in
         `wcs` (each (B, m_orig)), from one forward pass of c.  The line
         search's trial point needs c, J^T y, J^T dy and J^T 1 together."""
         W = torch.stack(wcs, dim=1)                      # (B, k, m_orig)
-        cval, jt = vmap(self._c_jtw1)(x, W)
+        cval, jt = self._bmap(self._c_jtw1, pdata, x, W)
         return cval, [jt[:, i] for i in range(len(wcs))]
 
     def _mu_th(self, mu_th, x):
@@ -341,11 +399,11 @@ class CanonNLP:
         hi = torch.float64
         x64 = x.to(hi)
         mt = self._mu_th(mu_th, x)
-        g = vmap(grad(self._f1))(x64)
+        g = self._bmap(grad(self._f1), pdata, x64, hi=True)
         wc, bnd = self.split_canonical(w.to(hi))
         th_vec = mt * self._wc_ones_hi - wc
         if self.m_orig > 0:
-            jt = self._vjp_c(x64, th_vec)
+            jt = self._vjp_c(x64, th_vec, pdata, hi=True)
         else:
             jt = self._zeros(x64, self.n)
         return g + jt + mt * self._bnd_ones_hi - bnd
@@ -356,7 +414,7 @@ class CanonNLP:
         x64 = x.to(hi)
         wc, bnd = self.split_canonical(w.to(hi))
         if self.m_orig > 0:
-            out = self._vjp_c(x64, wc)
+            out = self._vjp_c(x64, wc, pdata, hi=True)
         else:
             out = self._zeros(x64, self.n)
         return out + bnd
@@ -365,7 +423,10 @@ class CanonNLP:
         """Canonical a(x) in float64."""
         hi = torch.float64
         x64 = x.to(hi)
-        cv = self.c(x64)
+        if self._c_raw is None:
+            cv = self._zeros(x64, 0)
+        else:
+            cv = self._bmap(self._c1, pdata, x64, hi=True)
         b = bvals if bvals is not None else self._j
         b = {k: b[k].to(hi) for k in ("l", "u", "lv", "uv")}
         return self.a_of(x64, cv, b)
@@ -374,7 +435,7 @@ class CanonNLP:
         """Canonical J(x)^T @ 1 (regularizer gradient)."""
         if self.m_orig > 0:
             out = self._vjp_c(x, self._wc_ones.to(x.dtype).expand(
-                x.shape[0], -1))
+                x.shape[0], -1), pdata)
         else:
             out = self._zeros(x, self.n)
         return out + self._bnd_ones.to(x.dtype)
@@ -385,10 +446,12 @@ class CanonNLP:
         if self.m_orig == 0:
             return torch.zeros(x.shape[0], 0, self.n, dtype=x.dtype,
                                device=x.device)
+        if self._jac_raw is not None:
+            # the user Jacobian oracle (full-variable space)
+            return self._bmap(self._jac1, pdata, x)
         # forward mode costs n passes, reverse costs m_orig: pick the cheaper
-        if self.m_orig < self.n:
-            return vmap(jacrev(self._c1))(x)
-        return vmap(jacfwd(self._c1))(x)
+        jac = jacrev if self.m_orig < self.n else jacfwd
+        return self._bmap(jac(self._c1), pdata, x)
 
     # canonical products through a materialized Jc, shared (m_orig, n) or
     # batched (B, m_orig, n)
@@ -447,25 +510,26 @@ class CanonNLP:
 
     # ------------------------------------------------------------------
     # Lagrangian Hessian of f(x) - y^T a(x), materialized (B, n, n)
-    def _lag1(self, x, wc):
-        val = self._f1(x)
+    def _lag1(self, x, wc, pd=None):
+        val = self._f1(x, pd)
         if self.m_orig > 0:
-            val = val - torch.dot(wc, self._c1(x))
+            val = val - torch.dot(wc, self._c1(x, pd))
         return val
 
     def lag_hess(self, x, y, pdata=None):
         wc, _ = self.split_canonical(y)
-        return vmap(hessian(self._lag1))(x, wc)
+        return self._bmap(hessian(self._lag1), pdata, x, wc)
 
     def hess_prod_fn(self, x, y, pdata=None):
         """Returns v (B, n) -> H v, the Lagrangian-Hessian product at fixed
         (x, y): forward-over-reverse, no (n, n) matrix."""
         wc, _ = self.split_canonical(y)
 
-        def hv1(xx, ww, vv):
-            return jvp(grad(lambda z: self._lag1(z, ww)), (xx,), (vv,))[1]
+        def hv1(xx, ww, vv, pd):
+            return jvp(grad(lambda z: self._lag1(z, ww, pd)), (xx,),
+                       (vv,))[1]
 
-        return lambda v: vmap(hv1)(x, wc, v)
+        return lambda v: self._bmap(hv1, pdata, x, wc, v)
 
 
 def canonicalize(spec: NLPSpec, dtype=torch.float64, device=None) -> CanonNLP:

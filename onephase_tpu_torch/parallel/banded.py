@@ -34,9 +34,12 @@ Pattern caveat: the structure is detected from |J|/|H| at sample points at
 construction; entries zero at every sample but nonzero elsewhere would be
 dropped (the usual AD-structure assumption).  At scales where even one dense
 J does not fit, pass the `pattern`.  Problems whose RCM bandwidth approaches
-n gain nothing: use the dense `OnePhaseKernel` there.  The JAX package's mesh
-sharding of the partitions and its parametric (`pdata`) branches are not
-ported: both raise.
+n gain nothing: use the dense `OnePhaseKernel` there.  A parametric problem
+(`NLPSpec.pdata`) takes its pattern from `sample_pdata` (one instance's
+data; default: the spec's template) and its per-instance data from the
+state, as in the JAX kernel; the matrix-free mode refuses it, as the JAX
+kernel does.  The JAX package's mesh sharding of the partitions is not
+ported: it raises.
 """
 
 from __future__ import annotations
@@ -57,11 +60,15 @@ from ..ops.block_tridiag import (TridiagFactor, partitioned_factor,
 from ..ops.tridiag_pallas import pallas_tridiag_factor, pallas_tridiag_solve
 
 
-def _structural_pattern(nlp: CanonNLP, n_samples: int) -> np.ndarray:
+def _structural_pattern(nlp: CanonNLP, n_samples: int,
+                        pdata=None) -> np.ndarray:
     """Union of the |J'J| and |H| nonzero patterns at sample points (the
-    start, then perturbations of it drawn from a fixed seed); (n, n) bool on
-    the host."""
+    start, then perturbations of it drawn from a fixed seed) of one
+    instance (`pdata`: its data, default the template); (n, n) bool on the
+    host."""
     rng = np.random.default_rng(0)
+    pd = (None if pdata is None else
+          {k: v[None] for k, v in nlp.pdata_to(pdata).items()})
     x0 = np.asarray(nlp.x0, np.float64)
     pat = np.eye(nlp.n, dtype=bool)
 
@@ -76,10 +83,10 @@ def _structural_pattern(nlp: CanonNLP, n_samples: int) -> np.ndarray:
                 + 0.01 * rng.standard_normal(nlp.n)
         y = rng.uniform(0.5, 1.5, nlp.m)
         if nlp.m_orig > 0:
-            Bm = (nlp.jac_orig(dev(x))[0] != 0).to(torch.float32)
+            Bm = (nlp.jac_orig(dev(x), pd)[0] != 0).to(torch.float32)
             # counts of shared rows: exact in float32 below 2^24 rows
             pat |= (Bm.T @ Bm).cpu().numpy() > 0
-        pat |= (nlp.lag_hess(dev(x), dev(y))[0] != 0).cpu().numpy()
+        pat |= (nlp.lag_hess(dev(x), dev(y), pd)[0] != 0).cpu().numpy()
     return pat
 
 
@@ -108,10 +115,6 @@ class BandedKernel(OnePhaseKernel):
         if mesh is not None:
             raise NotImplementedError(
                 "mesh sharding of the band's partitions is not ported to "
-                "onephase_tpu_torch")
-        if sample_pdata is not None:
-            raise NotImplementedError(
-                "parametric problems (pdata) are not ported to "
                 "onephase_tpu_torch")
         if pars.kkt.kkt_solver_type != "schur":
             raise ValueError("BandedKernel implements the schur path only")
@@ -144,7 +147,7 @@ class BandedKernel(OnePhaseKernel):
 
         # host-side symbolic analysis: RCM ordering + bandwidth
         if pattern is None:
-            pattern = _structural_pattern(nlp, n_samples)
+            pattern = _structural_pattern(nlp, n_samples, sample_pdata)
         pattern = np.asarray(pattern)
         if pattern.shape != (nlp.n, nlp.n):
             raise ValueError(f"pattern has shape {pattern.shape}, expected "
@@ -302,19 +305,13 @@ class BandedKernel(OnePhaseKernel):
                       L=prev.L, D=prev.D, delta=prev.delta,
                       s_f=p.s, y_f=p.y, ok=torch.zeros_like(prev.ok))
 
-    def form_factor(self, p: Point, cache: Cache, prev: Factor) -> Factor:
+    def form_factor(self, p: Point, cache: Cache, prev: Factor,
+                    pdata=None) -> Factor:
         if self.matrix_free:
             return self._form_factor_matrix_free(p, prev)
         nlp = self.nlp
         y_eff = p.y + _c(p.mu * self.pars.a_norm_penalty)
-        if self._H_zero:
-            H = None
-        elif self._H_const is not None:
-            H = self._H_const
-        else:
-            H = nlp.lag_hess(p.x, y_eff)
-        Jc = self._Jc_const if self._Jc_const is not None \
-            else nlp.jac_orig(p.x)
+        H, Jc = self._factor_point_jh(p, prev, y_eff, pdata)
         wc, bnd = nlp.split_canonical_sq(p.y / p.s)
         Qd, Qs = self._banded_blocks(H, Jc, wc, bnd)
         return Factor(Jc=self._store_jc(Jc), H=self._store_h(H), Q=(Qd, Qs),

@@ -35,14 +35,20 @@ class BatchSolver:
         self.pars = pars
 
     def init(self, x0s, bvals=None, pdata=None) -> State:
-        """x0s: (B, n) starting points -> batched State.  `bvals` optionally
-        gives per-instance bound values (dict of (B, k) tensors)."""
-        if pdata is not None:
-            raise NotImplementedError(
-                "parametric pdata batches are not ported to onephase_tpu_torch")
+        """x0s: (B, n) starting points -> batched State.
+
+        `bvals` optionally gives per-instance bound values (dict of (B, k)
+        tensors): instances may differ in bound data and share one kernel.
+        `pdata` optionally gives per-instance parametric problem data
+        (NLPSpec.pdata; dict of (B, ...) arrays or tensors, cast to the
+        kernel's dtype and device): per-instance constraint matrices and
+        objective coefficients under one kernel.  With `pdata` and no
+        `bvals` every instance takes the default bound values."""
         k = self.kernel
         x0s = torch.as_tensor(np.asarray(x0s), dtype=k.dtype, device=k.device)
-        return k.initial_state_from(x0s, bvals)
+        if pdata is not None:
+            pdata = k.nlp.pdata_to(pdata)
+        return k.initial_state_from(x0s, bvals, pdata)
 
     def run_chunk(self, st: State) -> State:
         return self.kernel.run_chunk(st)
@@ -85,7 +91,8 @@ class BatchSolver:
         rc_mask = (st.status == RUNNING) | (st.status == STALLED)
         if not bool(rc_mask.any()):
             return st
-        codes = self.kernel.terminate_f64(st.p, st.cache, st.bvals)
+        codes = self.kernel.terminate_f64(st.p, st.cache, st.bvals,
+                                          st.pdata)
         return st._replace(status=torch.where(
             rc_mask & (codes != RUNNING), codes, st.status))
 

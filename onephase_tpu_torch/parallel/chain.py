@@ -188,7 +188,8 @@ class ChainKernel(OnePhaseKernel):
         return tridiag_matvec(Hd, Hs, self._split_x(v)).reshape(v.shape)
 
     # ---------------- overridden KKT path ----------------------------
-    def form_factor(self, p: Point, cache: Cache, prev: Factor) -> Factor:
+    def form_factor(self, p: Point, cache: Cache, prev: Factor,
+                    pdata=None) -> Factor:
         nlp = self.nlp
         y_eff = p.y + _c(p.mu * self.pars.a_norm_penalty)
         Hd, Hs = self._hess_blocks(p.x, y_eff)
@@ -258,12 +259,12 @@ class ChainKernel(OnePhaseKernel):
         return out.reshape(w.shape[0], -1) + bnd
 
     def compute_direction(self, fact: Factor, p: Point, cache: Cache,
-                          eta_P, eta_D, eta_mu):
+                          eta_P, eta_D, eta_mu, pdata=None):
         """The Schur solve with `it_refine_num` fixed refinement passes
         through the block factor (the adaptive and double-single options
         of the dense path do not apply, as in the JAX package)."""
         dual_r, primal_r, comp_r = self.build_rhs(p, cache, eta_P, eta_D,
-                                                  eta_mu)
+                                                  eta_mu, pdata)
         y_f, s_f = fact.y_f, fact.s_f
         S_vec = y_f / s_f
         delta = _c(fact.delta)

@@ -196,7 +196,8 @@ class ScenarioKernel(OnePhaseKernel):
         return torch.cat([out_z, out_X.reshape(v.shape[0], -1)], -1)
 
     # ---------------- overridden KKT path ----------------------------
-    def form_factor(self, p: Point, cache: Cache, prev: Factor) -> Factor:
+    def form_factor(self, p: Point, cache: Cache, prev: Factor,
+                    pdata=None) -> Factor:
         nlp = self.nlp
         y_eff = p.y + _c(p.mu * self.pars.a_norm_penalty)
         Hzz, Hkk, Hkz = self._hess_blocks(p.x, y_eff)
@@ -257,12 +258,12 @@ class ScenarioKernel(OnePhaseKernel):
         return torch.cat([out_z, out_X.reshape(w.shape[0], -1)], -1) + bnd
 
     def compute_direction(self, fact: Factor, p: Point, cache: Cache,
-                          eta_P, eta_D, eta_mu):
+                          eta_P, eta_D, eta_mu, pdata=None):
         """The Schur solve with `it_refine_num` fixed refinement passes
         through the arrow factor (the adaptive and double-single options of
         the dense path do not apply, as in the JAX package)."""
         dual_r, primal_r, comp_r = self.build_rhs(p, cache, eta_P, eta_D,
-                                                  eta_mu)
+                                                  eta_mu, pdata)
         y_f, s_f = fact.y_f, fact.s_f
         S_vec = y_f / s_f
         delta = _c(fact.delta)

@@ -38,6 +38,17 @@ class Timer:
             self.totals[full] += dt
             self.counts[full] += 1
 
+    def merge(self, other: "Timer") -> "Timer":
+        """A timer holding the sum of both timers' spans (the campaign
+        harness's master timer)."""
+        out = Timer()
+        for src in (self, other):
+            for k, v in src.totals.items():
+                out.totals[k] += v
+            for k, v in src.counts.items():
+                out.counts[k] += v
+        return out
+
     def stats(self) -> str:
         lines = ["SPAN\tTOTAL_S\tCOUNT"]
         for k in sorted(self.totals):

@@ -433,8 +433,13 @@ def test_constructor_checks_like_jax():
     with pytest.raises(NotImplementedError):
         TBanded(nlp, TParams().with_overrides(_opts("xla")), device="cpu",
                 mesh=object())
-    with pytest.raises(NotImplementedError):
-        TBanded(nlp, TParams().with_overrides(_opts("xla")), device="cpu",
-                sample_pdata={"p": np.zeros(1)})
+    # sample_pdata is ported (tests/test_torch_parametric.py); on a
+    # problem that is not parametric the JAX kernel ignores it, and so does
+    # the port's
+    base = TBanded(nlp, TParams().with_overrides(_opts("xla")), device="cpu")
+    sampled = TBanded(nlp, TParams().with_overrides(_opts("xla")),
+                      device="cpu", sample_pdata={"p": np.zeros(1)})
+    assert (sampled.perm == base.perm).all()
+    assert sampled.bandwidth == base.bandwidth
     with pytest.raises(ValueError, match="lives on"):
         TBanded(nlp, TParams().with_overrides(_opts("xla")), device="meta")

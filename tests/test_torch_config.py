@@ -8,6 +8,7 @@ import importlib
 import pkgutil
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -56,30 +57,50 @@ def _modules():
     return sorted(p for p in PKG.rglob("*.py"))
 
 
+# the campaign path's modules (the bucketed LP driver and its front end)
+CAMPAIGN_MODULES = ("harness", "cli", "model", "baselines", "autotune",
+                    "models.netlib", "parallel.buckets",
+                    "parallel.checkpoint")
+
+
+def _imports(path):
+    """Every module name an `import` statement of the file names."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or ""
+
+
 def test_no_jax_import_anywhere():
     names = {p.relative_to(PKG).as_posix() for p in _modules()}
     assert {"ops/block_schur.py", "parallel/scenario.py",
             "models/tax.py"} <= names
+    assert {m.replace(".", "/") + ".py" for m in CAMPAIGN_MODULES} <= names
     for path in _modules():
-        tree = ast.parse(path.read_text(), filename=str(path))
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                mods = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                mods = [node.module or ""]
-            else:
-                continue
-            for mod in mods:
-                top = mod.split(".")[0]
-                assert top not in ("jax", "jaxlib", "onephase_tpu", "triton"), \
-                    f"{path.relative_to(PKG)} imports {mod}"
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "onephase_tpu", "triton"), \
+                f"{path.relative_to(PKG)} imports {mod}"
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py runs on the card's machine without JAX: no import of
+    jax or of the JAX package anywhere in it (it names onephase_tpu/ files
+    only as strings)."""
+    path = PKG.parent / "chip_smoke.py"
+    mods = list(_imports(path))
+    assert any(m.startswith("onephase_tpu_torch") for m in mods)
+    for mod in mods:
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "onephase_tpu"), mod
 
 
 def test_every_module_imports_without_nvcc_or_gpu():
     names = [m.name for m in pkgutil.walk_packages([str(PKG)],
                                                    "onephase_tpu_torch.")]
     for mod in ("ops.cholesky", "ops.block_schur", "parallel.scenario",
-                "models.examples", "models.tax"):
+                "models.examples", "models.tax") + CAMPAIGN_MODULES:
         assert f"onephase_tpu_torch.{mod}" in names
     for name in names:
         importlib.import_module(name)
@@ -194,6 +215,8 @@ def _entry_call(entry):
             chain_ocp(K=4, nx=2, mc=1, device="cpu").to_nlpspec(),
             device="cpu")
         return lambda: BandedKernel(nlp, pars)
+    if entry in CAMPAIGN_ENTRIES:
+        return _campaign_entry(entry)
     if entry == "state_from_numpy":
         k = OnePhaseKernel(onephase_tpu_torch.canonicalize(
             zoo.circle1(), device="cpu"), pars)
@@ -213,12 +236,42 @@ def _entry_call(entry):
 # the example families and the tax models
 MODEL_FNS = ("largest_small_polygon", "electron", "max_cut", "kissing",
             "chain", "two_stage_qp", "tax1d", "tax_grouped")
+# the campaign path's entry points
+CAMPAIGN_ENTRIES = ("solve_bucketed", "run_lp_directory", "run_problems",
+                    "cli.main", "Model.optimize", "autotune")
+
+
+def _campaign_entry(entry):
+    from onephase_tpu_torch import cli, harness
+    from onephase_tpu_torch.autotune import autotune
+    from onephase_tpu_torch.model import Model
+    from onephase_tpu_torch.models import zoo
+    from onephase_tpu_torch.models.lp import LPData
+    from onephase_tpu_torch.parallel.buckets import solve_bucketed
+    lp = LPData(cvec=np.ones(2), A=np.ones((1, 2)), lcon=np.zeros(1),
+                ucon=np.ones(1), lvar=np.zeros(2), uvar=np.ones(2))
+    model = Model()
+    x = model.add_variable(lb=0.0)
+    model.add_linear_constraint({x: 1.0}, lb=1.0)
+    model.set_objective({x: 1.0})
+    root = "/nonexistent/campaign"
+    return {
+        "solve_bucketed": lambda: solve_bucketed({"lp": lp}),
+        "run_lp_directory": lambda: harness.run_lp_directory(
+            root, "t", out_root=root),
+        "run_problems": lambda: harness.run_problems(
+            {"lp1": zoo.toy_lp1()}, "t", out_root=root),
+        "cli.main": lambda: cli.main(["--problem-set", "zoo",
+                                      "--output-dir", root]),
+        "Model.optimize": model.optimize,
+        "autotune": lambda: autotune(zoo.circle_nc1()),
+    }[entry]
 
 
 @pytest.mark.parametrize("entry", [
     "canonicalize", "one_phase_solve", "make_qp", "chain_ocp",
     "ChainKernel", "BandedKernel", "ScenarioKernel", "state_from_numpy",
-    "lp_spec", *MODEL_FNS])
+    "lp_spec", *MODEL_FNS, *CAMPAIGN_ENTRIES])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Without a device and without a card every entry point raises and
     says how to ask for the CPU; it never carries on quietly there."""
@@ -226,3 +279,31 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
+
+
+# numpy pieces the port copies from the JAX package unchanged:
+# (JAX module, port module, names)
+COPIED = (
+    ("onephase_tpu.models.lp", "onephase_tpu_torch.models.lp",
+     ("write_mps", "read_mps_data")),
+    ("onephase_tpu.models.netlib", "onephase_tpu_torch.models.netlib",
+     ("_rng", "_lp_base", "_lpi_instance", "sized_mixed_suite")),
+    ("onephase_tpu.parallel.buckets", "onephase_tpu_torch.parallel.buckets",
+     ("_round_up", "_Instance", "BucketResult", "eliminate_fixed",
+      "_finite", "equilibrate_rows", "pad_lp", "bucket_shapes")),
+)
+
+
+@pytest.mark.parametrize("jmod, tmod, names", COPIED,
+                         ids=[c[1].rsplit(".", 1)[1] for c in COPIED])
+def test_copied_numpy_pieces_equal(jmod, tmod, names):
+    """Each copied function or class has the JAX package's source, line
+    for line; the copied constants are equal."""
+    import inspect
+    j, t = importlib.import_module(jmod), importlib.import_module(tmod)
+    for name in names:
+        assert inspect.getsource(getattr(t, name)) == \
+            inspect.getsource(getattr(j, name)), name
+    for const in ("INF", "BIG", "LPI_DIMS", "_MECHANISMS"):
+        if hasattr(j, const):
+            assert getattr(t, const) == getattr(j, const), const

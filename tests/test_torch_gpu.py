@@ -439,3 +439,61 @@ def test_tridiag_factor_every_tile_width(cuda, dt, nb):
     assert ok.tolist() == okr.tolist() == [True, True]
     for got, want in ((Ck, Ckr), (Ci, Cir), (Ek, Ekr)):
         assert _rel_err(got, want) <= TOL[dt]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n, m, B", [(1024, 512, 64), (128, 128, 4),
+                                     (96, 67, 3)])
+def test_fused_q_per_instance_jc(cuda, dt, n, m, B):
+    """K1 with a (B, m, n) Jacobian, each instance its own (the bucketed
+    LP campaign's shape), no H (a declared-zero Hessian): within TOL of
+    its plain version, launched once.  Scaled so that diag(bnd) is a fifth
+    or more of max |Q|; the diagonal is also held on its own, so a kernel
+    that drops bnd or reads one instance's for all fails."""
+    rng = np.random.default_rng(7 * n + B)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dt, device=cuda)
+
+    Jc = t(rng.normal(size=(B, m, n)) / np.sqrt(n)
+           * (rng.random((B, m, n)) < 0.5))
+    w = t(rng.uniform(0.1, 10.0, size=(B, m)))
+    bnd = t(rng.uniform(0.0, 5.0, size=(B, n)))
+    before = ops.launch_counts()["fused_q"]
+    got = schur.pallas_fused_q(Jc, w, None, bnd)
+    assert ops.launch_counts()["fused_q"] == before + 1
+    ref = schur.xla_fused_q(Jc, w, None, bnd)
+    assert _rel_err(got, ref) <= TOL[dt]
+    assert _rel_err(got.diagonal(dim1=1, dim2=2),
+                    ref.diagonal(dim1=1, dim2=2)) <= TOL[dt]
+
+
+@pytest.mark.gpu
+def test_bucket_on_pallas_matches_cpu(cuda):
+    """A bucket of four LPs (sized_mixed_suite(96, 48, 2): two feasible,
+    two infeasible, each with its own A) solved on the pallas lane on the
+    card in float64, K1-K3 launched: the statuses and x (1e-5) of the
+    same bucket on the CPU (x of the certified optima)."""
+    from onephase_tpu_torch.config import Params
+    from onephase_tpu_torch.models.netlib import sized_mixed_suite
+    from onephase_tpu_torch.parallel.buckets import solve_bucketed
+
+    probs = sized_mixed_suite(96, 48, n_pairs=2, density=0.5)
+    pars = Params().with_overrides({
+        "output_level": 0, "term.max_it": 120, "term.tol_opt": 1e-6,
+        "kkt.linear_solver_type": "pallas"})
+    before = ops.launch_counts()
+    on_card = solve_bucketed(probs, pars, round_to=32, dtype=torch.float64,
+                             device=cuda)
+    after = ops.launch_counts()
+    for k in ("fused_q", "chol", "tri_inv_gram"):
+        assert after[k] > before[k], k
+    on_cpu = solve_bucketed(probs, pars, round_to=32, dtype=torch.float64,
+                            device="cpu")
+    for name in probs:
+        truth = "Optimal" if name.endswith("_feas") else "primal_infeasible"
+        assert on_card[name].status == on_cpu[name].status == truth, name
+        if truth == "Optimal":
+            np.testing.assert_allclose(on_card[name].x, on_cpu[name].x,
+                                       rtol=0, atol=1e-5)

@@ -96,7 +96,20 @@ def test_c_jtprod_matches_separate_products():
 
 
 def test_unsupported_spec_fields_raise():
+    """A constraint body without its bounds raises; `pdata` and `jac` are
+    ported (tests/test_torch_parametric.py holds them to the JAX package):
+    a parametric spec canonicalizes and its oracles call f and c with the
+    instance's data."""
+    with pytest.raises(ValueError, match="lcon/ucon"):
+        tnlp.NLPSpec(f=lambda x: x.sum(), c=lambda x: x, x0=np.zeros(2))
     _, tspec = zoo_pair("circle1")
+    f, c = tspec.f, tspec.c
+    tspec.f = lambda x, pd: f(x) + pd["a"] @ x
+    tspec.c = lambda x, pd: c(x)
     tspec.pdata = {"a": np.ones(2)}
-    with pytest.raises(NotImplementedError):
-        tnlp.canonicalize(tspec, device="cpu")
+    T = tnlp.canonicalize(tspec, device="cpu")
+    assert T.parametric
+    x = torch.tensor([[0.5, 0.25]], dtype=torch.float64)
+    pd = {"a": torch.tensor([[2.0, 1.0]], dtype=torch.float64)}
+    assert float(T.f(x)[0]) == float(f(x[0])) + 0.75       # the template
+    assert float(T.f(x, pd)[0]) == float(f(x[0])) + 1.25   # its own data

@@ -5,6 +5,7 @@ tests/test_torch_*.py files; it holds no tests of its own."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import bench
@@ -103,6 +104,17 @@ def fixed_var_pair():
         c=lambda x: torch.stack([x[0] + x[1] + x[2], x[0] * x[2] - x[1]]),
         **kw)
     return j, t
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op torch thread for the test's duration: the port's small
+    CPU tensors run an order of magnitude faster than in a thread pool
+    competing with the other test workers and JAX's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def qp_pair(n, m, seed=0):
