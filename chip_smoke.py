@@ -31,7 +31,7 @@ paths on the `pallas` lane:
   argmin; then K=50 assembled against matrix-free and `pallas` against
   `xla`;
 - every other KKT system of the dense driver (the kkt phase), float64
-  through BatchSolver at tol 1e-6: a pool of 32 LPs (n=1024, m=512,
+  through BatchSolver at tol 1e-6: a pool of 16 LPs (n=1024, m=512,
   tests/test_dual.py's recipe) on `schur_dual` and on `schur`/`pallas`
   (K1-K3), which must agree in statuses and objectives; the bench QP at
   n=256, m=128 on `symmetric` and `clever_symmetric` (batch 8; also with
@@ -55,8 +55,8 @@ paths on the `pallas` lane:
   `parallel/buckets.solve_bucketed`, the campaign phase): shape-bucketed
   parametric LP batches in float32 on the `pallas` lane, each instance its
   own A (K1 on a (B, m, n) Jc, K2, K3), with one float64 escalation pass
-  on the card.  C1: 64 LPs at n=1024, m=512 (one shape class), cold and
-  warm, and on `invchol` (no kernel); C2: the 96-instance mixed pool (six
+  on the card.  C1: 32 LPs at n=1024, m=512 (one shape class) on `pallas`
+  and on `invchol` (no kernel); C2: 48 instances of the mixed pool (six
   shape classes); C3: seven MPS files through run_lp_directory, then the
   CLI twice into one directory (the second call skips every problem).
   Every final status must be its ground truth (the `_feas` / `_infeas`
@@ -64,6 +64,22 @@ paths on the `pallas` lane:
   (CAMP_JAX_ANCHOR, tools/jax_campaign_anchor.py); every Optimal
   objective within CAMP_OBJ_RTOL of HiGHS's.  K1 with a per-instance Jc
   is held to its plain version and timed at C1's shape.
+- the multi-device layer (`parallel/mesh.py`, `dryrun.py`, the mesh
+  phase, MESH_*): two ranks share the card over `gloo` (NCCL refuses two
+  ranks on one device; gloo runs all_reduce, the port's one collective,
+  on CUDA tensors), then one rank runs over `nccl`.  The dry run
+  (`dryrun.rank_dryrun`: a dp batch of tax1d, the scenario-sharded
+  tax_grouped(G=16), the sharded arrow primitive on K2, the
+  partition-sharded chain; each to termination); M1 the mixed phase's
+  float64 QP and the bench configuration through ShardedBatchSolver, 8
+  instances a rank (K1-K3 on every rank); M2 S1 with 128 scenarios a rank
+  (K2 on every rank); M3 the arrow primitive against the local solve; M4
+  the K=400 chain with 8 partitions and the K=50 banded run with 2 over
+  the ranks; M5 M1's float64 leg over nccl.  Each is held to the same
+  run unsharded (and a rank's rows to the same rows solved at its batch).
+  The dry run and M1-M4 share one gloo world.  The ranks start with the
+  `spawn` method and meet at a `file://` store; a rank that fails or
+  hangs past MESH_TIMEOUT fails the phase.
 
 The mixed phase also times K1, K2 and K3 at its shape in float64 and in
 float32, in turns.
@@ -95,7 +111,9 @@ call's where one PyTorch call computes the same function, and its bound
 (K1-K3 also with their launches on the mixed phase's float32 run, on
 the kkt phase's LP pool and on the campaign's C1 run, K1 also with its
 per-instance-Jc record; K2 also with its launches on the scenario run and
-its times at the scenario shapes).
+its times at the scenario shapes; K1-K3 also with their launches on each
+rank of the mesh phase's M1 and on its nccl rank, K2 on each rank of its
+S1 run).
 The last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -176,7 +194,8 @@ KKT_OPTIONS = {
     "chunk_size": 25,
     "history_capacity": 2,
 }
-KKT_LP_SHAPE = {"n": 1024, "m": 512, "seeds": 32}
+# 16 LPs, cut from 32 for the script's time limit
+KKT_LP_SHAPE = {"n": 1024, "m": 512, "seeds": 16}
 KKT_LP_PATHS = {
     "schur_dual": {"kkt.kkt_solver_type": "schur_dual"},
     "schur_pallas": {"kkt.linear_solver_type": "pallas"},
@@ -202,12 +221,13 @@ KKT_ROUNDOFF = ("schur_dual",)
 # the JAX package's figures for the same data and options on the CPU
 # (tools/jax_kkt_anchor.py): per run, the statuses, and the outer
 # iterations and factorizations in sum; mr of the QP runs; the LP pool's
-# objective gap between its paths
+# objective gap between its paths (`--runs schur_dual --seeds 16` and
+# `--runs schur_pallas --seeds 16`)
 KKT_JAX_ANCHOR = {
-    "schur_dual": {"statuses": ["Optimal"] * 32, "outer_its_sum": 1518,
-                   "cum_fac_sum": 2372},
-    "schur_pallas": {"statuses": ["Optimal"] * 32, "outer_its_sum": 632,
-                     "cum_fac_sum": 664},
+    "schur_dual": {"statuses": ["Optimal"] * 16, "outer_its_sum": 750,
+                   "cum_fac_sum": 1159},
+    "schur_pallas": {"statuses": ["Optimal"] * 16, "outer_its_sum": 317,
+                     "cum_fac_sum": 333},
     "symmetric": {"statuses": ["Optimal"] * 8, "outer_its_sum": 88,
                   "cum_fac_sum": 96, "mr": 768},
     "clever_symmetric": {"statuses": ["Optimal"] * 8, "outer_its_sum": 88,
@@ -216,8 +236,8 @@ KKT_JAX_ANCHOR = {
                        "cum_fac_sum": 96, "mr": 384},
     "symmetric_eigh": {"statuses": ["Optimal"] * 4, "outer_its_sum": 44,
                        "cum_fac_sum": 48, "mr": 768},
-    "lp_obj_gap_max": 2.6257086232504837e-07,
-    "lp_obj_gap_within_1e-7": 15,
+    "lp_obj_gap_max": 2.58996624407483e-07,
+    "lp_obj_gap_within_1e-7": 6,
 }
 # the scenario phase: the arrow-KKT path (ScenarioKernel), each run from
 # its start to termination.  S1: scripts/bench_scenario.py's shape and dtype
@@ -286,8 +306,8 @@ SCEN_JAX_ANCHOR = {
 # (parallel/buckets.solve_bucketed), float32 with one float64 escalation
 # pass on the card.  C1: the throughput-crossover record's n=1024 dense
 # row (scripts/run_throughput_crossover.py:44-56, its options :138-158) on
-# the pallas lane, one shape class of 64 LPs, each with its own A; C2: the
-# 96-instance mixed pool of results/mixed_parity_lanes.md with
+# the pallas lane, one shape class of 32 LPs, each with its own A; C2: the
+# first 48 instances of results/mixed_parity_lanes.md's mixed pool with
 # scripts/run_mixed_lanes.py's options; C3: seven small MPS files of
 # results/lpi_mps/ through harness.run_lp_directory (scripts/run_lpi.py's
 # options), then the CLI twice into one directory (the second resumes)
@@ -299,8 +319,13 @@ CAMP_OPTIONS = {
     "kkt.it_refine_tol": 5e-7, "kkt.it_refine_highprec": True,
     "term.stall_patience": 25,
 }
-CAMP_C1 = {"n": 1024, "m": 512, "n_pairs": 32, "density": 0.5}
-CAMP_C2 = {"n_pairs": 48, "max_n": 600}
+# C1 and C2 at half their records' pools (16 of 32 and 24 of 48 pairs):
+# the first pairs of the same suites, so every instance keeps its
+# CAMP_JAX_ANCHOR entry.  Cut for the 1200 s limit: one tree of
+# this script ran 1.23x slower on one H100 host than on another, every
+# phase 1.2-1.5x (PERF.md, section 5)
+CAMP_C1 = {"n": 1024, "m": 512, "n_pairs": 16, "density": 0.5}
+CAMP_C2 = {"n_pairs": 24, "max_n": 600}
 CAMP_C2_OPTIONS = dict(CAMP_OPTIONS, **{"term.max_it": 200})
 CAMP_ROUND_TO = 128
 CAMP_C3_FILES = ("galenet", "itest2", "itest6", "bgprtr", "woodinfe",
@@ -1556,6 +1581,9 @@ def mixed_phase(dev):
         print(f"mixed {name}: K1-K3 operand dtypes "
               f"{summary['operand_dtypes']}", flush=True)
         runs[name], states[name] = summary, st
+    # the mesh phase's unsharded M1 float64 batch
+    runs["same"]["figures"] = _dense_figures(
+        states["same"], runs["same"]["seconds"], runs["same"]["launches"])
     batch = MIXED_SHAPE["batch"]
     for name in ("same", "f32_fallback"):
         if runs[name]["solved"] != batch:
@@ -2104,19 +2132,17 @@ def campaign_phase(dev):
     card.  Returns C1's pallas summary."""
     t_phase = time.perf_counter()
     c1 = _camp_problems("C1")
-    cold = _camp_run(dev, "C1", "C1 pallas cold", c1, CAMP_OPTIONS)
-    warm = _camp_run(dev, "C1", "C1 pallas warm", c1, CAMP_OPTIONS)
+    # one pallas run (a warm rerun gave the cold run's counts, PERF.md)
+    pal = _camp_run(dev, "C1", "C1 pallas", c1, CAMP_OPTIONS)
     for k in ("fused_q", "chol", "tri_inv_gram"):
-        if warm["launches"][k] <= 0:
+        if pal["launches"][k] <= 0:
             raise RuntimeError(f"campaign C1: the pallas lane launched no {k}")
-    if warm["statuses"] != cold["statuses"]:
-        raise RuntimeError("campaign C1: the warm run's statuses differ")
     inv = _camp_run(dev, "C1", "C1 invchol", c1,
                     dict(CAMP_OPTIONS, **{"kkt.linear_solver_type":
                                           "invchol"}))
     if any(inv["launches"].values()):
         raise RuntimeError("campaign C1: the invchol lane launched a kernel")
-    same = sum(inv["statuses"][k] == warm["statuses"][k] for k in c1)
+    same = sum(inv["statuses"][k] == pal["statuses"][k] for k in c1)
     print(f"campaign C1 lanes: pallas and invchol statuses agree on "
           f"{same}/{len(c1)}", flush=True)
     del c1
@@ -2125,8 +2151,350 @@ def campaign_phase(dev):
     c3 = campaign_c3(dev)
     print(f"campaign phase: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return {"C1": warm, "C1_cold": cold, "C1_invchol": inv, "C2": c2,
-            "C3": c3}
+    return {"C1": pal, "C1_invchol": inv, "C2": c2, "C3": c3}
+
+
+# the mesh phase (parallel/mesh.py, dryrun.py): the sharded paths on two
+# ranks that share the card over gloo (NCCL refuses two ranks on one
+# device; gloo runs all_reduce and broadcast, the only collectives of the
+# port, on CUDA tensors), then the dp leg on a one-rank nccl group.  The
+# gloo world runs the dry run (dryrun.rank_dryrun: its four legs to
+# termination, the blk leg tax_grouped(G=8 D, na_g=8, "banded") float64
+# as the JAX package's dry run runs it), then M1: the mixed phase's
+# float64 QP (MIXED_SHAPE, MIXED_OPTIONS, factor "same", `pallas`) sharded 2 x 8 and
+# the bench configuration (MESH_BENCH_SHAPE float32, BENCH_OPTIONS)
+# sharded 2 x 8; M2: S1 (SCEN_S1 float32, `pallas`) with 128 scenarios a
+# rank; M3: the dry run's arrow leg (nz=16, nx=64, K=16, seed 0; K2)
+# against the local arrow solve; M4: CHAIN_SHAPE float32 on `xla` with
+# MESH_CHAIN_PARTITIONS partitions and the banded BANDED_SMALL_SHAPE
+# assembled with MESH_BANDED_PARTITIONS, over the two ranks; M5: M1's
+# float64 leg on one nccl rank.  Each run is held to the same run
+# unsharded in this process: its counts equal (M1's float64 leg also to
+# MESH_M1_ANCHOR, with per-instance iterations equal) and x within
+# MESH_X_RTOL; a dp rank's rows also to the same rows solved unsharded at
+# the rank's batch (B/D), instance by instance, x within MESH_ROWS_RTOL.
+# A library call or a kernel's tile choice on the card may depend on the
+# batch, so whether x is equal bit for bit is printed, not demanded, and
+# M1's float32 leg is held to its rows only: the float32 bench turns on
+# the last bit (ROADMAP R5), and its instances solved at B = 8 certify 13
+# of 16.
+MESH_WORLD = 2
+MESH_TIMEOUT = 600.0
+MESH_BENCH_SHAPE = {"n": 256, "m": 128, "batch": 16}
+MESH_M1_ANCHOR = {"certified": 16, "outer_its": 207, "cum_fac": 223}
+MESH_CHAIN_PARTITIONS = 8
+MESH_BANDED_PARTITIONS = 2
+# x against the unsharded run's, relative to its largest entry.  S1 and
+# the banded run (float32) are held to float32 round-off: a rank's 128
+# scenarios, and the banded run's one partition a rank (unbatched), go
+# through library calls that round apart from the unsharded batch's
+# (1.2e-7 and 2.4e-7, PERF.md); M1's float32 leg is held to its rows
+MESH_X_RTOL = {"M1_f64": 1e-12, "M5_f64": 1e-12, "M4_chain": 1e-10,
+               "M2_S1": 1e-5, "M4_banded": 1e-5}
+MESH_ROWS_RTOL = 1e-12
+MESH_ARROW_ATOL = 1e-10
+MESH_DENSE = ("M1_f64", "M1_f32")
+MESH_STRUCTURED = (("M2_S1", "S1"), ("M4_chain", "chain"),
+                   ("M4_banded", "banded"))
+_K123 = ("fused_q", "chol", "tri_inv_gram")
+
+
+def _mesh_axis(mesh, axis):
+    import dataclasses
+    return None if mesh is None else dataclasses.replace(mesh, axis=axis)
+
+
+def _dense_figures(st, seconds, launches):
+    """A dense batch's final state's figures, per instance, x on the
+    host (the mesh phase compares runs by them)."""
+    from onephase_tpu_torch.ipm.state import OPTIMAL
+    return {"certified": int((st.status == OPTIMAL).sum()),
+            "outer_its": int((st.t - 1).sum()),
+            "cum_fac": int(st.cum_fac.sum()), "status": st.status.tolist(),
+            "t": st.t.tolist(), "fac": st.cum_fac.tolist(),
+            "x": st.p.x.cpu().numpy(), "seconds": seconds,
+            "launches": launches}
+
+
+def _mesh_dense(dev, mesh, key, rows=None):
+    """M1: the dense QP batch (`key` "f64": MIXED_*, "f32": the bench)
+    through ShardedBatchSolver (with `mesh`) or BatchSolver, from
+    bench_run's starts (only `rows`, (lo, hi), of them when given),
+    launches counted from the init on; the (gathered) final state's
+    figures, per instance, with x on the host."""
+    import torch
+    from onephase_tpu_torch import ops
+    from onephase_tpu_torch.config import Params
+    from onephase_tpu_torch.models.qp import make_qp
+    from onephase_tpu_torch.nlp import canonicalize
+    from onephase_tpu_torch.parallel.batch import BatchSolver
+    from onephase_tpu_torch.parallel.mesh import ShardedBatchSolver
+
+    shape, base, dtype = ((MIXED_SHAPE, MIXED_OPTIONS, torch.float64)
+                          if key == "f64" else
+                          (MESH_BENCH_SHAPE, BENCH_OPTIONS, torch.float32))
+    n, m, B = shape["n"], shape["m"], shape["batch"]
+    pars = Params().with_overrides(
+        dict(base, **{"kkt.linear_solver_type": "pallas"}))
+    nlp = canonicalize(make_qp(n, m, seed=0, device=dev), dtype=dtype,
+                       device=dev)
+    solver = (BatchSolver(nlp, pars) if mesh is None else
+              ShardedBatchSolver(nlp, pars, mesh=mesh))
+    x0s = np.random.default_rng(1).normal(size=(B, nlp.n)) * 0.1
+    if rows is not None:
+        x0s = x0s[rows[0]:rows[1]]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    st = solver.solve(x0s)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    if mesh is not None:
+        st = solver.gather(st)
+    return _dense_figures(st, dt, launches)
+
+
+def _mesh_structured(dev, mesh, key):
+    """M2 S1 (scenarios over "blk"), M4 chain and banded (partitions over
+    "chain") through their kernels, with `mesh` or unsharded; the final
+    state's figures (x on the host)."""
+    import torch
+    from onephase_tpu_torch.config import Params
+    from onephase_tpu_torch.models.examples import chain_ocp, two_stage_qp
+    from onephase_tpu_torch.nlp import canonicalize
+    from onephase_tpu_torch.parallel.banded import BandedKernel
+    from onephase_tpu_torch.parallel.chain import ChainKernel
+    from onephase_tpu_torch.parallel.scenario import ScenarioKernel
+
+    f32 = torch.float32
+    if key == "S1":
+        pars = Params().with_overrides(dict(
+            SCEN_S1_OPTIONS, **{"kkt.linear_solver_type": "pallas"}))
+        kernel = ScenarioKernel(two_stage_qp(**SCEN_S1, device=dev), pars,
+                                dtype=f32, device=dev,
+                                mesh=_mesh_axis(mesh, "blk"))
+    else:
+        parts = (MESH_CHAIN_PARTITIONS if key == "chain" else
+                 MESH_BANDED_PARTITIONS)
+        pars = Params().with_overrides(dict(
+            CHAIN_OPTIONS, **{"kkt.linear_solver_type": "xla",
+                              "kkt.chain_partitions": parts}))
+        if key == "chain":
+            kernel = ChainKernel(chain_ocp(**CHAIN_SHAPE, device=dev), pars,
+                                 dtype=f32, device=dev,
+                                 mesh=_mesh_axis(mesh, "chain"))
+        else:
+            nlp = canonicalize(chain_ocp(**BANDED_SMALL_SHAPE,
+                                         device=dev).to_nlpspec(),
+                               dtype=f32, device=dev)
+            kernel = BandedKernel(nlp, pars, device=dev,
+                                  mesh=_mesh_axis(mesh, "chain"))
+    summary, st = _run_kernel(kernel)
+    summary["x"] = st.p.x[0].cpu().numpy()
+    return summary
+
+
+def mesh_rank(mesh):
+    """One rank of the mesh phase's gloo world: the dry run, M1, M2 S1
+    and M4."""
+    from onephase_tpu_torch import dryrun
+    from onephase_tpu_torch.ops import _build
+    _build.library()              # built by the parent; loaded here
+    out = {"dryrun": dryrun.rank_dryrun(mesh)}
+    out.update({key: _mesh_dense(mesh.device, mesh, key[3:])
+                for key in MESH_DENSE})
+    for key, kind in MESH_STRUCTURED:
+        out[key] = _mesh_structured(mesh.device, mesh, kind)
+    return out
+
+
+def mesh_rank_nccl(mesh):
+    """M5: M1's float64 leg on a one-rank nccl group."""
+    from onephase_tpu_torch.ops import _build
+    _build.library()
+    return {"M5_f64": _mesh_dense(mesh.device, mesh, "f64")}
+
+
+def _k123(launches):
+    return "/".join(str(launches.get(k, 0)) for k in _K123)
+
+
+def _x_vs(x, ref):
+    """(bit for bit equal, max |x - ref| / max |ref|)."""
+    import torch
+    x, ref = torch.as_tensor(x), torch.as_tensor(ref)
+    return (torch.equal(x, ref),
+            float((x - ref).abs().max() / ref.abs().max()))
+
+
+def _mesh_line(key, ref, ranks, kernels, per_instance=False):
+    """Print one leg on every rank beside its unsharded run and hold it:
+    its counts (with `per_instance`, every instance's status, iterations
+    and factorizations) equal to the unsharded run's, x within
+    MESH_X_RTOL[key] where it has one, each of `kernels` launched on
+    every rank."""
+    keys = ("certified", "outer_its", "cum_fac") if "certified" in ref \
+        else ("status", "outer_its", "cum_fac")
+    if per_instance:
+        keys += ("status", "t", "fac")
+    for r, out in enumerate(ranks):
+        got = out[key]
+        equal, diff = _x_vs(got["x"], ref["x"])
+        print(f"mesh {key} rank {r}/{len(ranks)}: "
+              + ", ".join(f"{k} {got[k]}" for k in keys[:3])
+              + f"; K1/K2/K3 launches {_k123(got['launches'])}; "
+              f"{got['seconds']:.4f} s; unsharded "
+              + ", ".join(f"{k} {ref[k]}" for k in keys[:3])
+              + f", {ref['seconds']:.4f} s; x equal {equal}, max rel diff "
+              f"{diff:.3e}", flush=True)
+        if any(got[k] != ref[k] for k in keys):
+            raise RuntimeError(f"mesh {key} rank {r}: counts differ from "
+                               "the unsharded run's")
+        if key in MESH_X_RTOL and not diff <= MESH_X_RTOL[key]:
+            raise RuntimeError(f"mesh {key} rank {r}: x differs by {diff}")
+        for k in kernels:
+            if got["launches"][k] <= 0:
+                raise RuntimeError(f"mesh {key} rank {r}: no {k} launch")
+
+
+def _mesh_rows(key, rows_ref, ranks):
+    """A dp leg's rows on each rank against the same rows solved
+    unsharded at the rank's batch (the same computation): every
+    instance's status, iterations and factorizations equal, x within
+    MESH_ROWS_RTOL."""
+    for r, out in enumerate(ranks):
+        got, ref = out[key], rows_ref[r]
+        lo, hi = r * len(ref["t"]), (r + 1) * len(ref["t"])
+        same = all(got[k][lo:hi] == ref[k] for k in ("status", "t", "fac"))
+        equal, diff = _x_vs(got["x"][lo:hi], ref["x"])
+        print(f"mesh {key} rank {r}: rows {lo}:{hi} against them solved "
+              f"unsharded at B={hi - lo}: per-instance counts equal "
+              f"{same}; x equal {equal}, max rel diff {diff:.3e}",
+              flush=True)
+        if not (same and diff <= MESH_ROWS_RTOL):
+            raise RuntimeError(f"mesh {key} rank {r}: its rows differ from "
+                               "the unsharded run of those rows")
+
+
+def mesh_phase(dev, refs=None):
+    """The sharded paths (see MESH_*): the unsharded runs here (M1's whole
+    batches from `refs`, {key: _dense_figures}, where earlier phases ran
+    them), then the dry run, M1-M4 on MESH_WORLD gloo ranks sharing the
+    card and M5 on a one-rank nccl group.  Returns {leg: per-rank
+    launches}."""
+    import torch
+    from onephase_tpu_torch import dryrun
+    from onephase_tpu_torch.ops.block_schur import arrow_factor, arrow_solve
+    from onephase_tpu_torch.parallel.mesh import spawn_ranks
+
+    t_phase = time.perf_counter()
+    # the ranks' device: this card (a CPU device for a rehearsal)
+    card = (f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda"
+            else str(dev))
+    refs = refs or {}
+    ref = {key: refs.get(key) or _mesh_dense(dev, None, key[3:])
+           for key in MESH_DENSE}
+    B = {"M1_f64": MIXED_SHAPE["batch"], "M1_f32": MESH_BENCH_SHAPE["batch"]}
+    rows_ref = {key: [_mesh_dense(dev, None, key[3:], rows=(
+        r * B[key] // MESH_WORLD, (r + 1) * B[key] // MESH_WORLD))
+        for r in range(MESH_WORLD)] for key in MESH_DENSE}
+    for key, kind in MESH_STRUCTURED:
+        ref[key] = _mesh_structured(dev, None, kind)
+    m1 = ref["M1_f64"]
+    if any(m1[k] != v for k, v in MESH_M1_ANCHOR.items()):
+        raise RuntimeError(f"mesh M1 unsharded: {m1['certified']}, "
+                           f"{m1['outer_its']}, {m1['cum_fac']} against "
+                           f"the anchor {MESH_M1_ANCHOR}")
+    s1 = SCEN_JAX_ANCHOR["S1"]
+    if (ref["M2_S1"]["status"], ref["M2_S1"]["outer_its"],
+            ref["M2_S1"]["cum_fac"]) != (s1["status"], s1["outer_its"],
+                                         s1["cum_fac"]):
+        raise RuntimeError(f"mesh S1 unsharded: {ref['M2_S1']['status']}")
+    for key in ("M4_chain", "M4_banded"):
+        if ref[key]["status"] != "Optimal":
+            raise RuntimeError(f"mesh {key} unsharded: {ref[key]['status']}")
+
+    # the dry run, M1, M2 S1 and M4 on two gloo ranks sharing the card
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(mesh_rank, MESH_WORLD, "gloo", card,
+                        timeout=MESH_TIMEOUT)
+    gloo_s = time.perf_counter() - t0
+    dry = [out["dryrun"] for out in ranks]
+    dryrun.check_dryrun(dry)
+    dry_s = max(sum(leg["seconds"] for leg in legs) for legs in dry)
+    for r, legs in enumerate(dry):
+        for leg in legs:
+            print(f"mesh dryrun {leg['leg']} rank {r}/{MESH_WORLD}: "
+                  f"{leg.get('statuses', '')} outer its "
+                  f"{leg.get('outer_its', '-')}, factorizations "
+                  f"{leg.get('factorizations', '-')}; K1/K2/K3 launches "
+                  f"{_k123(leg['launches'])}; {leg['seconds']:.4f} s",
+                  flush=True)
+    # M3: the dry run's arrow leg against the local solve (K2)
+    Qzz, Qkk, Bk, rz, rk = dryrun.arrow_blocks(8 * MESH_WORLD)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=dev)[None]
+
+    f = arrow_factor(t(Qzz), t(Qkk), t(Bk),
+                     torch.full((1,), 1e-6, dtype=torch.float64,
+                                device=dev), use_pallas=True)
+    dz, dxk = arrow_solve(f, t(Bk), t(rz), t(rk))
+    for r, legs in enumerate(dry):
+        arrow = legs[2]
+        ddz = float(np.abs(arrow["dz"] - dz.cpu().numpy()).max())
+        ddx = float(np.abs(arrow["dxk"] - dxk.cpu().numpy()).max())
+        print(f"mesh M3 arrow rank {r}: ok {arrow['ok']}, max |dz - local| "
+              f"{ddz:.3e}, max |dxk - local| {ddx:.3e}, equal "
+              f"{ddz == 0 and ddx == 0}; K2 launches "
+              f"{arrow['launches']['chol']}", flush=True)
+        if not (arrow["ok"] and ddz <= MESH_ARROW_ATOL
+                and ddx <= MESH_ARROW_ATOL
+                and arrow["launches"]["chol"] > 0):
+            raise RuntimeError(f"mesh M3 arrow rank {r}: {ddz}, {ddx}")
+
+    _mesh_line("M1_f64", ref["M1_f64"], ranks, _K123, per_instance=True)
+    _mesh_rows("M1_f64", rows_ref["M1_f64"], ranks)
+    # the float32 bench: its trajectory turns on the last bit (ROADMAP
+    # R5), which the rank's batch size may move; printed against the
+    # whole batch's run, held to the rank's rows solved at its batch
+    f32 = ref["M1_f32"]
+    for r, out in enumerate(ranks):
+        got = out["M1_f32"]
+        equal, diff = _x_vs(got["x"], f32["x"])
+        print(f"mesh M1_f32 rank {r}/{MESH_WORLD}: certified "
+              f"{got['certified']}, outer its {got['outer_its']}, "
+              f"factorizations {got['cum_fac']}; K1/K2/K3 launches "
+              f"{_k123(got['launches'])}; {got['seconds']:.4f} s; "
+              f"unsharded B={len(f32['t'])}: {f32['certified']}, "
+              f"{f32['outer_its']}, {f32['cum_fac']}, {f32['seconds']:.4f} "
+              f"s; per-instance iterations equal {got['t'] == f32['t']}; "
+              f"x equal {equal}, max rel diff {diff:.3e}", flush=True)
+        for k in _K123:
+            if got["launches"][k] <= 0:
+                raise RuntimeError(f"mesh M1_f32 rank {r}: no {k} launch")
+    for r, rr in enumerate(rows_ref["M1_f32"]):
+        print(f"mesh M1_f32 rows of rank {r} unsharded at B={len(rr['t'])}: "
+              f"certified {rr['certified']}, outer its {rr['outer_its']}, "
+              f"factorizations {rr['cum_fac']}", flush=True)
+    _mesh_rows("M1_f32", rows_ref["M1_f32"], ranks)
+    _mesh_line("M2_S1", ref["M2_S1"], ranks, ("chol",))
+    _mesh_line("M4_chain", ref["M4_chain"], ranks, ())
+    _mesh_line("M4_banded", ref["M4_banded"], ranks, ())
+
+    # M5: M1's float64 leg over nccl (one rank: NCCL takes one rank a card)
+    t0 = time.perf_counter()
+    nccl = spawn_ranks(mesh_rank_nccl, 1, "nccl", card,
+                       timeout=MESH_TIMEOUT)
+    nccl_s = time.perf_counter() - t0
+    _mesh_line("M5_f64", ref["M1_f64"], nccl, _K123, per_instance=True)
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s (gloo world "
+          f"{gloo_s:.1f} with the dry run's legs {dry_s:.1f}, nccl "
+          f"{nccl_s:.1f}, spawns included)", flush=True)
+    return {"M1_f64": [out["M1_f64"]["launches"] for out in ranks],
+            "M2_S1": [out["M2_S1"]["launches"] for out in ranks],
+            "M5_f64": [out["M5_f64"]["launches"] for out in nccl]}
 
 
 def main() -> int:
@@ -2168,6 +2536,9 @@ def main() -> int:
     # live tensor
     main_path, st, _ = bench_run(dev, 256, 128, 16, "pallas")
     x_pallas = st.p.x
+    # the mesh phase's unsharded M1 float32 batch (MESH_BENCH_SHAPE)
+    mesh_refs = {"M1_f32": _dense_figures(st, main_path["seconds"],
+                                          main_path["launches"])}
     ref, st, _ = bench_run(dev, 256, 128, 16, "invchol", require_all=False)
     x_invchol = st.p.x
     del st
@@ -2227,6 +2598,12 @@ def main() -> int:
     campaign = campaign_phase(dev)
     torch.cuda.synchronize()
 
+    # the multi-device layer: two ranks sharing the card over gloo, one
+    # rank over nccl; K1-K3 and K2 launched on every rank
+    mesh_refs["M1_f64"] = mixed["same"]["figures"]
+    mesh = mesh_phase(dev, mesh_refs)
+    torch.cuda.synchronize()
+
     # launches of each kernel on its own path: K1-K3 on the dense bench
     # run, K5 and K7 on the chain run (with those of the banded run
     # beside them); K6 lies on no path and carries its kernel phase's
@@ -2248,11 +2625,19 @@ def main() -> int:
     # times at the scenario shapes
     record["chol"]["launches_scenario_s1"] = scen_s1["launches"]["chol"]
     record["chol"]["scenario_shapes"] = scen_chol
-    # K1-K3 on the campaign path: launches on C1's warm pallas run (K1 on
+    # K1-K3 on the campaign path: launches on C1's pallas run (K1 on
     # the per-instance Jc, timed alone at its shape)
     for k in ("fused_q", "chol", "tri_inv_gram"):
         record[k]["launches_campaign_c1"] = campaign["C1"]["launches"][k]
     record["fused_q"]["per_instance_jc"] = k1_per_instance
+    # the mesh phase: launches on every rank (M1 f64 sharded 2 x 8 over
+    # gloo and on one nccl rank: K1-K3; S1 with 128 scenarios a rank: K2)
+    for k in ("fused_q", "chol", "tri_inv_gram"):
+        record[k]["launches_mesh_m1_per_rank"] = [
+            r[k] for r in mesh["M1_f64"]]
+        record[k]["launches_mesh_m5_nccl"] = mesh["M5_f64"][0][k]
+    record["chol"]["launches_mesh_s1_per_rank"] = [
+        r["chol"] for r in mesh["M2_S1"]]
     record["fused_q_tri"]["path"] = "none: launches of the kernel phase"
     # K3 is two launches: the inverse (tri_inv.cu), then the Gram product
     # on K1's kernel

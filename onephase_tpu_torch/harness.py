@@ -172,9 +172,13 @@ def run_problems(problems: Dict[str, NLPSpec], test_name: str,
     return summary
 
 
-def _process_identity(process_index, process_count):
-    """(index, count): the explicit arguments, else torch.distributed's
-    rank and world size when a process group is up, else (0, 1)."""
+def _process_identity(process_index, process_count, mesh=None):
+    """(index, count): the explicit arguments, else the mesh's rank and
+    size, else torch.distributed's rank and world size when a process
+    group is up, else (0, 1)."""
+    if mesh is not None:
+        return (mesh.rank if process_index is None else process_index,
+                mesh.size if process_count is None else process_count)
     dist = torch.distributed
     up = dist.is_available() and dist.is_initialized()
     pi = process_index if process_index is not None else (
@@ -190,7 +194,7 @@ def run_problems_multihost(problems: Dict[str, NLPSpec], test_name: str,
                            solve_func: Optional[Callable] = None,
                            process_index: Optional[int] = None,
                            process_count: Optional[int] = None,
-                           dtype=torch.float64, device=None):
+                           dtype=torch.float64, device=None, mesh=None):
     """Multi-host campaign driver (the SLURM-array replacement at the
     process level; reference benchmark/CUTEst/*.sbatch + resume-by-skip,
     run_cutest.jl:116-134).
@@ -200,11 +204,12 @@ def run_problems_multihost(problems: Dict[str, NLPSpec], test_name: str,
     resume included), then whichever host observes every shard complete
     merges them into the campaign-level `summary.json`/`summary.csv`.
     Process identity: `process_index`/`process_count`, else the rank and
-    world size of an initialized `torch.distributed` group, else 0 of 1.
+    size of `mesh` (parallel/mesh.Mesh), else the rank and world size of an
+    initialized `torch.distributed` group, else 0 of 1.
     Returns the merged summary, or None while other hosts are still
     running (call again later or let the last-finishing host merge).
     """
-    pi, pc = _process_identity(process_index, process_count)
+    pi, pc = _process_identity(process_index, process_count, mesh)
     names = sorted(problems)
     shard = {n: problems[n] for i, n in enumerate(names) if i % pc == pi}
     run_problems(shard, os.path.join(test_name, f"host{pi}"), pars,

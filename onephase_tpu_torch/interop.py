@@ -101,11 +101,32 @@ def _convert(tree, cls, dtype, device, add_batch):
     return cls(**vals)
 
 
-def state_from_numpy(tree, dtype=torch.float64, device=None) -> State:
+def _rows(tree, lo, hi):
+    """Rows [lo, hi) of every array of a batched numpy tree."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _rows(v, lo, hi) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        vals = [_rows(v, lo, hi) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    return np.asarray(tree)[lo:hi]
+
+
+def state_from_numpy(tree, dtype=torch.float64, device=None,
+                     mesh=None) -> State:
     """The port's `State` from a JAX `State` whose leaves are numpy arrays
     (batched or not); float leaves take `dtype`, on `device` (default: the
     CUDA card), except that a float64 state keeps its float32 leaves (the
-    factor and solve operator under the float32 factor knobs)."""
+    factor and solve operator under the float32 factor knobs).
+
+    With a `mesh` (parallel/mesh.py) the tree is a batched state (B, ...)
+    and this rank's rows [r B/D, (r+1) B/D) are taken: the state
+    `ShardedBatchSolver.run_chunk` continues from.  The way back is
+    `state_to_numpy(solver.gather(st))`: the full batch, rows in batch
+    order, in the JAX BatchSolver's batched layout."""
+    if mesh is not None:
+        tree = _rows(tree, *mesh.rows(len(np.asarray(tree.p.x))))
     add_batch = np.asarray(tree.p.x).ndim == 1
     dev = resolve_device(device)
     return _convert(tree, State, dtype, dev, add_batch)

@@ -315,6 +315,22 @@ class CanonNLP:
         j = self._j
         return {"l": j["l"], "u": j["u"], "lv": j["lv"], "uv": j["uv"]}
 
+    def shifted_bvals(self, shift):
+        """Bound values for the range-shift infeasible generator: the
+        constraint bounds lcon/ucon shifted by -shift, the variable bounds
+        unchanged.  A scalar `shift` gives unbatched (k,) values; a (B,)
+        one (a batch of shifts, the JAX package's vmap over this method)
+        gives (B, k) values."""
+        j = self._j
+        s = torch.as_tensor(shift, dtype=self.dtype, device=self.device)
+        if s.dim() == 0:
+            return {"l": j["l"] - s, "u": j["u"] - s,
+                    "lv": j["lv"], "uv": j["uv"]}
+        B = s.shape[0]
+        s = s[:, None]
+        return {"l": j["l"] - s, "u": j["u"] - s,
+                "lv": j["lv"].expand(B, -1), "uv": j["uv"].expand(B, -1)}
+
     def a_of(self, x, cvals=None, bvals=None, pdata=None):
         b = bvals if bvals is not None else self._j
         j = self._j

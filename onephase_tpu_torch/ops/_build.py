@@ -5,12 +5,15 @@ per source, all started together, and linked into one shared library with
 a plain C interface, loaded with `ctypes` (no PyTorch headers: a build
 takes seconds, not minutes).  The build runs at the first CUDA call, never
 at import, into `onephase_tpu_torch/build/`; the library's name carries a
-hash of the sources, so an edited source triggers a rebuild.
+hash of the sources, so an edited source triggers a rebuild.  Processes
+that find no library at once (ranks of one job) build it once, in turn
+(`_build`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -70,6 +73,51 @@ def _source_hash(files) -> str:
     return h.hexdigest()[:16]
 
 
+def _build(so: Path, srcs, nvcc: str) -> str:
+    """Compile `srcs` (one compiler process per source, all started
+    together) and link them into the shared library `so`; returns the
+    compiler's report, or "" when another process built `so` meanwhile.
+
+    Processes that build one library at once (ranks of one job sharing the
+    build directory) take turns on an advisory lock beside it, released
+    by the OS if its holder dies; a later one finds the library and
+    reuses it.  Objects and the unrenamed library carry the process id and
+    are removed whatever happens, and the library appears by an atomic
+    rename: no process ever loads a partial file."""
+    so.parent.mkdir(parents=True, exist_ok=True)
+    with open(so.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if so.exists():
+            return ""
+        tag = f"{so.stem}.{os.getpid()}"
+        objs = [so.with_name(f"{tag}.{src.stem}.o") for src in srcs]
+        tmp = so.with_name(f"{tag}.so.tmp")
+        try:
+            procs = [(src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+                for src, obj in zip(srcs, objs)]
+            logs, failed = [], []
+            for src, proc in procs:
+                out = proc.communicate()[0]
+                logs.append(f"{src.name}:\n{out}")
+                if proc.returncode != 0:
+                    failed.append(src.name)
+            log = "\n".join(logs)
+            if failed:
+                raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+            cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({' '.join(cmd)}):\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+            os.replace(tmp, so)
+        finally:
+            for f in (*objs, tmp):
+                f.unlink(missing_ok=True)
+    return log
+
+
 def library():
     """The loaded kernel library, built first if needed."""
     global _LIB, BUILD_SECONDS, BUILD_LOG
@@ -79,32 +127,7 @@ def library():
     so = BUILD_DIR / f"libonephase_kernels_{_source_hash(srcs + sorted(CSRC.glob('*.cuh')))}.so"
     t0 = time.perf_counter()
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
-        tag = f"{so.stem}.{os.getpid()}"
-        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
-        procs = [(src, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-            for src, obj in zip(srcs, objs)]
-        logs, failed = [], []
-        for src, proc in procs:
-            out = proc.communicate()[0]
-            logs.append(f"{src.name}:\n{out}")
-            if proc.returncode != 0:
-                failed.append(src.name)
-        BUILD_LOG = "\n".join(logs)
-        if failed:
-            raise RuntimeError(f"nvcc failed on {failed}:\n{BUILD_LOG}")
-        tmp = so.with_name(f"{tag}.so.tmp")
-        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({' '.join(cmd)}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        for obj in objs:
-            obj.unlink()
-        os.replace(tmp, so)
+        BUILD_LOG = _build(so, srcs, _nvcc())
     BUILD_SECONDS = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

@@ -20,8 +20,10 @@ and right-hand sides (..., K, nb).  One function thus serves the port's
 batch axis B and the partition axis P, which the JAX package vmaps.  The
 K-step recursions are Python loops (the JAX package's `lax.scan`); these
 are the plain versions of the `xla` lane, and the `pallas` lane's kernels
-(ops/tridiag_pallas.py) replace them on the card.  The mesh-sharding
-helpers of the JAX module are not ported.
+(ops/tridiag_pallas.py) replace them on the card.  The nested-dissection
+factor and solve take an optional mesh (parallel/mesh.py): the partition
+axis is then sharded over its ranks, as the JAX module's
+`shard_partitioned` shards it.
 """
 
 from __future__ import annotations
@@ -145,10 +147,41 @@ def _partition_blocks(Ad, Bs, P):
     return Kc, Li, Ai, Ei, Asep, Bu, Vs
 
 
-def partitioned_factor(Ad, Bs, delta, P) -> PartitionedFactor:
-    """Factor tridiag(B, A, B^T) + delta*I with P chunks (batched over P)."""
+def check_mesh_partitions(partitions: int, mesh, axis: str) -> None:
+    """Validate a partition-axis sharding request up front (the JAX
+    package's checks and messages): a mesh needs `kkt.chain_partitions`
+    > 1, an axis of that name and P divisible by its size."""
+    if partitions <= 1:
+        raise ValueError("a mesh requires kkt.chain_partitions > 1")
+    if axis not in mesh.shape:
+        raise ValueError(f"mesh has no axis {axis!r} (axes: "
+                         f"{tuple(mesh.shape)})")
+    size = mesh.shape[axis]
+    if partitions % size:
+        raise ValueError(
+            f"kkt.chain_partitions={partitions} must be divisible by the "
+            f"mesh {axis!r} axis size {size}")
+
+
+def _gather(mesh, local, dim):
+    """The full partition stack (identity without a mesh)."""
+    return local if mesh is None else mesh.gather(local, dim)
+
+
+def partitioned_factor(Ad, Bs, delta, P, mesh=None) -> PartitionedFactor:
+    """Factor tridiag(B, A, B^T) + delta*I with P chunks (batched over P).
+
+    With a `mesh` (parallel/mesh.Mesh; Ad and Bs replicated on every rank)
+    each rank factors its P/D chunks' interiors; the per-chunk coupling
+    terms are gathered (Mesh.gather, exact) and the reduced P-block system
+    is factored on every rank.  The interiors, Gu, Gv, Bu and Vs of the
+    result are the rank's own chunks; `red` and `ok` are replicated."""
     nb = Ad.shape[-1]
     Kc, Li, Ai, Ei, Asep, Bu, Vs = _partition_blocks(Ad, Bs, P)
+    if mesh is not None:
+        lo, hi = mesh.rows(P)
+        Ai, Ei = Ai[..., lo:hi, :, :, :], Ei[..., lo:hi, :, :, :]
+        Bu, Vs = Bu[..., lo:hi, :, :], Vs[..., lo:hi, :, :]
     interiors = tridiag_factor(Ai, Ei, delta)
 
     U = Ad.new_zeros(Ai.shape)
@@ -158,42 +191,58 @@ def partitioned_factor(Ad, Bs, delta, P) -> PartitionedFactor:
     Gu = tridiag_solve(interiors, U)
     Gv = tridiag_solve(interiors, V)
 
-    zero = Ad.new_zeros(Bu.shape[:-3] + (1, nb, nb))
+    # the chunks' coupling terms, each (..., P, nb, nb) on every rank:
+    # u_p' T_p^-1 u_p, v_p' T_p^-1 v_p and u_p' T_p^-1 v_p
+    UGu = _gather(mesh, torch.einsum("...pij,...pjk->...pik",
+                                     Bu, Gu[..., -1, :, :]), -3)
+    W = _gather(mesh, torch.einsum("...pji,...pjk->...pik",
+                                   Vs, Gv[..., 0, :, :]), -3)
+    UGv = _gather(mesh, torch.einsum("...pij,...pjk->...pik",
+                                     Bu, Gv[..., -1, :, :]), -3)
+    zero = Ad.new_zeros(Asep.shape[:-3] + (1, nb, nb))
     # S[p,p] = A_sep[p] + dI - u_p' T_p^-1 u_p - v_{p+1}' T_{p+1}^-1 v_{p+1}
-    W = torch.einsum("...pji,...pjk->...pik", Vs, Gv[..., 0, :, :])
     Wnext = torch.cat([W[..., 1:, :, :], zero], dim=-3)
-    S_dd = (Asep + _delta_eye(Asep, delta)
-            - torch.einsum("...pij,...pjk->...pik", Bu, Gu[..., -1, :, :])
-            - Wnext)
+    S_dd = Asep + _delta_eye(Asep, delta) - UGu - Wnext
     # S[p, p-1] = -u_p' T_p^-1 v_p
-    S_sub = -torch.einsum("...pij,...pjk->...pik", Bu[..., 1:, :, :],
-                          Gv[..., 1:, -1, :, :])
+    S_sub = -UGv[..., 1:, :, :]
     red = tridiag_factor(S_dd, S_sub, 0.0)
-    ok = interiors.ok.all(-1) & red.ok
+    ok = _gather(mesh, interiors.ok, -1).all(-1) & red.ok
     return PartitionedFactor(interiors=interiors, Gu=Gu, Gv=Gv, Bu=Bu,
                              Vs=Vs, red=red, ok=ok)
 
 
-def partitioned_solve(f: PartitionedFactor, b):
+def partitioned_solve(f: PartitionedFactor, b, mesh=None):
     """Solve with b (..., K, nb); interiors batched over P, reduced
-    sequential."""
-    P, Li, nb = f.Gu.shape[-4], f.Gu.shape[-3], f.Gu.shape[-1]
+    sequential.  With a `mesh` (the factor's; b replicated) each rank
+    solves its own chunks' interiors, and the separators' right-hand side
+    and the interior solutions are gathered: x is replicated."""
+    Pl, Li, nb = f.Gu.shape[-4], f.Gu.shape[-3], f.Gu.shape[-1]
+    P = Pl if mesh is None else Pl * mesh.size
     Kc = Li + 1
     lead = b.shape[:-2]
     bc = b.reshape(lead + (P, Kc, nb))
     bi, bsep = bc[..., :Li, :], bc[..., -1, :]
+    if mesh is not None:
+        lo, hi = mesh.rows(P)
+        bi = bi[..., lo:hi, :, :]
 
     yi = tridiag_solve(f.interiors, bi)
     zero = b.new_zeros(lead + (1, nb))
-    Z = torch.einsum("...pji,...pj->...pi", f.Vs, yi[..., 0, :])
+    Z = _gather(mesh, torch.einsum("...pji,...pj->...pi", f.Vs,
+                                   yi[..., 0, :]), -2)
+    Uy = _gather(mesh, torch.einsum("...pij,...pj->...pi", f.Bu,
+                                    yi[..., -1, :]), -2)
     Znext = torch.cat([Z[..., 1:, :], zero], dim=-2)
-    rs = (bsep - torch.einsum("...pij,...pj->...pi", f.Bu, yi[..., -1, :])
-          - Znext)
+    rs = bsep - Uy - Znext
     xs = tridiag_solve(f.red, rs)
 
     xs_prev = torch.cat([zero, xs[..., :-1, :]], dim=-2)
-    xi = (yi - torch.einsum("...pkij,...pj->...pki", f.Gu, xs)
-          - torch.einsum("...pkij,...pj->...pki", f.Gv, xs_prev))
+    xs_own, xs_prev_own = xs, xs_prev
+    if mesh is not None:
+        xs_own, xs_prev_own = xs[..., lo:hi, :], xs_prev[..., lo:hi, :]
+    xi = (yi - torch.einsum("...pkij,...pj->...pki", f.Gu, xs_own)
+          - torch.einsum("...pkij,...pj->...pki", f.Gv, xs_prev_own))
+    xi = _gather(mesh, xi, -3)
     return torch.cat([xi, xs.unsqueeze(-2)], dim=-2).reshape(
         lead + (P * Kc, nb))
 

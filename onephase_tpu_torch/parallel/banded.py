@@ -38,8 +38,9 @@ n gain nothing: use the dense `OnePhaseKernel` there.  A parametric problem
 (`NLPSpec.pdata`) takes its pattern from `sample_pdata` (one instance's
 data; default: the spec's template) and its per-instance data from the
 state, as in the JAX kernel; the matrix-free mode refuses it, as the JAX
-kernel does.  The JAX package's mesh sharding of the partitions is not
-ported: it raises.
+kernel does.  With a `mesh` (parallel/mesh.py, axis "chain") the
+partitions of the nested-dissection factor are sharded over its ranks, as
+on the chain path.
 """
 
 from __future__ import annotations
@@ -54,10 +55,12 @@ from ..ipm.core import OnePhaseKernel, _c
 from ..ipm.state import Cache, Factor, Point
 from ..native import rcm_order
 from ..nlp import CanonNLP, resolve_device
-from ..ops.block_tridiag import (TridiagFactor, partitioned_factor,
+from ..ops.block_tridiag import (TridiagFactor, check_mesh_partitions,
+                                 partitioned_factor,
                                  partitioned_solve, tridiag_factor,
                                  tridiag_solve)
 from ..ops.tridiag_pallas import pallas_tridiag_factor, pallas_tridiag_solve
+from .mesh import check_mesh_device
 
 
 def _structural_pattern(nlp: CanonNLP, n_samples: int,
@@ -104,18 +107,15 @@ class BandedKernel(OnePhaseKernel):
     `block_size` overrides the detected bandwidth (must be >= it).
     `pattern` ((n, n) bool, the structural nonzeros of H + J'J) skips the
     sample-based detection.  With `pars.kkt.chain_partitions > 1` the band
-    factors by nested dissection.  `device` defaults to the CUDA card and
-    must be where `nlp` lives.
+    factors by nested dissection, its partitions sharded over the
+    `chain_axis` of `mesh` when one is given.  `device` defaults to the
+    CUDA card and must be where `nlp` lives (and be the mesh's device).
     """
 
     def __init__(self, nlp: CanonNLP, pars: Params, block_size: int = None,
                  n_samples: int = 2, sample_pdata=None, mesh=None,
-                 matrix_free: bool = False, pattern: np.ndarray = None,
-                 device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh sharding of the band's partitions is not ported to "
-                "onephase_tpu_torch")
+                 chain_axis: str = "chain", matrix_free: bool = False,
+                 pattern: np.ndarray = None, device=None):
         if pars.kkt.kkt_solver_type != "schur":
             raise ValueError("BandedKernel implements the schur path only")
         if pars.kkt.linear_solver_type not in ("xla", "pallas"):
@@ -137,7 +137,11 @@ class BandedKernel(OnePhaseKernel):
             if nlp.parametric:
                 raise ValueError("matrix_free mode supports non-parametric "
                                  "problems (pdata-free oracles)")
+        if mesh is not None:
+            check_mesh_partitions(self.partitions, mesh, chain_axis)
+        self.mesh = mesh
         device = resolve_device(device)
+        check_mesh_device(mesh, device)
         if nlp.device.type != device.type:
             raise ValueError(f"the problem lives on {nlp.device}, the kernel "
                              f"was asked for {device}")
@@ -327,7 +331,8 @@ class BandedKernel(OnePhaseKernel):
         Qd, Qs = Q
         D = Qd.new_zeros(Qd.shape[0], 1)
         if self.partitions > 1:
-            pf = partitioned_factor(Qd, Qs, delta, self.partitions)
+            pf = partitioned_factor(Qd, Qs, delta, self.partitions,
+                                    self.mesh)
             return (pf, D), pf.ok
         if self.use_pallas:
             _, Ci, Ek, ok = pallas_tridiag_factor(Qd, Qs, delta)    # K7
@@ -339,7 +344,7 @@ class BandedKernel(OnePhaseKernel):
         """Permute -> banded block solve -> unpermute; b (B, n)."""
         bp = self._pad_perm(b, [-1]).reshape(b.shape[0], self.K, self.nb)
         if self.partitions > 1:
-            xp = partitioned_solve(L, bp)
+            xp = partitioned_solve(L, bp, self.mesh)
         elif self.use_pallas:
             xp = pallas_tridiag_solve(L[0], L[1], bp)               # K5
         else:
@@ -362,7 +367,8 @@ class BandedKernel(OnePhaseKernel):
         if self.partitions > 1:
             # identity-block factorization fixes the factor's structure;
             # ok=False marks it stale
-            L0 = partitioned_factor(eyeK, zsub, 0.0, self.partitions)
+            L0 = partitioned_factor(eyeK, zsub, 0.0, self.partitions,
+                                    self.mesh)
         else:
             L0 = (eyeK, zsub)
         if self.matrix_free:

@@ -65,15 +65,23 @@ class BatchSolver:
         t0 = _time.time()
         st = self.init(x0s, bvals, pdata)
         for _ in range(max_chunks):
-            if not bool((st.status == RUNNING).any()):
+            if self.num_running(st) == 0:
                 break
-            if _time.time() - t0 > self.pars.term.max_time:
+            if self._agree(_time.time() - t0 > self.pars.term.max_time):
                 st = st._replace(status=torch.where(
                     st.status == RUNNING, torch.full_like(st.status, MAX_TIME),
                     st.status))
                 break
             st = self.recheck_f64(self.run_chunk(st))
         return st
+
+    def num_running(self, st: State) -> int:
+        """The number of instances still RUNNING (one host read)."""
+        return int((st.status == RUNNING).sum())
+
+    def _agree(self, flag: bool) -> bool:
+        """A loop decision; the sharded solver takes it on every rank."""
+        return flag
 
     def recheck_f64(self, st: State) -> State:
         """Re-measure the termination criteria of RUNNING/STALLED instances

@@ -24,9 +24,14 @@ single solve is B = 1.  Lanes (`kkt.linear_solver_type`):
   `tridiag_solve`; with `kkt.chain_partitions` > 1 the nested-dissection
   `partitioned_factor` / `partitioned_solve`.
 
+With a `mesh` (parallel/mesh.py, axis "chain") the partitions of the
+nested-dissection factor are sharded over its ranks: each rank factors
+and solves its P/D chunks' interiors, the reduced system is gathered and
+factored on every rank (ops/block_tridiag.partitioned_factor); the stage
+work and the iterates stay replicated.
+
 `ChainSpec.to_nlpspec()` lowers to a flat NLPSpec, so the dense solver
-cross-checks the structured path.  The JAX package's mesh sharding of the
-partitions is not ported: a `mesh` raises.
+cross-checks the structured path.
 """
 
 from __future__ import annotations
@@ -42,10 +47,12 @@ from ..config import Params
 from ..ipm.core import OnePhaseKernel, _c, _norm_inf, check_structured
 from ..ipm.state import Cache, Dir, Factor, Point
 from ..nlp import NLPSpec, canonicalize, resolve_device
-from ..ops.block_tridiag import (TridiagFactor, partitioned_factor,
-                                 partitioned_solve, tridiag_factor,
-                                 tridiag_matvec, tridiag_solve)
+from ..ops.block_tridiag import (TridiagFactor, check_mesh_partitions,
+                                 partitioned_factor, partitioned_solve,
+                                 tridiag_factor, tridiag_matvec,
+                                 tridiag_solve)
 from ..ops.tridiag_pallas import pallas_tridiag_factor, pallas_tridiag_solve
+from .mesh import check_mesh_device
 
 
 @dataclass
@@ -101,13 +108,12 @@ class ChainKernel(OnePhaseKernel):
     """OnePhaseKernel whose KKT linear algebra is block-tridiagonal."""
 
     def __init__(self, spec: ChainSpec, pars: Params, dtype=None,
-                 device=None, mesh=None):
+                 device=None, mesh=None, chain_axis: str = "chain"):
         """`device` defaults to the CUDA card and must be where the spec's
-        data lives; `dtype` defaults to float64."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh sharding of the chain partitions is not ported to "
-                "onephase_tpu_torch")
+        data lives; `dtype` defaults to float64.  `mesh`/`chain_axis`: a
+        mesh whose `chain_axis` shards the partition axis of the
+        nested-dissection factor (kkt.chain_partitions > 1, divisible by
+        the axis size; the mesh's device is the kernel's)."""
         if pars.kkt.kkt_solver_type != "schur":
             raise ValueError("ChainKernel implements the schur path only")
         if pars.kkt.linear_solver_type not in ("xla", "pallas"):
@@ -125,8 +131,12 @@ class ChainKernel(OnePhaseKernel):
             raise ValueError(
                 f"chain_partitions={self.partitions} needs K={spec.K} "
                 "= P*Kc with Kc>=2")
+        if mesh is not None:
+            check_mesh_partitions(self.partitions, mesh, chain_axis)
+        self.mesh = mesh
         check_structured(pars, dtype or torch.float64)
         device = resolve_device(device)
+        check_mesh_device(mesh, device)
         if spec.device is not None and spec.device.type != device.type:
             raise ValueError(f"the chain's data lives on {spec.device}, the "
                              f"kernel was asked for {device}")
@@ -223,7 +233,8 @@ class ChainKernel(OnePhaseKernel):
         Qd, Qs = Q
         D = Qd.new_zeros(Qd.shape[0], 1)
         if self.partitions > 1:
-            pf = partitioned_factor(Qd, Qs, delta, self.partitions)
+            pf = partitioned_factor(Qd, Qs, delta, self.partitions,
+                                    self.mesh)
             return (pf, D), pf.ok
         if self.use_pallas:
             _, Ci, Ek, ok = pallas_tridiag_factor(Qd, Qs, delta)    # K7
@@ -234,7 +245,8 @@ class ChainKernel(OnePhaseKernel):
     def _tri_solve(self, fact, rhs):
         R = self._split_x(rhs)
         if self.partitions > 1:
-            return partitioned_solve(fact.L, R).reshape(rhs.shape)
+            return partitioned_solve(fact.L, R, self.mesh).reshape(
+                rhs.shape)
         if self.use_pallas:
             Ci, Ek = fact.L
             return pallas_tridiag_solve(Ci, Ek, R).reshape(rhs.shape)  # K5
@@ -310,7 +322,7 @@ class ChainKernel(OnePhaseKernel):
             # identity-block factorization fixes the factor's structure;
             # ok=False marks it stale
             L0 = partitioned_factor(eye.contiguous(), zeros(B, K - 1, nx, nx),
-                                    0.0, self.partitions)
+                                    0.0, self.partitions, self.mesh)
         else:
             L0 = (eye.contiguous(), zeros(B, K - 1, nx, nx))
         return Factor(

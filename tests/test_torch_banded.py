@@ -430,9 +430,12 @@ def test_constructor_checks_like_jax():
     with pytest.raises(ValueError):
         make(matrix_free=True, **{"kkt.linear_solver_type": "xla",
                                   "kkt.it_refine_highprec": True})
-    with pytest.raises(NotImplementedError):
+    # a mesh (tests/test_torch_mesh.py) needs partitions, as in the JAX
+    # package
+    from onephase_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(ValueError, match="chain_partitions > 1"):
         TBanded(nlp, TParams().with_overrides(_opts("xla")), device="cpu",
-                mesh=object())
+                mesh=make_mesh(axis="chain", device="cpu"))
     # sample_pdata is ported (tests/test_torch_parametric.py); on a
     # problem that is not parametric the JAX kernel ignores it, and so does
     # the port's

@@ -228,5 +228,9 @@ def test_constructor_checks_like_jax():
         make(**{"kkt.chain_partitions": 3})
     with pytest.raises(ValueError):
         make(**{"kkt.kkt_solver_type": "symmetric"})
-    with pytest.raises(NotImplementedError):
-        TChain(spec, TParams(), device=CPU, mesh=object())
+    # a mesh (tests/test_torch_mesh.py) needs partitions, as in the JAX
+    # package
+    from onephase_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(ValueError, match="chain_partitions > 1"):
+        TChain(spec, TParams(), device=CPU,
+               mesh=make_mesh(axis="chain", device=CPU))

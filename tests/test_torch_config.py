@@ -76,7 +76,7 @@ def _imports(path):
 def test_no_jax_import_anywhere():
     names = {p.relative_to(PKG).as_posix() for p in _modules()}
     assert {"ops/block_schur.py", "parallel/scenario.py",
-            "models/tax.py"} <= names
+            "models/tax.py", "parallel/mesh.py", "dryrun.py"} <= names
     assert {m.replace(".", "/") + ".py" for m in CAMPAIGN_MODULES} <= names
     for path in _modules():
         for mod in _imports(path):
@@ -100,7 +100,8 @@ def test_every_module_imports_without_nvcc_or_gpu():
     names = [m.name for m in pkgutil.walk_packages([str(PKG)],
                                                    "onephase_tpu_torch.")]
     for mod in ("ops.cholesky", "ops.block_schur", "parallel.scenario",
-                "models.examples", "models.tax") + CAMPAIGN_MODULES:
+                "models.examples", "models.tax", "parallel.mesh",
+                "dryrun") + CAMPAIGN_MODULES:
         assert f"onephase_tpu_torch.{mod}" in names
     for name in names:
         importlib.import_module(name)
@@ -123,10 +124,11 @@ def test_unported_options_raise():
     KKT system (symmetric and clever_symmetric, also with the eigh
     backend, and schur_dual on an LP), refuses a value no package knows
     and the JAX package's invalid combinations (ValueError) and still
-    refuses the unported options: `matmul_precision` on every kernel and a
-    device mesh on the structured ones (NotImplementedError).  The
-    structured kernels take the dense-path knobs as the JAX package's do
-    (tests/test_torch_structured_options.py)."""
+    refuses the unported option `matmul_precision` on every kernel
+    (NotImplementedError).  The structured kernels take the dense-path
+    knobs as the JAX package's do (tests/test_torch_structured_options.py)
+    and a mesh (parallel/mesh.py; tests/test_torch_mesh.py): a one-rank
+    mesh here, on the chain and banded kernels with partitions."""
     from onephase_tpu_torch.ipm.core import OnePhaseKernel
     from onephase_tpu_torch.ipm.dual import SchurDualKernel, make_kernel
     from onephase_tpu_torch.models import zoo
@@ -180,13 +182,17 @@ def test_unported_options_raise():
                   lambda p, **kw: BandedKernel(flat, p, device="cpu", **kw),
                   lambda p, **kw: ScenarioKernel(scen, p, device="cpu", **kw))
     xla = {"kkt.linear_solver_type": "xla"}
-    for make in structured:
+    parts = dict(xla, **{"kkt.chain_partitions": 2})
+    from onephase_tpu_torch.parallel.mesh import make_mesh
+    for make, axis, over in zip(structured, ("chain", "chain", "blk"),
+                                (parts, parts, xla)):
         make(tcfg.Params().with_overrides(xla))
         with pytest.raises(NotImplementedError):
             make(tcfg.Params().with_overrides(
                 dict(xla, matmul_precision="high")))
-        with pytest.raises(NotImplementedError):
-            make(tcfg.Params().with_overrides(xla), mesh=object())
+        k = make(tcfg.Params().with_overrides(over),
+                 mesh=make_mesh(axis=axis, device="cpu"))
+        assert k.mesh.size == 1
 
 
 def _entry_call(entry):

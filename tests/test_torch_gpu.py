@@ -497,3 +497,68 @@ def test_bucket_on_pallas_matches_cpu(cuda):
         if truth == "Optimal":
             np.testing.assert_allclose(on_card[name].x, on_cpu[name].x,
                                        rtol=0, atol=1e-5)
+
+
+def _build_rank(mesh, build_dir):
+    """One rank of test_two_ranks_build_one_library: build the kernel
+    library into `build_dir` (unless the other rank has) and load it."""
+    import ctypes
+    from pathlib import Path
+    from onephase_tpu_torch.ops import _build
+    so = Path(build_dir) / "libonephase_kernels_ranks.so"
+    log = _build._build(so, sorted(_build.CSRC.glob("*.cu")), _build._nvcc())
+    lib = ctypes.CDLL(str(so))
+    return {"built": bool(log), "loaded": hasattr(lib, "op_chol_f64")}
+
+
+@pytest.mark.gpu
+def test_two_ranks_build_one_library(cuda, tmp_path):
+    """Two ranks that find no library build it into a fresh directory at
+    once: one compiles, the other waits on the lock and loads the same
+    file; nothing but the library and its lock is left."""
+    from onephase_tpu_torch.parallel.mesh import spawn_ranks
+    out = spawn_ranks(_build_rank, 2, "gloo", "cpu", args=(str(tmp_path),),
+                      timeout=600.0, store_dir=str(tmp_path))
+    assert sorted(o["built"] for o in out) == [False, True]
+    assert all(o["loaded"] for o in out)
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "libonephase_kernels_ranks.lock", "libonephase_kernels_ranks.so"]
+
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt, n, m", [(torch.float32, 256, 128),
+                                      (torch.float64, 1024, 512)])
+def test_row_sum_depends_on_the_batch_and_the_kernels_do_not(cuda, dt, n,
+                                                             m):
+    """Why a rank's rows (B/D of them) are held to the same rows solved at
+    B/D and not to the whole batch's run: at the float32 bench's and the
+    mixed QP's shapes K1, K2 and K3 give rows 0:8 of a B = 16 batch bit for
+    bit equal to the same rows run at B = 8 (a block reads one instance),
+    but a row sum of a (B, n) tensor (`aten.sum` over dim 1, taken on
+    the dense path's first steps) rounds a row differently at B = 8 and B
+    = 16: the reduction kernel's layout follows the number of rows
+    (tools/roundoff_witness.py --part batch finds it the first operation
+    to depart)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=cuda, dtype=dt)
+
+    B, rows = 16, 8
+    Jc, w = r(m, n), r(B, m).abs() + 0.1
+    H, bnd = r(B, n, n), r(B, n).abs() + 1.0
+    H = H @ H.mT / n
+    Q = schur.pallas_fused_q(Jc, w, H, bnd)
+    assert torch.equal(Q[:rows],
+                       schur.pallas_fused_q(Jc, w[:rows], H[:rows],
+                                            bnd[:rows]))
+    L, _, ok = ch.pallas_chol(Q)
+    assert bool(ok.all())
+    assert torch.equal(L[:rows], ch.pallas_chol(Q[:rows].contiguous())[0])
+    assert torch.equal(ch.pallas_tri_inv_gram(L)[:rows],
+                       ch.pallas_tri_inv_gram(L[:rows].contiguous()))
+    v = r(B, n)
+    whole, part = v.sum(1), v[:rows].sum(1)
+    assert not torch.equal(whole[:rows], part)
+    assert _rel_err(whole[:rows], part) <= TOL[dt]

@@ -25,6 +25,9 @@ from onephase_tpu_torch.interop import state_from_numpy, state_to_numpy
 from onephase_tpu_torch.ipm.core import OnePhaseKernel as TKernel
 from test_torch_twins import (ZOO_OPTS, check_solve_parity, compare_states,
                               jax_solve, port_solve, zoo_pair)
+from test_torch_twins import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MEHROTRA = dict(ZOO_OPTS, **{"init.init_style": "mehrotra"})
 # the port's lane and the JAX lane that computes the same operator on

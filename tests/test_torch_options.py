@@ -10,6 +10,9 @@ import pytest
 from test_torch_twins import (ZOO_OPTS, check_carried_steps,
                               check_solve_parity, jax_solve, port_solve,
                               zoo_pair)
+from test_torch_twins import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # tests/test_parity_modes.py's options
 PM_OPTS = {"output_level": 0, "term!max_it": 81}

@@ -21,6 +21,9 @@ from onephase_tpu_torch.interop import state_from_numpy
 from onephase_tpu_torch.ipm.core import OnePhaseKernel as TKernel
 from test_torch_twins import (assert_close, check_solve_parity, jax_solve,
                               port_solve, zoo_pair)
+from test_torch_twins import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 BASE = {"term!max_it": 200, "output_level": 0, "term!tol_opt": 1e-6,
         "kkt!it_refine_adaptive": True}

@@ -257,7 +257,10 @@ def test_constructor_checks_like_jax():
         make(**{"kkt.kkt_solver_type": "symmetric"})
     with pytest.raises(ValueError):
         make(**{"kkt.linear_solver_type": "invchol"})
-    with pytest.raises(NotImplementedError):
-        TScen(spec, TParams(), device=CPU, mesh=object())
+    # a mesh (tests/test_torch_mesh.py) needs its scenario axis
+    from onephase_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(ValueError, match="mesh has no axis 'blk'"):
+        TScen(spec, TParams(), device=CPU,
+              mesh=make_mesh(axis="dp", device=CPU))
     # the JAX package runs "eigh" as its xla lane on this path
     assert not make(**{"kkt.linear_solver_type": "eigh"}).use_pallas

@@ -36,6 +36,9 @@ from onephase_tpu_torch.nlp import canonicalize as tcanon
 from onephase_tpu_torch.parallel.banded import BandedKernel as TBanded
 from onephase_tpu_torch.parallel.chain import ChainKernel as TChain
 from onephase_tpu_torch.parallel.scenario import ScenarioKernel as TScen
+from test_torch_twins import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CPU = torch.device("cpu")
 OPTS = {"output_level": 0, "term.max_it": 100, "chunk_size": 100,

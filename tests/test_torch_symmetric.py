@@ -32,6 +32,9 @@ from onephase_tpu_torch.ops import ldlt as tldlt
 from test_torch_twins import (ZOO_MU_RTOL, ZOO_OPTS, assert_close,
                               check_carried_steps, check_solve_parity,
                               jax_solve, port_solve, qp_pair, zoo_pair)
+from test_torch_twins import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SYM = {"kkt.kkt_solver_type": "symmetric"}
 CLEVER = {"kkt.kkt_solver_type": "clever_symmetric"}

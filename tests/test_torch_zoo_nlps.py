@@ -8,6 +8,9 @@ import pytest
 
 from test_torch_twins import (ZOO_OPTS, assert_close, check_zoo_case,
                               jax_solve, port_solve, zoo_pair)
+from test_torch_twins import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 NAMES = ["rosenbrook3", "rosenbrook4", "circle2", "circle_nc2",
          "circle_nc_inf1", "circle_nc_unbd", "starting_point_0.5",
