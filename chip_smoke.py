@@ -12,7 +12,7 @@ paths on the `pallas` lane:
 - the dense path (`NLPSpec -> canonicalize -> OnePhaseKernel (dense Schur)
   -> one_phase_solve / BatchSolver`): HS071 in float64, the bench
   configuration (n=256, m=128, batch 16, float32) and the n=1024, m=512,
-  batch 64 configuration (kernels K1-K3);
+  batch 64 configuration with adaptive refinement (kernels K1-K3);
 - the precision knobs on the dense path: the QP at n=1024, m=512, batch
   16 in float64 at tol 1e-6 with adaptive refinement (MIXED_RUNS), with
   the factor in float64, in float32 (K1-K3 launched on float32 operands
@@ -20,6 +20,24 @@ paths on the `pallas` lane:
   float32 on `invchol` under residual_precision="f64" (every certificate
   must pass the float64 termination test) and on `pallas` under
   q_form_dtype="bf16" (no Q kernel launch: the reference's dispatch);
+- `Params.matmul_precision` on the card (the precision phase, after the
+  mixed phase; ops/precision.py): the resolver's table on `cuda`; K1 (and
+  its lower mode, K3's Gram half), K2 and K3 in every mode the card
+  takes (TF32, TF32_X3, BF16 1/3/6/9 products, F16): on inputs with one
+  product an entry each kernel bit for bit its twin in every mode and off
+  the IEEE kernel where the mode takes at most 3 products; at 1024/512/64
+  against their twins (PREC_TOL) and against the recurrence each
+  computes, in float64 on its own output (TF32, BF16 and F16 at least
+  10x closer to their mode's than to IEEE's), timed in turns with the
+  IEEE kernel beside the bound (operations x products over the tensor
+  cores' rate for the mode's input type, and over the FP32 rate), K1
+  under TF32 beside `baddbmm` with cuBLAS's TF32; the mixed phase's
+  float64 "same" run under "high", x bit for bit "highest"'s; the bench
+  QP 256/128/16 float32 under BF16_BF16_F32_X6 on `pallas` (K1-K3
+  launched in the run's mode), beside the TPU's records of that
+  configuration (PREC_TPU_INVCHOL; tools/precision_bench.py runs the
+  other names and the `invchol` lane); the chain kernel's `pallas` lane
+  refusing a mode (K5 and K7 run IEEE only);
 - the chain path (`chain_ocp -> ChainKernel (block-tridiagonal Schur) ->
   run_chunk`): chain_ocp(K=400, nx=32, mc=16) in float32, the JAX
   package's large-instance configuration (scripts/bench_large.py), on the
@@ -81,6 +99,15 @@ paths on the `pallas` lane:
   `spawn` method and meet at a `file://` store; a rank that fails or
   hangs past MESH_TIMEOUT fails the phase.
 
+The phases up to the precision phase, and K2's times at the scenario
+shapes, run alone on the card: every time in the kernels line is theirs.
+The later phases then share the card (`later_phases`): the scenario and
+campaign phases each run in a spawned process of its own, and the mesh
+phase's ranks start with them, while this process runs the chain, banded
+and kkt phases and the mesh phase's unsharded runs, so the seconds those
+phases print are taken beside one another.  A child that fails or outlives
+PHASE_TIMEOUT fails the script, and every child is killed when it ends.
+
 The mixed phase also times K1, K2 and K3 at its shape in float64 and in
 float32, in turns.
 
@@ -101,14 +128,16 @@ version in turns with its time per stage at both band shapes, and K5 with
 its device time (`torch.profiler`) beside its byte bound and its
 dependence bound (2K stages of two chains of nb FMAs).  The build's
 `-Xptxas -v` lines (registers, spills) of the K1 (K6, K3's Gram), K2, K3,
-K5 and K7 kernels are printed first.  Float32 products run without TF32.
+K5 and K7 kernels are printed first.  Float32 products run without TF32
+outside the precision phase.
 
 Every phase raises on failure, so the script exits nonzero and never prints
 the final line; without a CUDA card it refuses to run.  The line before
 the last lists every kernel with its launches on its path, its error
 against the plain version, its time, the plain version's, a library
 call's where one PyTorch call computes the same function, and its bound
-(K1-K3 also with their launches on the mixed phase's float32 run, on
+(K1-K3 also with their records in each matmul mode at n=1024, `modes`,
+and their launches on the mixed phase's float32 run, on
 the kkt phase's LP pool and on the campaign's C1 run, K1 also with its
 per-instance-Jc record; K2 also with its launches on the scenario run and
 its times at the scenario shapes; K1-K3 also with their launches on each
@@ -675,6 +704,10 @@ REPS = 20
 # FLOP/s outside the tensor cores for each type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# the tensor cores' dense rates for a matmul mode's input type: a mode's
+# products are products of that type (the moded kernels run them on the
+# FP32 cores, but the card could take them at these rates)
+PEAK_FLOPS_MODE = {"tf32": 495e12, "bf16": 989e12, "f16": 989e12}
 DNAME = {4: "float32", 8: "float64"}    # by element size
 # cycles from one FMA's issue to its dependent's (FP32 on Hopper), the unit
 # of the block-tridiagonal kernels' dependence bounds
@@ -684,9 +717,10 @@ FMA_LATENCY_CYCLES = 4
 def _bound(nbytes, flops, dname="float32"):
     """(bound_ms, bound_by): the least time for `nbytes` moved (each input
     read once, each output written once) and `flops` done, the larger of
-    bytes over the memory rate and operations over the peak rate."""
+    bytes over the memory rate and operations over the peak rate of
+    `dname` (a dtype's name, or a matmul mode's input type)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dname] * 1e3
+    t_ops = flops / {**PEAK_FLOPS, **PEAK_FLOPS_MODE}[dname] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -767,8 +801,8 @@ def _err(got, ref):
     return diff / float(ref.abs().max()), diff
 
 
-def _time_turns(*fns) -> list:
-    """Medians of REPS launches of each function, the functions taken in
+def _time_turns(*fns, reps=REPS) -> list:
+    """Medians of `reps` launches of each function, the functions taken in
     turns (f, g, f, g, ...), each launch between two CUDA events: two
     versions compared on one card under the same conditions."""
     import torch
@@ -776,7 +810,7 @@ def _time_turns(*fns) -> list:
         fn()
     torch.cuda.synchronize()
     times = [[] for _ in fns]
-    for _ in range(REPS):
+    for _ in range(reps):
         for fn, ts in zip(fns, times):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -1411,12 +1445,13 @@ def hs071(dev):
 
 
 def bench_run(dev, n, m, batch, lane, extra=None, warmup=True,
-              require_all=True, base=None, dtype="float32"):
+              require_all=True, base=None, dtype="float32", seed=0):
     """bench.py:141-163 on the port: a warm-up chunk, then a timed run of
     fresh states to completion, with the batch driver's float64
     termination recheck between chunks.  `base` replaces the bench
-    options, `dtype` the solve dtype.  Returns (summary, final state,
-    kernel)."""
+    options, `dtype` the solve dtype; `seed` draws the QP (make_qp's
+    seed) and seed + 1 the starts (bench.py's 0 and 1).  Returns
+    (summary, final state, kernel)."""
     import torch
     from onephase_tpu_torch import ops
     from onephase_tpu_torch.config import Params
@@ -1428,10 +1463,10 @@ def bench_run(dev, n, m, batch, lane, extra=None, warmup=True,
     options = dict(base or BENCH_OPTIONS, **(extra or {}))
     options["kkt.linear_solver_type"] = lane
     pars = Params().with_overrides(options)
-    nlp = canonicalize(make_qp(n, m, seed=0, device=dev),
+    nlp = canonicalize(make_qp(n, m, seed=seed, device=dev),
                        dtype=getattr(torch, dtype), device=dev)
     solver = BatchSolver(nlp, pars)
-    x0s = np.random.default_rng(1).normal(size=(batch, nlp.n)) * 0.1
+    x0s = np.random.default_rng(seed + 1).normal(size=(batch, nlp.n)) * 0.1
     if warmup:
         solver.run_chunk(solver.init(x0s))
         torch.cuda.synchronize()
@@ -1450,6 +1485,7 @@ def bench_run(dev, n, m, batch, lane, extra=None, warmup=True,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = ops.launch_counts()
+    launch_modes = ops.launch_modes()
     solved = int((st.status == OPTIMAL).sum())
     fac = int(st.cum_fac.sum())
     outer = int((st.t - 1).sum())
@@ -1458,7 +1494,7 @@ def bench_run(dev, n, m, batch, lane, extra=None, warmup=True,
         "solved": solved, "seconds": dt, "fac_per_s": fac / dt,
         "solves_per_s": solved / dt, "outer_its": outer, "cum_fac": fac,
         "host_syncs": solver.kernel.host_syncs, "launches": launches,
-        "statuses": solver.statuses(st)}
+        "launch_modes": launch_modes, "statuses": solver.statuses(st)}
     print(f"bench n={n} m={m} B={batch} {dtype} {lane} {extra or ''}: "
           f"{solved}/{batch} Optimal, "
           f"{fac / dt:.2f} fac/s, {solved / dt:.2f} solves/s, {outer} outer "
@@ -1638,6 +1674,418 @@ def mixed_phase(dev):
         raise RuntimeError("q_form_dtype bf16 launched the Q kernel")
     runs["bf16_pallas"] = bf
     return runs
+
+
+# the precision phase (Params.matmul_precision, ops/precision.py): K1 (and
+# its lower mode, K3's Gram half), K2 and K3 in every mode of the card
+# against their twins in the same mode, at the dense path's larger shape
+# (n, m, B; K2 and K3 take n and B); the one-product checks take n = 256
+PREC_SHAPE = (1024, 512, 64)
+# max |kernel - twin| / max |twin|, by mode: the IEEE kernels' 1e-4
+# (summation order; a mode's products are exact in float32), and 5e-4 for
+# one-pass bf16, whose 8-bit operands turn a float32 summation difference
+# into a product 2^-8 apart where an entry lies by a rounding boundary: K3
+# at n=1024 put M 1.63e-4 from its twin while its own inverse held the
+# bf16 recurrence 2965x closer than IEEE's (PERF.md §6); the residuals
+# below hold each kernel to its mode's recurrence
+PREC_TOL = {"bf16": 5e-4}
+PREC_TOL_DEFAULT = 1e-4
+# modes whose rounding must show at PREC_SHAPE: the kernel's output at
+# least 10x closer to the recurrence it computes in its mode than in IEEE
+# (`_prec_kernels`' residuals; a distance to the IEEE kernel, relative to
+# the largest entry, drowns in float32 rounding at this size, PERF.md §6).
+# Every mode's ratio is printed: the 3-, 6- and 9-product sets come within
+# float32 rounding of IEEE (about 2^-16 a product and less, of the order
+# of a 512-term float32 sum's), so the one-product checks hold every
+# mode's arrival in every kernel (kernel and twin bit for bit; off the
+# IEEE kernel wherever the mode takes at most 3 products)
+PREC_REACH = ("tf32", "bf16", "f16")
+# the bench QP (n, m, B) in float32 under these names (lane, name): the
+# replay of the TPU's "highest" (6 bf16 passes) on the lane that runs
+# K1-K3.  The others (the invchol lane, which launches no kernel, and the
+# names that run to MAX_IT, 960 outer its, 26-47 s each on an H100,
+# PERF.md §5) do not fit the script's time limit:
+# tools/precision_bench.py runs them (PREC_BENCH_ALL)
+PREC_BENCH_SHAPE = (256, 128, 16)
+PREC_BENCH = (("pallas", "BF16_BF16_F32_X6"),)
+PREC_BENCH_ALL = (("pallas", "high"), ("pallas", "BF16_BF16_F32"),
+                  ("pallas", "BF16_BF16_F32_X3")) + PREC_BENCH + (
+                      ("invchol", "BF16_BF16_F32_X6"), ("invchol", "high"))
+# the TPU's records of that configuration on its invchol lane (TPU v5
+# lite, f32, tol 1e-4; certified, outer its, factorizations)
+PREC_TPU_INVCHOL = (
+    '"highest" (6 bf16 passes) 16/16 (results/bench_sweep.md:5); '
+    '"high" (3 passes) 12/16, 563, 965 (results/bench_sweep_prechigh.json); '
+    '"default" (1 pass) 0/16, 960, 1026 '
+    '(results/bench_sweep_precdefault.json)')
+
+
+def _moded_f64(a, b, md):
+    """a @ b with every product in mode `md`, each part product exact in
+    float64 and the sum taken in float64: the mode's reference."""
+    from onephase_tpu_torch.ops import precision
+    pa = [p.double() for p in precision.split(a, md)]
+    pb = [p.double() for p in precision.split(b, md)]
+    return sum(pa[i] @ pb[j] for i, j in md.pairs)
+
+
+def _prec_kernels(dev, n, m, B):
+    """({name: (kernel(mode), twin(mode), operations, (input(mode) or
+    None, residual(out, mode)))}, (Jc, w, H)) at one shape.  K1 on the kernel phase's Jc, w and
+    bnd with H = None (the rank-m product alone, where a mode acts), K1's
+    lower mode on an L^-1, K2 on an SPD Q, K3 on that Q's factor; the same
+    inputs for every mode.  `residual` is the largest distance of the
+    kernel's own output from the recurrence it computes with every product
+    taken in `mode` (float64, exact part products): for K1 and its Gram
+    mode the product itself (the lower triangle, which the path reads), for
+    K2 L[i, j] L[j, j] = Q[i, j] - sum_{k<j} m(L[i, k], L[j, k]), for K3
+    its inverse half, X[r, c] L[r, r] = delta_rc - sum_{k<r} m(L[r, k],
+    X[k, c]).  It is small in the kernel's own mode (float32 sums) and
+    large in another one; taken on the kernel's output, no rounding of an
+    operand can fall the other way."""
+    import torch
+    from onephase_tpu_torch.ops import cholesky as ch
+    from onephase_tpu_torch.ops import precision, schur
+
+    rng = np.random.default_rng(n + B)
+    f32 = torch.float32
+    Jc = torch.as_tensor(rng.normal(size=(m, n)) / np.sqrt(n), dtype=f32,
+                         device=dev)
+    w = torch.as_tensor(rng.uniform(0.1, 10.0, size=(B, m)), dtype=f32,
+                        device=dev)
+    H = None
+    bnd = torch.as_tensor(rng.uniform(0.0, 5.0, size=(B, n)), dtype=f32,
+                          device=dev)
+    Q = _spd(rng, B, n, f32, dev)
+    L = ch.pallas_chol(Q, mode=precision.IEEE)[0]
+    Li = torch.empty_like(L)
+    ch.launch_tri_inv(L, Li)
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+
+    def gram(md):
+        G = torch.empty_like(Li)
+        schur.launch_fused_q(Li, None, None, None, G, lower=True, mode=md)
+        return G
+
+    def res_k1(out, md):
+        ref = _moded_f64((Jc * w[:, :, None]).mT, Jc, md) + \
+            torch.diag_embed(bnd.double())
+        return float((out.double() - ref).tril().abs().max())
+
+    def res_gram(out, md):
+        return float((out.double() - _moded_f64(Li.mT, Li, md)).tril()
+                     .abs().max())
+
+    def res_chol(out, md):
+        d = torch.diagonal(out, dim1=-2, dim2=-1)
+        s = _moded_f64(out, out.mT, md)
+        # less the k = j term of each entry, m(L[i, j], L[j, j])
+        s -= sum(pi.double() * pj.double()[:, None, :] for (pi, pj) in (
+            (precision.split(out, md)[i], precision.split(d, md)[j])
+            for i, j in md.pairs))
+        r = Q.double() - s - out.double() * d.double()[:, None, :]
+        return float(r.tril().abs().max())
+
+    def inverse(md):
+        X = torch.empty_like(L)
+        ch.launch_tri_inv(L, X, md)
+        return X
+
+    def res_inv(X, md):
+        s = _moded_f64(torch.tril(L, -1), X, md)
+        d = torch.diagonal(L, dim1=-2, dim2=-1).double()
+        r = eye - s - X.double() * d[:, :, None]
+        return float(r.tril().abs().max())
+
+    # name: kernel, twin, operations, (what the residual reads, residual)
+    return {
+        "K1": (lambda md: schur.pallas_fused_q(Jc, w, H, bnd, mode=md),
+               lambda md: schur.xla_fused_q(Jc, w, H, bnd, mode=md),
+               B * m * n * (n + 1), (None, res_k1)),
+        "K1_lower": (gram, lambda md: precision.matmul(Li.mT, Li, md),
+                     B * n ** 3 / 3, (None, res_gram)),
+        "K2": (lambda md: ch.pallas_chol(Q, mode=md)[0],
+               lambda md: ch.blocked_chol(Q, md)[0], B * n ** 3 / 3,
+               (None, res_chol)),
+        "K3": (lambda md: ch.pallas_tri_inv_gram(L, mode=md),
+               lambda md: ch.xla_chol_inv_from_L(L, md), 2 * B * n ** 3 / 3,
+               (inverse, res_inv)),
+    }, (Jc, w, H)
+
+
+def one_product_operands(B, n, seed, device):
+    """(Q, L), float32 (B, n, n), on which K2 and K3 take at most one
+    product of two nonzero entries for an entry of their output, outside
+    every diagonal block: row i >= n/2 has one off-diagonal entry a_i, at
+    column c = i - n/2, and no other row has one in that column (n/2 >=
+    128: c lies in an earlier 64-column panel of K2 and an earlier 32-row
+    chunk of K3).  Q has a unit diagonal above n/2, Q[i, c] = a_i and
+    Q[i, i] = a_i^2 + 1/4, so K2's factor has L[c, c] = 1, L[i, c] = a_i
+    and L[i, i] from the pivot 1/4 + a_i^2 - m(a_i, a_i), the product m
+    taken in a trailing update; L is unit lower triangular with
+    L[i, c] = a_i, so K3's inverse has X[i, c] = -m(a_i, 1), taken in a
+    block update.  Both updates sum the mode's part products from +0 and
+    subtract the sum, as the twins do, and the divisions are by 1, so a
+    kernel and its twin agree bit for bit in every mode."""
+    import torch
+    h = n // 2
+    a = torch.as_tensor(np.random.default_rng(seed).normal(size=(B, h)),
+                        dtype=torch.float32)
+    i, c = torch.arange(h, n), torch.arange(h)
+    L = torch.eye(n).repeat(B, 1, 1)
+    L[:, i, c] = a
+    Q = L.clone()
+    Q[:, c, i] = a
+    Q[:, i, i] = (a.double() ** 2 + 0.25).float()
+    return Q.to(device), L.to(device)
+
+
+def _prec_one_product(dev):
+    """Every mode reaches K1, its lower mode, K2 and K3: on inputs with one
+    product an entry (K1: one constraint row; its lower mode: an L^-1 whose
+    last row alone is nonzero; K2, K3: `one_product_operands`) each kernel
+    equals its twin bit for bit in every card mode, and, where the mode
+    takes at most 3 products, differs from the IEEE kernel (the 6- and
+    9-product sets may round to the IEEE product).  So a kernel that ran
+    IEEE in place of a mode fails, whatever the mode."""
+    import torch
+    from onephase_tpu_torch.ops import cholesky as ch
+    from onephase_tpu_torch.ops import precision, schur
+    rng = np.random.default_rng(4)
+    n, B = 256, 4
+    Jc = torch.as_tensor(rng.normal(size=(1, n)), dtype=torch.float32,
+                         device=dev)
+    w = torch.as_tensor(rng.uniform(0.1, 10.0, size=(B, 1)),
+                        dtype=torch.float32, device=dev)
+    bnd = torch.zeros(B, n, device=dev)
+    Li = torch.zeros(B, n, n, device=dev)
+    Li[:, -1] = torch.as_tensor(rng.normal(size=(B, n)), dtype=torch.float32,
+                                device=dev)
+    Q, L = one_product_operands(B, n, 5, dev)
+
+    def gram(md):
+        G = torch.empty_like(Li)
+        schur.launch_fused_q(Li, None, None, None, G, lower=True, mode=md)
+        return G.tril()
+
+    def inverse(md):
+        X = torch.empty_like(L)
+        ch.launch_tri_inv(L, X, md)
+        return X
+
+    # name: (kernel(mode), twin(mode))
+    pairs = {
+        "K1": (lambda md: schur.pallas_fused_q(Jc, w, None, bnd,
+                                               mode=md).tril(),
+               lambda md: schur.xla_fused_q(Jc, w, None, bnd,
+                                            mode=md).tril()),
+        "K1_lower": (gram,
+                     lambda md: precision.matmul(Li.mT, Li, md).tril()),
+        "K2": (lambda md: ch.pallas_chol(Q, mode=md)[0],
+               lambda md: ch.blocked_chol(Q, md)[0]),
+        "K3": (inverse, lambda md: ch.blocked_tri_inv(L, mode=md)),
+    }
+    for name, (kern, twin) in pairs.items():
+        ieee = kern(precision.IEEE)
+        out = []
+        for md in precision.CARD_MODES:
+            got = kern(md)
+            same = torch.equal(got, twin(md))
+            moved = int((got != ieee).sum())
+            out.append(f"{md} {'=' if same else 'DIFFERS'} ({moved} "
+                       "entries off IEEE)")
+            if not same:
+                raise RuntimeError(f"precision: one-product {name} in {md} "
+                                   "is not its twin bit for bit")
+            if md.passes <= 3 and moved == 0:
+                raise RuntimeError(f"precision: one-product {name} in {md} "
+                                   "is the IEEE kernel's, bit for bit")
+        print(f"precision one-product {name} vs twin: {'; '.join(out)}",
+              flush=True)
+
+
+def precision_kernel_checks(dev):
+    """The kernels in every card mode against their twins (PREC_TOL), the
+    reach criterion on PREC_REACH (the kernel's output within the mode's
+    recurrence at least 10x closer than within IEEE's), timed in turns
+    with the IEEE kernel (the twin once, by its comparison call), beside
+    the bound: the larger of the bytes over the memory rate and
+    operations x products a pass set over the tensor cores' rate for the
+    mode's input type (TF32 495, bf16 and fp16 989 TFLOP/s), and the same
+    products over the FP32 rate (`ffma_bound_ms`).  Returns {kernel:
+    {mode: record}}."""
+    import torch
+    from onephase_tpu_torch.ops import precision
+
+    _prec_one_product(dev)
+    rec = {}
+    n, m, B = PREC_SHAPE
+    kernels, (Jc, w, H) = _prec_kernels(dev, n, m, B)
+    for name, (kern, twin, flops, (rin, residual)) in kernels.items():
+        # K1's two modes: compared on the lower triangle
+        view = torch.tril if name.startswith("K1") else (lambda t: t)
+        parts = []
+        # each input read once, each output written once (float32)
+        nbytes = 4 * (B * n * n + (m * n + B * m + B * n
+                                   if name == "K1" else B * n * n))
+        for md in precision.CARD_MODES:
+            out = kern(md)
+            # the twin timed once, by its comparison call
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            tw = twin(md)
+            end.record()
+            torch.cuda.synchronize()
+            twin_ms = start.elapsed_time(end)
+            got, tw = view(out), view(tw)
+            d_twin, d_twin_abs = _err(got, tw)
+            # the residual reads the output (K3: its inverse half)
+            rout = out if rin is None else rin(md)
+            r_mode = residual(rout, md)
+            r_ieee = residual(rout, precision.IEEE)
+            ratio = r_ieee / max(r_mode, 1e-30)
+            del out, got, tw, rout
+            times = _time_turns(lambda: kern(md),
+                                lambda: kern(precision.IEEE), reps=5)
+            # the bound at the mode's input type's tensor-core rate; beside
+            # it, the same products on the FP32 cores, where the moded
+            # kernels run them
+            bound, bound_by = _bound(nbytes, flops * md.passes, md.kind)
+            ffma = flops * md.passes / PEAK_FLOPS["float32"] * 1e3
+            part = (f"{md} err {d_twin:.2e}, residual {r_mode:.2e} "
+                    f"(IEEE's {r_ieee:.2e}, {ratio:.1f}x) "
+                    f"{times[0]:.4f} ms vs IEEE {times[1]:.4f} twin "
+                    f"{twin_ms:.4f} bound {bound:.4f} ({bound_by}; on the "
+                    f"FP32 cores {ffma:.4f})")
+            parts.append(part)
+            if name != "K1_lower":
+                key = {"K1": "fused_q", "K2": "chol",
+                       "K3": "tri_inv_gram"}[name]
+                rec.setdefault(key, {})[str(md)] = {
+                    "max_abs_err": d_twin_abs, "ms": times[0],
+                    "ieee_ms": times[1], "plain_ms": twin_ms,
+                    "bound_ms": bound, "bound_by": bound_by,
+                    "ffma_bound_ms": ffma, "library_ms": None,
+                    "rel_to_twin": d_twin, "residual": r_mode,
+                    "residual_ieee": r_ieee}
+            if not d_twin <= PREC_TOL.get(str(md), PREC_TOL_DEFAULT):
+                raise RuntimeError(f"precision: {name} n={n} in {md} "
+                                   f"disagrees with its twin: {part}")
+            if str(md) in PREC_REACH and not ratio >= 10:
+                raise RuntimeError(f"precision: {name} n={n} in {md} "
+                                   f"does not show its mode: {part}")
+        print(f"precision {name} n={n} m={m} B={B}: " + "; ".join(parts),
+              flush=True)
+    # K1's library yardstick under TF32: baddbmm with cuBLAS's TF32 on
+    kern = kernels["K1"][0]
+    Hb, A, Jb = _baddbmm_operands(Jc, w, H, B)
+    saved = torch.backends.cuda.matmul.allow_tf32
+
+    def tf32_baddbmm():
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.baddbmm(Hb, A, Jb)
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+    ms, lms = _time_turns(lambda: kern(precision.TF32), tf32_baddbmm)
+    print(f"precision K1 tf32 n={n} m={m} B={B}: kernel {ms:.4f} ms, "
+          f"baddbmm with cuBLAS TF32 {lms:.4f} ms (in turns)", flush=True)
+    rec["fused_q"]["tf32"]["library_ms"] = lms
+    return rec
+
+
+def precision_bench(dev, runs, seed=0):
+    """The bench QP at PREC_BENCH_SHAPE in float32 under each (lane, name)
+    of `runs` (the QP and starts from `seed`, as `bench_run`), printed
+    beside the TPU's records: every run ends with valid statuses and, on
+    `pallas`, K1-K3 launched in the run's mode.  Returns {(lane, name):
+    summary}."""
+    from onephase_tpu_torch.ipm.state import RUNNING, STATUS_NAMES
+    from onephase_tpu_torch.ops import precision
+
+    valid = {v for k, v in STATUS_NAMES.items() if k != RUNNING}
+    out = {}
+    for lane, name in runs:
+        res, _, _ = bench_run(dev, *PREC_BENCH_SHAPE, lane,
+                              extra={"matmul_precision": name},
+                              warmup=False, require_all=False, seed=seed)
+        mode = str(precision.resolve(name, "cuda"))
+        modes = {k: res["launch_modes"].get(k, {})
+                 for k in ("fused_q", "chol", "tri_inv_gram")}
+        print(f"precision bench {'/'.join(map(str, PREC_BENCH_SHAPE))} f32 "
+              f"{'' if seed == 0 else f'seed {seed} '}"
+              f"{lane} {name} ({mode}): {res['solved']}/{PREC_BENCH_SHAPE[2]}"
+              f" certified, {res['outer_its']} outer its, "
+              f"{res['cum_fac']} factorizations, {res['seconds']:.4f} s; "
+              f"K1/K2/K3 launches by mode {json.dumps(modes)}", flush=True)
+        if not set(res["statuses"]) <= valid:
+            raise RuntimeError(f"precision bench {lane} {name}: statuses "
+                               f"{res['statuses']}")
+        if lane == "pallas" and not all(
+                res["launches"][k] > 0 and modes[k] == {
+                    mode: res["launches"][k]} for k in modes):
+            raise RuntimeError(f"precision bench {name}: K1-K3 not "
+                               f"launched in {mode}: {modes}")
+        out[(lane, name)] = res
+    print(f"precision TPU invchol records 256/128/16: {PREC_TPU_INVCHOL}",
+          flush=True)
+    return out
+
+
+def precision_phase(dev, x_same_f64):
+    """Params.matmul_precision on the card: the resolver's table; K1-K3 in
+    every mode against their twins; the mixed phase's float64 "same" run
+    under "high", bit for bit its "highest" run (`x_same_f64`); the bench
+    QP under PREC_BENCH beside the TPU's records (the certified counts are
+    findings; every run ends with valid statuses and, on `pallas`, K1-K3
+    launched in the run's mode); the chain kernel's `pallas` lane refusing
+    a mode (K5/K7 run IEEE only).  Returns {kernel: {mode: record}}."""
+    import torch
+    from onephase_tpu_torch.config import Params
+    from onephase_tpu_torch.models.examples import chain_ocp
+    from onephase_tpu_torch.ops import precision
+    from onephase_tpu_torch.parallel.chain import ChainKernel
+
+    t0 = time.perf_counter()
+    table = {}
+    for name in ("",) + precision.JAX_ENUM:
+        try:
+            table[name] = str(precision.resolve(name, "cuda"))
+        except ValueError:
+            table[name] = "ValueError"
+    print(f"precision table (cuda): {json.dumps(table)}", flush=True)
+
+    rec = precision_kernel_checks(dev)
+
+    # float64 under "high": the knob touches float32 products only
+    high, st, _ = bench_run(
+        dev, MIXED_SHAPE["n"], MIXED_SHAPE["m"], MIXED_SHAPE["batch"],
+        "pallas", extra={"matmul_precision": "high"}, warmup=False,
+        require_all=False, base=MIXED_OPTIONS, dtype="float64")
+    equal = bool(np.array_equal(st.p.x.cpu().numpy(), x_same_f64))
+    print(f"precision f64 high: {high['solved']}/{MIXED_SHAPE['batch']}, "
+          f"{high['outer_its']} outer its, {high['cum_fac']} "
+          f"factorizations; x bit for bit the \"highest\" run's: {equal}",
+          flush=True)
+    if not equal:
+        raise RuntimeError("precision: a float64 solve under \"high\" "
+                           "departs from \"highest\"")
+
+    precision_bench(dev, PREC_BENCH)
+
+    # K5 and K7 take no mode: the chain kernel's pallas lane refuses one
+    pars = Params().with_overrides({"kkt.linear_solver_type": "pallas",
+                                    "matmul_precision": "BF16_BF16_F32"})
+    try:
+        ChainKernel(chain_ocp(K=4, nx=2, mc=1, device=dev), pars,
+                    dtype=torch.float32, device=dev)
+    except NotImplementedError as e:
+        print(f"precision chain pallas BF16_BF16_F32: NotImplementedError "
+              f"({e})", flush=True)
+    else:
+        raise RuntimeError("precision: the chain pallas lane took a mode")
+    print(f"precision phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rec
 
 
 def kkt_lp(seed, n, m):
@@ -1909,7 +2357,9 @@ def scenario_phase(dev):
     """The arrow-KKT path on the card (S1-S4, see SCEN_*).  Every status is
     held to the JAX anchor's; S1 must launch K2 on the pallas lane and no
     kernel on the xla lane; S2 and S3 hold the arrow run to the dense one.
-    Returns (S1's pallas summary, K2's records at the scenario shapes)."""
+    (K2's times at the path's shapes are `scenario_chol_shapes`', taken
+    before the later phases share the card.)  Returns S1's pallas
+    summary."""
     import torch
     import onephase_tpu_torch as opt
     from onephase_tpu_torch.config import Params
@@ -1918,7 +2368,6 @@ def scenario_phase(dev):
     from onephase_tpu_torch.parallel.scenario import ScenarioKernel
 
     t_phase = time.perf_counter()
-    chol_shapes = scenario_chol_shapes(dev)
 
     def pars(base, lane):
         return Params().with_overrides(
@@ -1974,7 +2423,7 @@ def scenario_phase(dev):
         _scen_line(name, f"S4 {name} f64 dense", summary)
     print(f"scenario phase: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return s1["pallas"], chol_shapes
+    return s1["pallas"]
 
 
 def _camp_problems(key):
@@ -2180,6 +2629,15 @@ def campaign_phase(dev):
 # of 16.
 MESH_WORLD = 2
 MESH_TIMEOUT = 600.0
+# the phases after the precision phase share the card: the scenario and
+# campaign phases each run in a process of its own (`phase_rank`), and the
+# mesh phase's ranks start with them, while this process runs the chain,
+# banded and kkt phases and the mesh phase's unsharded runs.  Everything
+# timed into the kernels line runs before, alone on the card.  Each child
+# takes CHILD_THREADS intra-op threads (six processes on the host's
+# eight cores); a phase that outlives PHASE_TIMEOUT seconds fails.
+CHILD_THREADS = 2
+PHASE_TIMEOUT = 900.0
 MESH_BENCH_SHAPE = {"n": 256, "m": 128, "batch": 16}
 MESH_M1_ANCHOR = {"certified": 16, "outer_its": 207, "cum_fac": 223}
 MESH_CHAIN_PARTITIONS = 8
@@ -2297,23 +2755,72 @@ def _mesh_structured(dev, mesh, key):
 
 def mesh_rank(mesh):
     """One rank of the mesh phase's gloo world: the dry run, M1, M2 S1
-    and M4."""
+    and M4 (and the seconds they took on this rank)."""
     from onephase_tpu_torch import dryrun
     from onephase_tpu_torch.ops import _build
+    t0 = time.perf_counter()
     _build.library()              # built by the parent; loaded here
     out = {"dryrun": dryrun.rank_dryrun(mesh)}
     out.update({key: _mesh_dense(mesh.device, mesh, key[3:])
                 for key in MESH_DENSE})
     for key, kind in MESH_STRUCTURED:
         out[key] = _mesh_structured(mesh.device, mesh, kind)
+    out["seconds"] = time.perf_counter() - t0
     return out
 
 
 def mesh_rank_nccl(mesh):
     """M5: M1's float64 leg on a one-rank nccl group."""
     from onephase_tpu_torch.ops import _build
+    t0 = time.perf_counter()
     _build.library()
-    return {"M5_f64": _mesh_dense(mesh.device, mesh, "f64")}
+    out = {"M5_f64": _mesh_dense(mesh.device, mesh, "f64")}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_rank(mesh, phase):
+    """A later phase in a process of its own (a one-rank gloo group on the
+    card): `phase(device)`, with float32 products in full float32 as in
+    the parent.  Returns its result."""
+    import torch
+    from onephase_tpu_torch.ops import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()
+    return phase(mesh.device)
+
+
+def phase_start(dev, phase, stack):
+    """Start `phase_rank(phase)` beside this process (killed by `stack`,
+    an ExitStack, if the script fails first); `.results()[0]` is the
+    phase's result."""
+    from onephase_tpu_torch.parallel.mesh import SpawnedRanks
+    return stack.enter_context(SpawnedRanks(
+        phase_rank, 1, "gloo", _card_name(dev), args=(phase,),
+        timeout=PHASE_TIMEOUT, threads=CHILD_THREADS))
+
+
+def _card_name(dev):
+    """The ranks' device: this card (a CPU device for a rehearsal)."""
+    import torch
+    return (f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda"
+            else str(dev))
+
+
+def mesh_start(dev, stack):
+    """Start the mesh phase's ranks, which run while this process works
+    on: the gloo world (MESH_WORLD ranks, `mesh_rank`) and the one-rank
+    nccl group (`mesh_rank_nccl`).  `stack` (an ExitStack) kills them if
+    the script fails first.  Returns {"gloo": ranks, "nccl": ranks}."""
+    from onephase_tpu_torch.parallel.mesh import SpawnedRanks
+    card = _card_name(dev)
+    return {"gloo": stack.enter_context(SpawnedRanks(
+                mesh_rank, MESH_WORLD, "gloo", card, timeout=MESH_TIMEOUT,
+                threads=CHILD_THREADS)),
+            "nccl": stack.enter_context(SpawnedRanks(
+                mesh_rank_nccl, 1, "nccl", card, timeout=MESH_TIMEOUT,
+                threads=CHILD_THREADS))}
 
 
 def _k123(launches):
@@ -2377,21 +2884,17 @@ def _mesh_rows(key, rows_ref, ranks):
                                "the unsharded run of those rows")
 
 
-def mesh_phase(dev, refs=None):
+def mesh_phase(dev, worlds, refs=None):
     """The sharded paths (see MESH_*): the unsharded runs here (M1's whole
     batches from `refs`, {key: _dense_figures}, where earlier phases ran
-    them), then the dry run, M1-M4 on MESH_WORLD gloo ranks sharing the
-    card and M5 on a one-rank nccl group.  Returns {leg: per-rank
-    launches}."""
+    them), then the results of `worlds` (`mesh_start`'s): the dry run,
+    M1-M4 on MESH_WORLD gloo ranks sharing the card and M5 on a one-rank
+    nccl group.  Returns {leg: per-rank launches}."""
     import torch
     from onephase_tpu_torch import dryrun
     from onephase_tpu_torch.ops.block_schur import arrow_factor, arrow_solve
-    from onephase_tpu_torch.parallel.mesh import spawn_ranks
 
     t_phase = time.perf_counter()
-    # the ranks' device: this card (a CPU device for a rehearsal)
-    card = (f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda"
-            else str(dev))
     refs = refs or {}
     ref = {key: refs.get(key) or _mesh_dense(dev, None, key[3:])
            for key in MESH_DENSE}
@@ -2416,10 +2919,8 @@ def mesh_phase(dev, refs=None):
             raise RuntimeError(f"mesh {key} unsharded: {ref[key]['status']}")
 
     # the dry run, M1, M2 S1 and M4 on two gloo ranks sharing the card
-    t0 = time.perf_counter()
-    ranks = spawn_ranks(mesh_rank, MESH_WORLD, "gloo", card,
-                        timeout=MESH_TIMEOUT)
-    gloo_s = time.perf_counter() - t0
+    ranks = worlds["gloo"].results()
+    gloo_s = max(out["seconds"] for out in ranks)
     dry = [out["dryrun"] for out in ranks]
     dryrun.check_dryrun(dry)
     dry_s = max(sum(leg["seconds"] for leg in legs) for legs in dry)
@@ -2484,17 +2985,61 @@ def mesh_phase(dev, refs=None):
     _mesh_line("M4_banded", ref["M4_banded"], ranks, ())
 
     # M5: M1's float64 leg over nccl (one rank: NCCL takes one rank a card)
-    t0 = time.perf_counter()
-    nccl = spawn_ranks(mesh_rank_nccl, 1, "nccl", card,
-                       timeout=MESH_TIMEOUT)
-    nccl_s = time.perf_counter() - t0
+    nccl = worlds["nccl"].results()
+    nccl_s = nccl[0]["seconds"]
     _mesh_line("M5_f64", ref["M1_f64"], nccl, _K123, per_instance=True)
-    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s (gloo world "
-          f"{gloo_s:.1f} with the dry run's legs {dry_s:.1f}, nccl "
-          f"{nccl_s:.1f}, spawns included)", flush=True)
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s here after "
+          f"the ranks' start (gloo ranks {gloo_s:.1f} with the dry run's "
+          f"legs {dry_s:.1f}, nccl rank {nccl_s:.1f}, each from its "
+          "group's start)", flush=True)
     return {"M1_f64": [out["M1_f64"]["launches"] for out in ranks],
             "M2_S1": [out["M2_S1"]["launches"] for out in ranks],
             "M5_f64": [out["M5_f64"]["launches"] for out in nccl]}
+
+
+def later_phases(dev, stack, mixed, mesh_refs):
+    """The phases after the precision phase, side by side on the card (see
+    CHILD_THREADS): the scenario and campaign phases and the mesh phase's
+    ranks start in processes of their own (killed by `stack` if the
+    script fails first), then this process runs the chain, banded and kkt
+    phases and the mesh phase, and collects the others.  Returns
+    {phase: result}."""
+    import torch
+
+    # the scenario path: K2 on many small blocks and a border down to 1 x 1
+    scenario = phase_start(dev, scenario_phase, stack)
+    # the LP campaign path: bucketed parametric batches, K1 on a (B, m, n)
+    # Jc, K2 and K3, float64 escalation on the card
+    campaign = phase_start(dev, campaign_phase, stack)
+    # the multi-device layer: two ranks sharing the card over gloo, one
+    # rank over nccl; K1-K3 and K2 launched on every rank
+    worlds = mesh_start(dev, stack)
+
+    # the chain path: pallas lane (K5, K7), then the xla lane
+    chain, x_chain = chain_run(dev, "pallas")
+    chain_xla, x_xla = chain_run(dev, "xla")
+    xdiff = float((x_chain - x_xla).abs().max() / x_xla.abs().max())
+    print(f"chain argmin: pallas vs xla lane max rel diff {xdiff:.3e}; "
+          f"outer its {chain['outer_its']} vs {chain_xla['outer_its']}",
+          flush=True)
+    if not xdiff < 1e-3:
+        raise RuntimeError("the chain lanes' argmins disagree")
+
+    # the banded path: the other consumer of K5 and K7, at nb = 63
+    banded = banded_phase(dev, chain, x_chain)
+    torch.cuda.synchronize()
+
+    # every KKT system of the dense driver: Schur-dual LPs against the
+    # schur/pallas path (K1-K3), the symmetric paths on the bench QP
+    kkt_pool = kkt_phase(dev)[0]
+    torch.cuda.synchronize()
+
+    mesh_refs["M1_f64"] = mixed["same"]["figures"]
+    mesh = mesh_phase(dev, worlds, mesh_refs)
+    torch.cuda.synchronize()
+    return {"chain": chain, "banded": banded, "kkt": kkt_pool,
+            "mesh": mesh, "scenario": scenario.results()[0],
+            "campaign": campaign.results()[0]}
 
 
 def main() -> int:
@@ -2558,9 +3103,9 @@ def main() -> int:
         raise RuntimeError("the certified argmins disagree")
     # n=1024: the bench options (fixed 3 refinement passes) leave some f32
     # instances stuck -- the explicit inverse's refinement does not
-    # contract at their endgame conditioning -- so they are reported, and
-    # certification is required with adaptive refinement (same option tree)
-    bench_run(dev, 1024, 512, 64, "pallas", warmup=False, require_all=False)
+    # contract at their endgame conditioning (40/64, PERF.md §5; that run
+    # left the script for time) -- so certification is required with
+    # adaptive refinement (same option tree)
     big, _, _ = bench_run(dev, 1024, 512, 64, "pallas", warmup=False,
                           extra={"kkt.it_refine_adaptive": True})
     torch.cuda.synchronize()
@@ -2570,39 +3115,19 @@ def main() -> int:
     mixed = mixed_phase(dev)
     torch.cuda.synchronize()
 
-    # the chain path: pallas lane (K5, K7), then the xla lane
-    chain, x_chain = chain_run(dev, "pallas")
-    chain_xla, x_xla = chain_run(dev, "xla")
-    xdiff = float((x_chain - x_xla).abs().max() / x_xla.abs().max())
-    print(f"chain argmin: pallas vs xla lane max rel diff {xdiff:.3e}; "
-          f"outer its {chain['outer_its']} vs {chain_xla['outer_its']}",
-          flush=True)
-    if not xdiff < 1e-3:
-        raise RuntimeError("the chain lanes' argmins disagree")
-
-    # the banded path: the other consumer of K5 and K7, at nb = 63
-    banded = banded_phase(dev, chain, x_chain)
+    # matmul_precision: K1-K3 in every mode of the card against their
+    # twins, float64 under "high", the bench QP under the TPU's pass counts
+    record_prec = precision_phase(dev, mixed["same"]["figures"]["x"])
     torch.cuda.synchronize()
 
-    # every KKT system of the dense driver: Schur-dual LPs against the
-    # schur/pallas path (K1-K3), the symmetric paths on the bench QP
-    kkt_pool = kkt_phase(dev)[0]
+    # K2 at the scenario path's shapes, the last times of the kernels line
+    scen_chol = scenario_chol_shapes(dev)
     torch.cuda.synchronize()
-
-    # the scenario path: K2 on many small blocks and a border down to 1 x 1
-    scen_s1, scen_chol = scenario_phase(dev)
-    torch.cuda.synchronize()
-
-    # the LP campaign path: bucketed parametric batches, K1 on a (B, m, n)
-    # Jc, K2 and K3, float64 escalation on the card
-    campaign = campaign_phase(dev)
-    torch.cuda.synchronize()
-
-    # the multi-device layer: two ranks sharing the card over gloo, one
-    # rank over nccl; K1-K3 and K2 launched on every rank
-    mesh_refs["M1_f64"] = mixed["same"]["figures"]
-    mesh = mesh_phase(dev, mesh_refs)
-    torch.cuda.synchronize()
+    with contextlib.ExitStack() as stack:
+        later = later_phases(dev, stack, mixed, mesh_refs)
+    chain, banded, kkt_pool = later["chain"], later["banded"], later["kkt"]
+    scen_s1, campaign, mesh = (later["scenario"], later["campaign"],
+                               later["mesh"])
 
     # launches of each kernel on its own path: K1-K3 on the dense bench
     # run, K5 and K7 on the chain run (with those of the banded run
@@ -2630,6 +3155,9 @@ def main() -> int:
     for k in ("fused_q", "chol", "tri_inv_gram"):
         record[k]["launches_campaign_c1"] = campaign["C1"]["launches"][k]
     record["fused_q"]["per_instance_jc"] = k1_per_instance
+    # K1-K3 in each matmul mode at n=1024 (the precision phase)
+    for k in ("fused_q", "chol", "tri_inv_gram"):
+        record[k]["modes"] = record_prec[k]
     # the mesh phase: launches on every rank (M1 f64 sharded 2 x 8 over
     # gloo and on one nccl rank: K1-K3; S1 with 128 scenarios a rank: K2)
     for k in ("fused_q", "chol", "tri_inv_gram"):

@@ -48,6 +48,12 @@
 // - f32 stays on the FP32 cores (no TF32), f64 on the FP64 cores.  The
 //   ragged last panel is padded with the identity in shared memory; the
 //   ragged edge of L is masked.
+// - A `matmul_precision` mode (mm_mode.cuh; float32 only) runs in the one
+//   moded instantiation, chol_kernel<float, true>: every product of two
+//   entries of the factor (the trailing updates, the panel's substitutions
+//   and its update, the diagonal tiles' column updates) takes its operands
+//   rounded and split, on the FP32 cores.  The IEEE instantiations are
+//   unchanged, value for value.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -58,6 +64,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 using onephase::chol_tile;
+using onephase::MmMode;
+using onephase::mode_fma;
 using onephase::tile_entries;
 using onephase::tile_ld;
 using onephase::tile_owner;
@@ -89,17 +97,20 @@ constexpr size_t smem_bytes() {
 
 // acc[a][c] = sum_{p in [p0, p0 + NI)} A[ty + 16 a][p] Bt[tx + 16 c][p],
 // p in increasing order, over slices in shared memory (leading dimension
-// ldp<T>()).
-template <typename T>
+// ldp<T>()); MODED: each entry split once a step, the products in `md`.
+template <typename T, bool MODED>
 __device__ __forceinline__ void half_product(const T* A, const T* Bt, int p0,
-                                             T (&acc)[4][4], int ty, int tx) {
+                                             T (&acc)[4][4], int ty, int tx,
+                                             MmMode md) {
   using V = typename Vec<T>::type;
   constexpr int W = vec_w<T>(), LD = ldp<T>();
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[a][c] = T(0);
-#pragma unroll 4
+  // (MODED: one step at a time, so that the moded products are not
+  // copied by the unrolling)
+#pragma unroll(MODED ? 1 : 4)
   for (int p = p0; p < p0 + NI; p += W) {
     V av[4], bv[4];
 #pragma unroll
@@ -108,13 +119,30 @@ __device__ __forceinline__ void half_product(const T* A, const T* Bt, int p0,
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       bv[c] = *reinterpret_cast<const V*>(Bt + (tx + 16 * c) * LD + p);
+#pragma unroll(MODED ? 1 : W)
+    for (int w = 0; w < W; ++w) {
+      if constexpr (MODED) {
+        float pa[4][3], pb[4][3];
 #pragma unroll
-    for (int w = 0; w < W; ++w)
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
+        for (int a = 0; a < 4; ++a)
+          onephase::mm_split(comp(av[a], w), md, pa[a]);
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          acc[a][c] += comp(av[a], w) * comp(bv[c], w);
+          onephase::mm_split(comp(bv[c], w), md, pb[c]);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[a][c] = onephase::mm_fma_parts(pa[a], pb[c], acc[a][c],
+                                               md.passes);
+      } else {
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[a][c] += comp(av[a], w) * comp(bv[c], w);
+      }
+    }
   }
 }
 
@@ -149,22 +177,41 @@ __device__ __forceinline__ void tile_pair(int idx, int& ti, int& tj) {
 }
 
 // x := x D^-T for one row x of NI values in registers and a factored
-// inner tile D in shared memory, by forward substitution.
-template <typename T>
-__device__ __forceinline__ void row_solve(T (&x)[NI], const T* D) {
+// inner tile D in shared memory, by forward substitution (MODED: each
+// product in `md`).
+template <typename T, bool MODED>
+__device__ __forceinline__ void row_solve(T (&x)[NI], const T* D,
+                                          MmMode md) {
+  if constexpr (MODED) {
+    // not unrolled: x lives in local memory, one moded product a step
+#pragma unroll 1
+    for (int j = 0; j < NI; ++j) {
+      T s = x[j];
+#pragma unroll 1
+      for (int p = 0; p < j; ++p) s = mode_fma(-x[p], D[j * LDI + p], s, md);
+      x[j] = s / D[j * LDI + j];
+    }
+  } else {
 #pragma unroll
-  for (int j = 0; j < NI; ++j) {
-    T s = x[j];
+    for (int j = 0; j < NI; ++j) {
+      T s = x[j];
 #pragma unroll
-    for (int p = 0; p < j; ++p) s -= x[p] * D[j * LDI + p];
-    x[j] = s / D[j * LDI + j];
+      for (int p = 0; p < j; ++p) s -= x[p] * D[j * LDI + p];
+      x[j] = s / D[j * LDI + j];
+    }
   }
 }
 
-template <typename T>
+// MODED (float32 only): every product of two entries of the factor is
+// taken in the matmul mode `mode` (mm_mode.cuh): the trailing updates, the
+// panel's substitutions and updates, and the diagonal tiles' column
+// updates.  The IEEE instantiations ignore `mode`.
+template <typename T, bool MODED>
 __global__ void __launch_bounds__(NT)
 chol_kernel(const T* __restrict__ Q, T* L, T* __restrict__ d,
-            int* __restrict__ ok_out, int n) {
+            int* __restrict__ ok_out, int n, int mode) {
+  static_assert(!MODED || sizeof(T) == 4, "modes are float32 only");
+  const MmMode md = onephase::mm_mode(mode);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* D1 = reinterpret_cast<T*>(smem_raw);   // inner tile 1: A11, then L11
   T* W = D1 + NI * LDI;                     // A21, then L21 (of the 64 x 64)
@@ -225,13 +272,13 @@ chol_kernel(const T* __restrict__ Q, T* L, T* __restrict__ d,
     }
     // 2. L11; then L21 = A21 L11^-T and A22 - L21 L21^T in shared memory;
     //    then L22 (every block of the cluster, the same values)
-    chol_tile<T, NI, NT, false>(D1, nullptr, vec, own, tid, ok);
+    chol_tile<T, NI, NT, false, MODED>(D1, nullptr, vec, own, tid, ok, md);
     if (kb > NI) {
       if (tid < NI) {
         T x[NI];
 #pragma unroll
         for (int p = 0; p < NI; ++p) x[p] = W[tid * LDI + p];
-        row_solve(x, D1);
+        row_solve<T, MODED>(x, D1, md);
 #pragma unroll
         for (int p = 0; p < NI; ++p) W[tid * LDI + p] = x[p];
       }
@@ -240,12 +287,20 @@ chol_kernel(const T* __restrict__ Q, T* L, T* __restrict__ d,
         const int r = e >> 5, c = e & 31;
         if (c <= r) {
           T acc = T(0);
+          if constexpr (MODED) {
+#pragma unroll 1
+            for (int p = 0; p < NI; ++p)
+              acc = mode_fma(W[r * LDI + p], W[c * LDI + p], acc, md);
+          } else {
 #pragma unroll 8
-          for (int p = 0; p < NI; ++p) acc += W[r * LDI + p] * W[c * LDI + p];
+            for (int p = 0; p < NI; ++p)
+              acc += W[r * LDI + p] * W[c * LDI + p];
+          }
           D2[r * LDI + c] -= acc;
         }
       }
-      chol_tile<T, NI, NT, false>(D2, nullptr, vec, own, tid, ok);
+      chol_tile<T, NI, NT, false, MODED>(D2, nullptr, vec, own, tid, ok,
+                                         md);
     }
 
     // 3. the rows below the block, one per thread, split over the
@@ -258,15 +313,26 @@ chol_kernel(const T* __restrict__ Q, T* L, T* __restrict__ d,
       for (int p = 0; p < NI; ++p) x[p] = __ldcg(row + p);
 #pragma unroll
       for (int p = 0; p < NI; ++p) y[p] = __ldcg(row + NI + p);
-      row_solve(x, D1);
+      row_solve<T, MODED>(x, D1, md);
+      if constexpr (MODED) {
+#pragma unroll 1
+        for (int c = 0; c < NI; ++c) {
+          T acc = T(0);
+#pragma unroll 1
+          for (int p = 0; p < NI; ++p)
+            acc = mode_fma(x[p], W[c * LDI + p], acc, md);
+          y[c] -= acc;
+        }
+      } else {
 #pragma unroll
-      for (int c = 0; c < NI; ++c) {
-        T acc = T(0);
+        for (int c = 0; c < NI; ++c) {
+          T acc = T(0);
 #pragma unroll
-        for (int p = 0; p < NI; ++p) acc += x[p] * W[c * LDI + p];
-        y[c] -= acc;
+          for (int p = 0; p < NI; ++p) acc += x[p] * W[c * LDI + p];
+          y[c] -= acc;
+        }
       }
-      row_solve(y, D2);
+      row_solve<T, MODED>(y, D2, md);
 #pragma unroll
       for (int p = 0; p < NI; ++p) __stcg(row + p, x[p]);
 #pragma unroll
@@ -318,7 +384,7 @@ chol_kernel(const T* __restrict__ Q, T* L, T* __restrict__ d,
           load_slice(rb, Lb, n, r0 + tj * NB, k0, tid);
         }
         T acc[4][4], cv[4][4];
-        half_product(Ps, Qs, 0, acc, ty, tx);
+        half_product<T, MODED>(Ps, Qs, 0, acc, ty, tx, md);
 #pragma unroll
         for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -331,7 +397,7 @@ chol_kernel(const T* __restrict__ Q, T* L, T* __restrict__ d,
         for (int a = 0; a < 4; ++a)
 #pragma unroll
           for (int c = 0; c < 4; ++c) cv[a][c] -= acc[a][c];
-        half_product(Ps, Qs, NI, acc, ty, tx);
+        half_product<T, MODED>(Ps, Qs, NI, acc, ty, tx, md);
 #pragma unroll
         for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -350,7 +416,7 @@ chol_kernel(const T* __restrict__ Q, T* L, T* __restrict__ d,
 // The cluster size for a batch of B on device dev: the largest power of
 // two <= MAX_CLUSTER with B * CS <= the SM count, halved while fewer than B
 // clusters of that size fit on the card at once.
-template <typename T>
+template <typename T, bool MODED>
 int cluster_size(int B, int dev, cudaLaunchConfig_t& cfg,
                  cudaLaunchAttribute& attr) {
   int sms = 0;
@@ -363,19 +429,20 @@ int cluster_size(int B, int dev, cudaLaunchConfig_t& cfg,
     attr.val.clusterDim.x = cs;
     cfg.gridDim = dim3(B * cs);
     int fit = 0;
-    err = cudaOccupancyMaxActiveClusters(&fit, chol_kernel<T>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&fit, chol_kernel<T, MODED>, &cfg);
     if (err != cudaSuccess) return -(int)err;
     if (fit >= B) break;
   }
   return cs;
 }
 
-template <typename T>
+template <typename T, bool MODED>
 int launch_chol(const void* Q, void* L, void* d, void* ok, int B, int n,
-                void* stream) {
+                int mode, void* stream) {
   const size_t smem = smem_bytes<T>();
   cudaError_t err = cudaFuncSetAttribute(
-      chol_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      chol_kernel<T, MODED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
@@ -394,7 +461,7 @@ int launch_chol(const void* Q, void* L, void* d, void* ok, int B, int n,
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev != last_dev || B != last_B) {
-    const int cs = cluster_size<T>(B, dev, cfg, attr);
+    const int cs = cluster_size<T, MODED>(B, dev, cfg, attr);
     if (cs < 0) return -cs;
     last_dev = dev;
     last_B = B;
@@ -402,20 +469,26 @@ int launch_chol(const void* Q, void* L, void* d, void* ok, int B, int n,
   }
   attr.val.clusterDim.x = last_cs;
   cfg.gridDim = dim3(B * last_cs);
-  err = cudaLaunchKernelEx(&cfg, chol_kernel<T>, (const T*)Q, (T*)L, (T*)d,
-                           (int*)ok, n);
+  err = cudaLaunchKernelEx(&cfg, chol_kernel<T, MODED>, (const T*)Q, (T*)L,
+                           (T*)d, (int*)ok, n, mode);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// `mode`: a matmul mode's code (mm_mode.cuh), 0 = IEEE; float64 takes 0
+// only
 extern "C" int op_chol_f32(const void* Q, void* L, void* d, void* ok, int B,
-                           int n, void* stream) {
-  return launch_chol<float>(Q, L, d, ok, B, n, stream);
+                           int n, int mode, void* stream) {
+  if (mode == 0)
+    return launch_chol<float, false>(Q, L, d, ok, B, n, 0, stream);
+  if (!onephase::mm_mode_valid(mode)) return (int)cudaErrorInvalidValue;
+  return launch_chol<float, true>(Q, L, d, ok, B, n, mode, stream);
 }
 
 extern "C" int op_chol_f64(const void* Q, void* L, void* d, void* ok, int B,
-                           int n, void* stream) {
-  return launch_chol<double>(Q, L, d, ok, B, n, stream);
+                           int n, int mode, void* stream) {
+  if (mode != 0) return (int)cudaErrorInvalidValue;
+  return launch_chol<double, false>(Q, L, d, ok, B, n, 0, stream);
 }

@@ -36,6 +36,8 @@
 #pragma once
 #include <cuda_runtime.h>
 
+#include "mm_mode.cuh"
+
 namespace onephase {
 
 // smallest pivot fed to the reciprocal square root, and the largest finite
@@ -87,13 +89,13 @@ __device__ __forceinline__ void tile_owner(int (&own)[tile_entries<NB, NT>()],
 // One phase of chol_tile (see there) for column j, with j % 4 == CB: the
 // four column buffers and two row buffers are then fixed for the phase, so
 // every buffer access is a register offset plus a constant.
-template <typename T, int NB, int NT, bool INV, int CB>
+template <typename T, int NB, int NT, bool INV, int CB, bool MODED>
 __device__ __forceinline__ void tile_phase(
     int j, T* vec, T (&s)[tile_entries<NB, NT>()],
     T (&x)[tile_entries<NB, NT>()], const int (&rr)[tile_entries<NB, NT>()],
     const int (&cc)[tile_entries<NB, NT>()],
     const int (&last)[tile_entries<NB, NT>()], T& dinv_prev, int tid,
-    int& ok) {
+    int& ok, MmMode md) {
   constexpr int ME = tile_entries<NB, NT>();
   const T* cj = vec + CB * NB;                  // column j
   const T* cp = vec + ((CB + 3) & 3) * NB;      // column j - 1
@@ -127,7 +129,11 @@ __device__ __forceinline__ void tile_phase(
   for (int i = 0; i < ME; ++i) {
     if (last[i] < j) continue;
     const int r = rr[i], c = cc[i];
-    const T upd = s[i] - (lr[i] * dinv) * (lc[i] * dinv);
+    T upd;
+    if constexpr (MODED)   // the column update's product in the mode
+      upd = mode_fma(-(lr[i] * dinv), lc[i] * dinv, s[i], md);
+    else
+      upd = s[i] - (lr[i] * dinv) * (lc[i] * dinv);
     const T scaled = s[i] * dinv;
     s[i] = c == j ? scaled : (c > j ? upd : s[i]);
     if (INV) {
@@ -156,7 +162,9 @@ __device__ __forceinline__ void tile_phase(
 // holds L^{-1}.  The upper triangles are not touched (X's must be zero on
 // entry for X to be L^{-1}).  `vec` is 6 NB + 2 elements of scratch.
 // Thread 0's `ok` is cleared on a bad pivot.  Every thread of the block
-// calls it; it starts and ends with a barrier.
+// calls it; it starts and ends with a barrier.  MODED (float32, no INV):
+// the trailing entries' product is taken in the matmul mode `md`
+// (mm_mode.cuh); K7 instantiates the IEEE routine only.
 //
 // The arithmetic is that of the unblocked column loops it replaces, value
 // for value: column j is scaled by dinv_j = 1/sqrt(pivot) and the trailing
@@ -170,11 +178,13 @@ __device__ __forceinline__ void tile_phase(
 // what it needs from the buffers, then computes (branch-free: every entry
 // computes its candidates and selects), then publishes, so stores to the
 // buffers never wait on loads from them.
-template <typename T, int NB, int NT, bool INV>
+template <typename T, int NB, int NT, bool INV, bool MODED = false>
 __device__ void chol_tile(T* S, T* X, T* vec,
                           const int (&own)[tile_entries<NB, NT>()], int tid,
-                          int& ok) {
+                          int& ok, MmMode md = MmMode{0, 1}) {
   static_assert(NB % 4 == 0, "the phases run in groups of four");
+  static_assert(!MODED || (sizeof(T) == 4 && !INV),
+                "modes: float32 factors only");
   constexpr int LD = tile_ld<NB>();
   constexpr int ME = tile_entries<NB, NT>();
   T s[ME], x[ME];
@@ -198,14 +208,14 @@ __device__ void chol_tile(T* S, T* X, T* vec,
   T dinv_prev = T(0);
 #pragma unroll 1
   for (int j = 0; j < NB; j += 4) {
-    tile_phase<T, NB, NT, INV, 0>(j, vec, s, x, rr, cc, last, dinv_prev, tid,
-                                  ok);
-    tile_phase<T, NB, NT, INV, 1>(j + 1, vec, s, x, rr, cc, last, dinv_prev,
-                                  tid, ok);
-    tile_phase<T, NB, NT, INV, 2>(j + 2, vec, s, x, rr, cc, last, dinv_prev,
-                                  tid, ok);
-    tile_phase<T, NB, NT, INV, 3>(j + 3, vec, s, x, rr, cc, last, dinv_prev,
-                                  tid, ok);
+    tile_phase<T, NB, NT, INV, 0, MODED>(j, vec, s, x, rr, cc, last,
+                                         dinv_prev, tid, ok, md);
+    tile_phase<T, NB, NT, INV, 1, MODED>(j + 1, vec, s, x, rr, cc, last,
+                                         dinv_prev, tid, ok, md);
+    tile_phase<T, NB, NT, INV, 2, MODED>(j + 2, vec, s, x, rr, cc, last,
+                                         dinv_prev, tid, ok, md);
+    tile_phase<T, NB, NT, INV, 3, MODED>(j + 3, vec, s, x, rr, cc, last,
+                                         dinv_prev, tid, ok, md);
   }
 #pragma unroll
   for (int i = 0; i < ME; ++i) {

@@ -50,6 +50,13 @@
 //   and its mirror (j, i) from the staging tile along rows, coalesced.  A
 //   shared (folded-constant) Jc or H is read with batch stride 0.
 //
+// A `matmul_precision` mode (mm_mode.cuh; float32 only) takes one further
+// instantiation, 64-tiles with 4 x 4 a thread and element copies (any n,
+// any alignment): each k row's operands are rounded and split once as they
+// leave shared memory (the i side after its scaling by w[k], as the TPU
+// kernel forms `ji * w` before its dot), then the mode's part products are
+// added smallest first.  The IEEE instantiations below are unchanged.
+//
 // Value for value: every entry on or below the diagonal is what the earlier
 // full-grid kernel computed there, bit for bit: acc = 0; for k = kbeg ..
 // m-1 in order, acc = fma(J[k, row] * w[k], J[k, col], acc), the product
@@ -71,7 +78,11 @@
 
 #include <cstdint>
 
+#include "mm_mode.cuh"
+
 namespace {
+
+using onephase::MmMode;
 
 __device__ __forceinline__ float fq_fma(float a, float b, float c) {
   return fmaf(a, b, c);
@@ -152,13 +163,16 @@ struct Shape {
   static_assert(KC * CPR % NT == 0, "whole copies per thread");
 };
 
-template <typename T, int BT, int RM, int RN, bool VEC, int MINB>
+template <typename T, int BT, int RM, int RN, bool VEC, int MINB,
+          bool MODED>
 __global__ void __launch_bounds__((BT / RM) * (BT / RN), MINB)
 fused_q_lower_kernel(const T* __restrict__ Jc, long long jc_bs,
                      const T* __restrict__ w, const T* __restrict__ H,
                      long long h_bs, const T* __restrict__ bnd,
-                     T* __restrict__ Q, int m, int n, int lower) {
+                     T* __restrict__ Q, int m, int n, int lower, int mode) {
   using S = Shape<T, BT, RM, RN, VEC>;
+  static_assert(!MODED || sizeof(T) == 4, "modes are float32 only");
+  const MmMode md = onephase::mm_mode(mode);
   extern __shared__ __align__(16) unsigned char fq_smem[];
   T* sm = reinterpret_cast<T*>(fq_smem);
 
@@ -219,7 +233,8 @@ fused_q_lower_kernel(const T* __restrict__ Jc, long long jc_bs,
 #pragma unroll
     for (int c = 0; c < RN; ++c) acc[r][c] = T(0);
   // k row kk of a slab: acc[r][c] = fma(a[r], b[c], acc[r][c]), a the
-  // thread's RM scaled i-side entries, b its RN j-side entries
+  // thread's RM scaled i-side entries, b its RN j-side entries; MODED:
+  // each split once (mm_mode.cuh), then the mode's part products
   auto k_step = [&](const T* As, const T* Bs, int kk) {
     T a[RM], bv[RN];
 #pragma unroll
@@ -228,10 +243,25 @@ fused_q_lower_kernel(const T* __restrict__ Jc, long long jc_bs,
 #pragma unroll
     for (int g = 0; g < RN / 4; ++g)
       ld4(Bs + kk * BT + g * S::GN + 4 * tx, bv + 4 * g);
+    if constexpr (MODED) {
+      float ap[RM][3], bp[RN][3];
 #pragma unroll
-    for (int r = 0; r < RM; ++r)
+      for (int r = 0; r < RM; ++r) onephase::mm_split(a[r], md, ap[r]);
 #pragma unroll
-      for (int c = 0; c < RN; ++c) acc[r][c] = fq_fma(a[r], bv[c], acc[r][c]);
+      for (int c = 0; c < RN; ++c) onephase::mm_split(bv[c], md, bp[c]);
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+#pragma unroll
+        for (int c = 0; c < RN; ++c)
+          acc[r][c] = onephase::mm_fma_parts(ap[r], bp[c], acc[r][c],
+                                             md.passes);
+    } else {
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+#pragma unroll
+        for (int c = 0; c < RN; ++c)
+          acc[r][c] = fq_fma(a[r], bv[c], acc[r][c]);
+    }
   };
 
   // every iteration commits one copy group (empty past the last slab), so
@@ -259,7 +289,12 @@ fused_q_lower_kernel(const T* __restrict__ Jc, long long jc_bs,
     const T* As = sm + buf * 2 * S::SLAB;
     const T* Bs = As + S::SLAB;
     const int kc = m - kbeg - s * KC;
-    if (kc >= KC) {
+    if constexpr (MODED) {
+      // one k row at a time: the moded step is large, its unrolled
+      // copies would only cost build time
+#pragma unroll 1
+      for (int kk = 0; kk < (kc < KC ? kc : KC); ++kk) k_step(As, Bs, kk);
+    } else if (kc >= KC) {
 #pragma unroll
       for (int kk = 0; kk < KC; ++kk) k_step(As, Bs, kk);
     } else {
@@ -338,12 +373,14 @@ fused_q_lower_kernel(const T* __restrict__ Jc, long long jc_bs,
   }
 }
 
-template <typename T, int BT, int RM, int RN, bool VEC, int MINB>
+template <typename T, int BT, int RM, int RN, bool VEC, int MINB,
+          bool MODED = false>
 int launch_shape(const void* Jc, long long jc_bs, const void* w,
                  const void* H, long long h_bs, const void* bnd, void* Q,
-                 int B, int m, int n, int lower, void* stream) {
+                 int B, int m, int n, int lower, void* stream,
+                 int mode = 0) {
   using S = Shape<T, BT, RM, RN, VEC>;
-  const auto kernel = fused_q_lower_kernel<T, BT, RM, RN, VEC, MINB>;
+  const auto kernel = fused_q_lower_kernel<T, BT, RM, RN, VEC, MINB, MODED>;
   const long long nt = (n + BT - 1) / BT;
   const long long tiles = nt * (nt + 1) / 2;
   if (B > 65535 || tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
@@ -352,7 +389,7 @@ int launch_shape(const void* Jc, long long jc_bs, const void* w,
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3((unsigned)tiles, B), S::NT, S::SMEM, (cudaStream_t)stream>>>(
       (const T*)Jc, jc_bs, (const T*)w, (const T*)H, h_bs, (const T*)bnd,
-      (T*)Q, m, n, lower);
+      (T*)Q, m, n, lower, mode);
   return (int)cudaGetLastError();
 }
 
@@ -371,13 +408,20 @@ bool vec_route(const void* Jc, const void* H, const void* Q, int n) {
 template <typename T>
 int launch_fused_q(const void* Jc, long long jc_bs, const void* w,
                    const void* H, long long h_bs, const void* bnd, void* Q,
-                   int B, int m, int n, int lower, void* stream);
+                   int B, int m, int n, int lower, int mode, void* stream);
 
+// float32: a matmul mode (mode != 0) takes the one moded instantiation,
+// 64-tiles with element copies (any n, any alignment); IEEE the four below
 template <>
 int launch_fused_q<float>(const void* Jc, long long jc_bs, const void* w,
                           const void* H, long long h_bs, const void* bnd,
-                          void* Q, int B, int m, int n, int lower,
+                          void* Q, int B, int m, int n, int lower, int mode,
                           void* stream) {
+  if (mode != 0) {
+    if (!onephase::mm_mode_valid(mode)) return (int)cudaErrorInvalidValue;
+    return launch_shape<float, 64, 4, 4, false, 1, true>(
+        Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower, stream, mode);
+  }
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -400,11 +444,13 @@ int launch_fused_q<float>(const void* Jc, long long jc_bs, const void* w,
       Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower, stream);
 }
 
+// float64: IEEE only (the knob touches float32 products)
 template <>
 int launch_fused_q<double>(const void* Jc, long long jc_bs, const void* w,
                            const void* H, long long h_bs, const void* bnd,
-                           void* Q, int B, int m, int n, int lower,
+                           void* Q, int B, int m, int n, int lower, int mode,
                            void* stream) {
+  if (mode != 0) return (int)cudaErrorInvalidValue;
   if (vec_route<double>(Jc, H, Q, n))
     return launch_shape<double, 64, 4, 8, true, 1>(
         Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower, stream);
@@ -415,19 +461,20 @@ int launch_fused_q<double>(const void* Jc, long long jc_bs, const void* w,
 }  // namespace
 
 // C entry points; `lower` != 0 declares Jc square and lower triangular (the
-// Gram product M = Jc^T Jc of a triangular inverse)
+// Gram product M = Jc^T Jc of a triangular inverse); `mode` is a matmul
+// mode's code (mm_mode.cuh; 0 = IEEE, the only one float64 takes)
 extern "C" int op_fused_q_f32(const void* Jc, long long jc_bs, const void* w,
                               const void* H, long long h_bs, const void* bnd,
                               void* Q, int B, int m, int n, int lower,
-                              void* stream) {
+                              int mode, void* stream) {
   return launch_fused_q<float>(Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower,
-                               stream);
+                               mode, stream);
 }
 
 extern "C" int op_fused_q_f64(const void* Jc, long long jc_bs, const void* w,
                               const void* H, long long h_bs, const void* bnd,
                               void* Q, int B, int m, int n, int lower,
-                              void* stream) {
+                              int mode, void* stream) {
   return launch_fused_q<double>(Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n,
-                                lower, stream);
+                                lower, mode, stream);
 }

@@ -44,9 +44,19 @@
 // L[r, r].  The 64-column tile starts the sums up to 32 columns earlier;
 // those terms multiply exact zeros of Li (k < c) and leave acc at +0.
 // The ragged edge is masked, nothing is padded.
+//
+// A `matmul_precision` mode (mm_mode.cuh; float32 only) runs in the one
+// moded instantiation, tri_inv_kernel<float, true>: every product
+// L[r, k] Li[k, c], in the update and in the substitution, takes its
+// operands rounded and split; divisions stay float32.  The wrapper's Gram
+// product then runs K1's moded instantiation.
 #include <cuda_runtime.h>
 
+#include "mm_mode.cuh"
+
 namespace {
+
+using onephase::MmMode;
 
 constexpr int TC = 64;         // columns per block
 constexpr int RC = 32;         // rows per chunk = k rows per staged slab
@@ -137,19 +147,37 @@ __device__ __forceinline__ void store_x(T (*Xs)[LDX], const T (&v)[8]) {
 }
 
 // acc[a][j] += sum over p of L-slab(ty + 16 a, p) * Xs[p][4 tx + j], p
-// ascending, for a >= A0 (A0 = 2: chunk B's rows only).
-template <int A0, typename T>
+// ascending, for a >= A0 (A0 = 2: chunk B's rows only); MODED: each entry
+// split once a step, the products in `md`.
+template <int A0, bool MODED, typename T>
 __device__ __forceinline__ void update(T (*Ls)[TC], T (*Xs)[LDX],
-                                       int tx, int ty, T (&acc)[4][4]) {
-#pragma unroll
+                                       int tx, int ty, T (&acc)[4][4],
+                                       MmMode md) {
+  // (MODED: one k row at a time, so that the moded products are not
+  // copied by the unrolling)
+#pragma unroll(MODED ? 1 : RC)
   for (int p = 0; p < RC; ++p) {
     T lv[4], xv[4];
     ld4(&Ls[p][4 * (ty ^ (p & 7))], lv);
     ld4(&Xs[p][4 * tx], xv);
+    if constexpr (MODED) {
+      float lp[4][3], xp[4][3];
 #pragma unroll
-    for (int a = A0; a < 4; ++a)
+      for (int a = A0; a < 4; ++a) onephase::mm_split(lv[a], md, lp[a]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[a][j] += lv[a] * xv[j];
+      for (int j = 0; j < 4; ++j) onephase::mm_split(xv[j], md, xp[j]);
+#pragma unroll
+      for (int a = A0; a < 4; ++a)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[a][j] = onephase::mm_fma_parts(lp[a], xp[j], acc[a][j],
+                                             md.passes);
+    } else {
+#pragma unroll
+      for (int a = A0; a < 4; ++a)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[a][j] += lv[a] * xv[j];
+    }
   }
 }
 
@@ -177,11 +205,12 @@ __device__ __forceinline__ void put_rhs(T (*Xs)[LDX], const T (&acc)[4][4],
 // other, so the dependent chain is one division and one FMA a step.  Every
 // thread of the two warps reads the same L entry (a broadcast).  The
 // solution goes back to Xs and to Li (row Rc + i at Xrow + i n).  The other
-// warps wait at the caller's barrier.
-template <typename T>
+// warps wait at the caller's barrier.  MODED: x_p split once a step, each
+// product in `md`.
+template <bool MODED, typename T>
 __device__ __forceinline__ void solve_chunk(T (*Ls)[TC], T (*Xs)[LDX],
                                             int h, int rb, T* Xrow, int n,
-                                            int tc) {
+                                            int tc, MmMode md) {
   const int c = threadIdx.x;
   if (c >= TC) return;
   // tile row 32 h + i of k row p: lslot(p, i) + 2 h (i < 32)
@@ -189,12 +218,29 @@ __device__ __forceinline__ void solve_chunk(T (*Ls)[TC], T (*Xs)[LDX],
   T s[RC];
 #pragma unroll
   for (int i = 0; i < RC; ++i) s[i] = Xs[i][c];
+  if constexpr (MODED) {
+    // not unrolled: s lives in local memory, one moded product a step
+#pragma unroll 1
+    for (int p = 0; p < rb; ++p) {
+      s[p] = s[p] / Lh[p * TC + lslot(p, p)];
+      float xp[3];
+      onephase::mm_split(-s[p], md, xp);
+#pragma unroll 1
+      for (int i = p + 1; i < RC; ++i) {
+        float lp[3];
+        onephase::mm_split(Lh[p * TC + lslot(p, i)], md, lp);
+        s[i] = onephase::mm_fma_parts(lp, xp, s[i], md.passes);
+      }
+    }
+  } else {
 #pragma unroll
-  for (int p = 0; p < RC; ++p) {
-    if (p >= rb) break;
-    s[p] = s[p] / Lh[p * TC + lslot(p, p)];
+    for (int p = 0; p < RC; ++p) {
+      if (p >= rb) break;
+      s[p] = s[p] / Lh[p * TC + lslot(p, p)];
 #pragma unroll
-    for (int i = p + 1; i < RC; ++i) s[i] -= Lh[p * TC + lslot(p, i)] * s[p];
+      for (int i = p + 1; i < RC; ++i)
+        s[i] -= Lh[p * TC + lslot(p, i)] * s[p];
+    }
   }
 #pragma unroll
   for (int i = 0; i < RC; ++i) {
@@ -203,9 +249,14 @@ __device__ __forceinline__ void solve_chunk(T (*Ls)[TC], T (*Xs)[LDX],
   }
 }
 
-template <typename T>
+// MODED (float32 only): every product L[r, k] Li[k, c] in the matmul mode
+// `mode` (mm_mode.cuh); the IEEE instantiations ignore it.
+template <typename T, bool MODED>
 __global__ void __launch_bounds__(THREADS)
-tri_inv_kernel(const T* __restrict__ L, T* __restrict__ Li, int n) {
+tri_inv_kernel(const T* __restrict__ L, T* __restrict__ Li, int n,
+               int mode) {
+  static_assert(!MODED || sizeof(T) == 4, "modes are float32 only");
+  const MmMode md = onephase::mm_mode(mode);
   __shared__ __align__(16) T Ls[RC][TC];    // L slab, rows permuted
   __shared__ __align__(16) T Xs[RC][LDX];   // Li slab; a chunk's rhs/solution
 
@@ -245,7 +296,7 @@ tri_inv_kernel(const T* __restrict__ L, T* __restrict__ Li, int n) {
         load_l(Lb, n, R0, k0 + RC, lreg);
         load_x(X, n, k0 + RC, c0, tc, xreg);
       }
-      update<0>(Ls, Xs, tx, ty, acc);
+      update<0, MODED>(Ls, Xs, tx, ty, acc, md);
       __syncthreads();
     }
     // chunk A: rows R0 .. R0 + 31; Ls = L[R0 + r, R0 + p] holds its
@@ -254,41 +305,47 @@ tri_inv_kernel(const T* __restrict__ L, T* __restrict__ Li, int n) {
     store_l(Ls, lreg);
     put_rhs<0>(Xs, acc, R0, c0, tx, ty);
     __syncthreads();
-    solve_chunk(Ls, Xs, 0, min(RC, n - R0), X + (long long)R0 * n + c0, n,
-                tc);
+    solve_chunk<MODED>(Ls, Xs, 0, min(RC, n - R0),
+                       X + (long long)R0 * n + c0, n, tc, md);
     __syncthreads();
     if (R0 + RC >= n) break;
     // chunk B: rows R0 + 32 .. R0 + 63
-    update<2>(Ls, Xs, tx, ty, acc);
+    update<2, MODED>(Ls, Xs, tx, ty, acc, md);
     __syncthreads();
     load_l(Lb, n, R0, R0 + RC, lreg);
     store_l(Ls, lreg);
     put_rhs<2>(Xs, acc, R0 + RC, c0, tx, ty);
     __syncthreads();
-    solve_chunk(Ls, Xs, 1, min(RC, n - R0 - RC),
-                X + (long long)(R0 + RC) * n + c0, n, tc);
+    solve_chunk<MODED>(Ls, Xs, 1, min(RC, n - R0 - RC),
+                       X + (long long)(R0 + RC) * n + c0, n, tc, md);
     __syncthreads();
   }
 }
 
-template <typename T>
-int launch_tri_inv(const void* L, void* Li, int B, int n, void* stream) {
+template <typename T, bool MODED>
+int launch_tri_inv(const void* L, void* Li, int B, int n, int mode,
+                   void* stream) {
   const int nct = (n + TC - 1) / TC;
   if (nct > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid(B, nct);
-  tri_inv_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)L, (T*)Li, n);
+  tri_inv_kernel<T, MODED><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)L, (T*)Li, n, mode);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// `mode`: a matmul mode's code (mm_mode.cuh), 0 = IEEE; float64 takes 0
+// only
 extern "C" int op_tri_inv_f32(const void* L, void* Li, int B, int n,
-                              void* stream) {
-  return launch_tri_inv<float>(L, Li, B, n, stream);
+                              int mode, void* stream) {
+  if (mode == 0) return launch_tri_inv<float, false>(L, Li, B, n, 0, stream);
+  if (!onephase::mm_mode_valid(mode)) return (int)cudaErrorInvalidValue;
+  return launch_tri_inv<float, true>(L, Li, B, n, mode, stream);
 }
 
 extern "C" int op_tri_inv_f64(const void* L, void* Li, int B, int n,
-                              void* stream) {
-  return launch_tri_inv<double>(L, Li, B, n, stream);
+                              int mode, void* stream) {
+  if (mode != 0) return (int)cudaErrorInvalidValue;
+  return launch_tri_inv<double, false>(L, Li, B, n, 0, stream);
 }

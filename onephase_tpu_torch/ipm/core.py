@@ -44,14 +44,18 @@ Parametric problems (`NLPSpec.pdata`): the batch's data rides in
 `Factor.Jc` (`Factor.H`) per instance: a (B, m_orig, n) Jc, which the Q
 kernel takes as it is.
 
-Options outside the port (`matmul_precision` other than "highest"/
-"default") raise `NotImplementedError` instead of quietly running the
-default.
+`Params.matmul_precision` takes every name the JAX package accepts, with
+JAX's meaning on the device (ops/precision.py): on the CPU the names its
+CPU runs, as plain float32; on a CUDA card one-pass TF32 for "default" and
+"high", full float32 for "highest", and the dot-algorithm presets, in the
+kernels K1-K3 and in every float32 matrix product of plain PyTorch code.
+What is still refused (NotImplementedError): a non-IEEE float32 mode on
+the chain and banded kernels' `pallas` lane on a card, whose
+block-tridiagonal kernels K5 and K7 run IEEE float32 only.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import Tuple
 
 import numpy as np
@@ -60,6 +64,7 @@ import torch
 from ..config import Params
 from ..nlp import CanonNLP, _mtv, _mv
 from ..ops import ldlt as ldlt_mod
+from ..ops import precision
 from ..ops import refine as dsr
 from ..ops.cholesky import (pallas_chol, pallas_tri_inv_gram, xla_chol,
                             xla_chol_inv_from_L)
@@ -108,25 +113,6 @@ def _factor_to(L, dtype):
     return L.to(dtype)
 
 
-@contextlib.contextmanager
-def _mm_precision_ctx(name: str):
-    """Matmul precision for the solver's entry points (Params.
-    matmul_precision).  "highest" runs float32 CUDA matmuls in full
-    float32 (no TF32), saved and restored around the call."""
-    if name in (None, "", "default"):
-        yield
-        return
-    if name != "highest":
-        raise NotImplementedError(
-            f"matmul_precision={name!r} is not ported to onephase_tpu_torch")
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
-
-
 def _option(pars: Params, key: str):
     group, name = key.split(".")
     return getattr(getattr(pars, group), name)
@@ -152,7 +138,7 @@ def check_structured(pars: Params, dtype):
 SYMMETRIC = ("symmetric", "clever_symmetric")
 
 
-def _check_supported(pars: Params):
+def _check_supported(pars: Params, device):
     kkt = pars.kkt
     if kkt.kkt_solver_type == "schur_dual":
         raise ValueError("kkt_solver_type='schur_dual' is the "
@@ -177,15 +163,14 @@ def _check_supported(pars: Params):
         raise NotImplementedError(
             f"kkt.linear_solver_type={kkt.linear_solver_type!r} is not "
             "ported to onephase_tpu_torch (xla, invchol, pallas, eigh)")
-    with _mm_precision_ctx(pars.matmul_precision):
-        pass
+    precision.resolve(pars.matmul_precision, torch.device(device).type)
 
 
 class OnePhaseKernel:
     """Solver kernel for one canonical problem + parameter set."""
 
     def __init__(self, nlp: CanonNLP, pars: Params):
-        _check_supported(pars)
+        _check_supported(pars, nlp.device)
         self.nlp = nlp
         self.pars = pars
         self.dtype = nlp.dtype
@@ -344,7 +329,8 @@ class OnePhaseKernel:
         return self.initial_state_from(x0[None])
 
     def initial_state_from(self, x0, bvals=None, pdata=None):
-        with _mm_precision_ctx(self.pars.matmul_precision):
+        with precision.scope(self.pars.matmul_precision,
+                             torch.device(self.device).type):
             return self._initial_state(x0, bvals, pdata)
 
     def run_chunk(self, st: State) -> State:
@@ -1603,7 +1589,8 @@ class OnePhaseKernel:
         return tree_select(active, new, st)
 
     def _run_chunk(self, st: State) -> State:
-        with _mm_precision_ctx(self.pars.matmul_precision):
+        with precision.scope(self.pars.matmul_precision,
+                             torch.device(self.device).type):
             pars = self.pars
             for _ in range(pars.chunk_size):
                 active = (st.status == RUNNING) & (st.t <= pars.term.max_it)

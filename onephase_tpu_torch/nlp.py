@@ -466,8 +466,10 @@ class CanonNLP:
             # the user Jacobian oracle (full-variable space)
             return self._bmap(self._jac1, pdata, x)
         # forward mode costs n passes, reverse costs m_orig: pick the cheaper
+        # (torch.func's forward mode returns float64 for a float32 term
+        # such as z - 2.0: the result is cast back, a no-op in float64)
         jac = jacrev if self.m_orig < self.n else jacfwd
-        return self._bmap(jac(self._c1), pdata, x)
+        return self._bmap(jac(self._c1), pdata, x).to(x.dtype)
 
     # canonical products through a materialized Jc, shared (m_orig, n) or
     # batched (B, m_orig, n)
@@ -529,12 +531,16 @@ class CanonNLP:
     def _lag1(self, x, wc, pd=None):
         val = self._f1(x, pd)
         if self.m_orig > 0:
-            val = val - torch.dot(wc, self._c1(x, pd))
+            # a product and a sum, not torch.dot: in a float32 solve
+            # torch.func's forward mode gives a term such as z - 2.0 a
+            # float64 tangent, which a dot refuses; the derivatives are the
+            # same values
+            val = val - (wc * self._c1(x, pd)).sum()
         return val
 
     def lag_hess(self, x, y, pdata=None):
         wc, _ = self.split_canonical(y)
-        return self._bmap(hessian(self._lag1), pdata, x, wc)
+        return self._bmap(hessian(self._lag1), pdata, x, wc).to(x.dtype)
 
     def hess_prod_fn(self, x, y, pdata=None):
         """Returns v (B, n) -> H v, the Lagrangian-Hessian product at fixed
@@ -545,7 +551,7 @@ class CanonNLP:
             return jvp(grad(lambda z: self._lag1(z, ww, pd)), (xx,),
                        (vv,))[1]
 
-        return lambda v: self._bmap(hv1, pdata, x, wc, v)
+        return lambda v: self._bmap(hv1, pdata, x, wc, v).to(x.dtype)
 
 
 def canonicalize(spec: NLPSpec, dtype=torch.float64, device=None) -> CanonNLP:

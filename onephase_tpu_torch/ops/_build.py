@@ -42,12 +42,13 @@ _LL = ctypes.c_longlong
 
 # C entry points: name -> argtypes (every one returns cudaGetLastError())
 _SIGNATURES = {
-    # Jc, jc_bstride, w, H, h_bstride, bnd, Q, B, m, n, lower, stream
-    "op_fused_q": [_P, _LL, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _P],
-    # Q, L, d, ok, B, n, stream
-    "op_chol": [_P, _P, _P, _P, _I, _I, _P],
-    # L, Li, B, n, stream
-    "op_tri_inv": [_P, _P, _I, _I, _P],
+    # Jc, jc_bstride, w, H, h_bstride, bnd, Q, B, m, n, lower, mode, stream
+    # (mode: a matmul mode's code, ops/precision.py Mode.code; 0 = IEEE)
+    "op_fused_q": [_P, _LL, _P, _P, _LL, _P, _P, _I, _I, _I, _I, _I, _P],
+    # Q, L, d, ok, B, n, mode, stream
+    "op_chol": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # L, Li, B, n, mode, stream
+    "op_tri_inv": [_P, _P, _I, _I, _I, _P],
     # Ad, Bs, delta, Ck, Ci, Ek, ok, B, K, nb, stream
     "op_tridiag_factor": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # Ci, Ek, b, x, B, K, nb, stream

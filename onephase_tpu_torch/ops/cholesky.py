@@ -22,14 +22,22 @@ tensors -> the plain version):
 Plain PyTorch versions: `xla_chol` (cholesky_ex + diag + ok),
 `blocked_tri_inv` and `xla_chol_inv_from_L`.  The `xla`/`invchol` lanes
 use these library ops, as the JAX package leaves those lanes to XLA.
+
+Matmul modes (`Params.matmul_precision`, ops/precision.py): the wrappers
+take `mode=` (default: the solve's scope) and launch the kernels' moded
+variants for a non-IEEE float32 mode, every product of two entries of the
+factor (K2) or of L and L^-1 (K3, and its Gram product) in the mode.
+Their twins in a mode: `blocked_chol(Q, mode)` (cholesky_ex takes no
+mode), `blocked_tri_inv(L, mode=)` and `xla_chol_inv_from_L(L, mode=)`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES
 from . import _build
+from . import count_launch
+from . import precision
 from .schur import launch_fused_q
 
 _FLOATS = (torch.float32, torch.float64)
@@ -54,13 +62,53 @@ def _check_square(t, name):
         raise ValueError(f"{name}: no kernel for device {t.device}")
 
 
-def pallas_chol(Q):
+def blocked_chol(Q, mode, block: int = 64):
+    """(L, d, ok) of a float32 batch Q with every product of two entries
+    of the factor in matmul mode `mode`: K2's plain twin in a mode.  Panels
+    of `block` columns, each column left-looking within its panel, then
+    one trailing update a panel; the pivot protocol of K2
+    (csrc/chol_tile.cuh): ok = every pivot > 0 and finite, a column scaled
+    by 1 / sqrt(max(pivot, tiny)), L[j, j] = pivot times that.  Each entry
+    of L is split once, when its column is final."""
+    B, n = Q.shape[0], Q.shape[-1]
+    tiny = 1e-38 if Q.dtype == torch.float32 else 1e-300
+    big = torch.finfo(Q.dtype).max
+    A = torch.tril(Q)
+    L = torch.zeros_like(Q)
+    parts = [torch.zeros_like(Q) for _ in range(mode.parts)]
+    ok = torch.ones(B, dtype=torch.bool, device=Q.device)
+    for k0 in range(0, n, block):
+        k1 = min(n, k0 + block)
+        for j in range(k0, k1):
+            v = A[:, j:, j]
+            if j > k0:
+                v = v - precision.matmul_parts(
+                    [p[:, j:, k0:j] for p in parts],
+                    [p[:, j, k0:j, None] for p in parts], mode)[..., 0]
+            piv = v[:, 0]
+            ok = ok & (piv > 0) & (piv <= big)
+            dinv = 1.0 / torch.sqrt(torch.where(piv > tiny, piv,
+                                                piv.new_tensor(tiny)))
+            col = v * dinv[:, None]
+            L[:, j:, j] = col
+            for p, part in zip(parts, precision.split(col, mode)):
+                p[:, j:, j] = part
+        if k1 < n:
+            A[:, k1:, k1:] -= precision.matmul_parts(
+                [p[:, k1:, k0:k1] for p in parts],
+                [p[:, k1:, k0:k1].transpose(-1, -2) for p in parts], mode)
+    return L, torch.diagonal(L, dim1=-2, dim2=-1), ok
+
+
+def pallas_chol(Q, mode=None):
     """Batched Cholesky (L, d, ok): L lower with the strict upper triangle
     zeroed, d = diag(L), ok (B,) bool = every pivot positive and finite.
-    On failure L is garbage and only ok matters."""
+    On failure L is garbage and only ok matters.  In matmul mode `mode`
+    (default: the current scope's; float32 only)."""
     _check_square(Q, "chol")
+    mode = precision.kernel_mode(Q, mode)
     if Q.device.type == "cpu":
-        return xla_chol(Q)
+        return xla_chol(Q) if mode.ieee else blocked_chol(Q, mode)
     B, n = Q.shape[0], Q.shape[-1]
     L = torch.empty_like(Q)
     d = torch.empty(B, n, dtype=Q.dtype, device=Q.device)
@@ -69,19 +117,63 @@ def pallas_chol(Q):
         with torch.cuda.device(Q.device):
             err = _build.entry("op_chol", Q.dtype)(
                 Q.data_ptr(), L.data_ptr(), d.data_ptr(), ok.data_ptr(),
-                B, n, _build.stream_ptr(Q))
+                B, n, mode.code, _build.stream_ptr(Q))
         _build.check(err, "chol")
-        LAUNCHES["chol"] += 1
+        count_launch("chol", mode)
     else:
         ok.fill_(1)
     return L, d, ok != 0
 
 
-def blocked_tri_inv(L, block: int = 256):
+def _moded_tri_inv(L, mode, block: int = 32):
+    """L^-1 with every product L[r, k] X[k, c] in matmul mode `mode`,
+    by blocked forward substitution on the identity (the recurrence of
+    K3's csrc/tri_inv.cu): each block of rows takes the product with the
+    rows solved before it, then solves its own rows one by one; each row of
+    X is split once, when it is final."""
+    B, n = L.shape[0], L.shape[-1]
+    Lp = precision.split(L, mode)
+    X = torch.zeros_like(L)
+    Xp = [torch.zeros_like(L) for _ in range(mode.parts)]
+    eye = torch.eye(n, dtype=L.dtype, device=L.device)
+    for r0 in range(0, n, block):
+        r1 = min(n, r0 + block)
+        rhs = eye[r0:r1].expand(B, r1 - r0, n)
+        if r0 > 0:
+            rhs = rhs - precision.matmul_parts(
+                [p[:, r0:r1, :r0] for p in Lp], [p[:, :r0] for p in Xp],
+                mode)
+        for r in range(r0, r1):
+            x = rhs[:, r - r0]
+            if r > r0:
+                x = x - precision.matmul_parts(
+                    [p[:, r, None, r0:r] for p in Lp],
+                    [p[:, r0:r] for p in Xp], mode)[:, 0]
+            x = x / L[:, r, r, None]
+            X[:, r] = x
+            for p, part in zip(Xp, precision.split(x, mode)):
+                p[:, r] = part
+    return X
+
+
+def blocked_tri_inv(L, block: int = 256, mode=None):
     """L^-1 for a batch of lower-triangular L: invert the diagonal blocks
     (one batched triangular solve), then fill the strictly-lower block
     columns left to right with matmuls (port of the JAX package's
-    blocked_tri_inv; same O(n^3/3) flops as solve_triangular(L, I))."""
+    blocked_tri_inv; same O(n^3/3) flops as solve_triangular(L, I)).
+    `mode` None takes the current scope, whose products those matmuls are
+    (the `xla`/`invchol` lanes); an IEEE Mode takes them in IEEE float32;
+    a non-IEEE float32 Mode takes the substitution of `_moded_tri_inv`
+    instead (K3's twin in that mode)."""
+    if mode is None:
+        return _plain_tri_inv(L, block)
+    if not precision.kernel_mode(L, mode).ieee:
+        return _moded_tri_inv(L, mode)
+    with precision.ieee_products():
+        return _plain_tri_inv(L, block)
+
+
+def _plain_tri_inv(L, block):
     n = L.shape[-1]
     eye = torch.eye(n if n <= block else block, dtype=L.dtype,
                     device=L.device)
@@ -115,39 +207,44 @@ def blocked_tri_inv(L, block: int = 256):
     return X[..., :n, :n] if n_p != n else X
 
 
-def xla_chol_inv_from_L(L):
-    """M = L^-T L^-1 via blocked triangular inversion + a Gram matmul."""
-    Li = blocked_tri_inv(L)
-    return Li.transpose(-1, -2) @ Li
+def xla_chol_inv_from_L(L, mode=None):
+    """M = L^-T L^-1 via blocked triangular inversion + a Gram matmul
+    (`mode` as for `blocked_tri_inv`; a Mode: K3's twin in that mode)."""
+    Li = blocked_tri_inv(L, mode=mode)
+    return precision.twin_matmul(Li.transpose(-1, -2), Li, mode)
 
 
-def launch_tri_inv(L, Li):
-    """Launch `csrc/tri_inv.cu`: Li = L^-1 for validated CUDA tensors."""
+def launch_tri_inv(L, Li, mode=None):
+    """Launch `csrc/tri_inv.cu`: Li = L^-1 for validated CUDA tensors, in
+    matmul mode `mode` (None: the current scope's; float32; float64 runs
+    IEEE)."""
     with torch.cuda.device(L.device):
         err = _build.entry("op_tri_inv", L.dtype)(
             L.data_ptr(), Li.data_ptr(), L.shape[0], L.shape[-1],
-            _build.stream_ptr(L))
+            precision.kernel_mode(L, mode).code, _build.stream_ptr(L))
     _build.check(err, "tri_inv")
 
 
-def pallas_tri_inv_gram(L):
+def pallas_tri_inv_gram(L, mode=None):
     """M = (L L^T)^-1 = L^-T L^-1 for a batch of lower-triangular L (the
-    strict upper triangle must be zero, as `pallas_chol` leaves it)."""
+    strict upper triangle must be zero, as `pallas_chol` leaves it), in
+    matmul mode `mode` (default: the current scope's)."""
     _check_square(L, "tri_inv_gram")
+    mode = precision.kernel_mode(L, mode)
     if L.device.type == "cpu":
-        return xla_chol_inv_from_L(L)
+        return xla_chol_inv_from_L(L, mode)
     B, n = L.shape[0], L.shape[-1]
     Li = torch.empty_like(L)
     M = torch.empty_like(L)
     if B == 0 or n == 0:
         return M
-    launch_tri_inv(L, Li)
-    launch_fused_q(Li, None, None, None, M, lower=True)
-    LAUNCHES["tri_inv_gram"] += 1
+    launch_tri_inv(L, Li, mode)
+    launch_fused_q(Li, None, None, None, M, lower=True, mode=mode)
+    count_launch("tri_inv_gram", mode)
     return M
 
 
-def pallas_chol_inv(Q):
+def pallas_chol_inv(Q, mode=None):
     """(M, d, ok): explicit inverse of SPD Q plus the Cholesky pivot info."""
-    L, d, ok = pallas_chol(Q)
-    return pallas_tri_inv_gram(L), d, ok
+    L, d, ok = pallas_chol(Q, mode)
+    return pallas_tri_inv_gram(L, mode), d, ok

@@ -19,6 +19,13 @@ triple products, docs/one-phase.tex:901-912).
   of the JAX package's XLA expression); the other lanes use it, and the
   wrapper uses it for CPU tensors.
 
+Matmul modes (`Params.matmul_precision`, ops/precision.py): the wrappers
+take `mode=` (default: the solve's scope) and launch the kernel's moded
+variant for a non-IEEE float32 mode, every product J[k, i] w[k] x J[k, j]
+taken with both operands rounded (the first after the scaling, as the
+JAX kernel forms `ji * w` before its dot); `xla_fused_q(..., mode=)` is
+its twin.  Launches are tallied by mode (`ops.LAUNCH_MODES`).
+
 Shapes are batch-first: Jc (m, n) shared or (B, m, n), w (B, m), H None,
 shared (n, n) or (B, n, n), bnd (B, n) -> Q (B, n, n).  A shared Jc or H is
 passed to the kernel with batch stride 0, never copied B times.
@@ -28,13 +35,14 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES
 from . import _build
+from . import count_launch
+from . import precision
 
 _FLOATS = (torch.float32, torch.float64)
 
 
-def xla_fused_q(Jc, w, H, bnd, mxu_dtype=None):
+def xla_fused_q(Jc, w, H, bnd, mxu_dtype=None, mode=None):
     """Q = H + J^T diag(w) J + diag(bnd) in plain PyTorch.  H is None for
     declared-zero Hessians (LPs).
 
@@ -44,7 +52,12 @@ def xla_fused_q(Jc, w, H, bnd, mxu_dtype=None):
     halves the weights' exponent range so bf16 holds them, and the ~3e-3
     relative error only touches the preconditioner.  A product of two bf16
     values is exact in float32, so the float32 product of the rounded
-    operands gives the reference's values up to summation order."""
+    operands gives the reference's values up to summation order.
+
+    `mode`, as for the wrappers: None takes the current scope (the product
+    is plain PyTorch code, which the scope's ProductMode or cuBLAS switch
+    sets: the `xla`/`invchol` lanes); a Mode takes the rank-m product's
+    every term in that mode (precision.twin_matmul): the kernel's twin."""
     B, n = bnd.shape
     if Jc.shape[-2] > 0:
         if mxu_dtype is not None:
@@ -52,7 +65,8 @@ def xla_fused_q(Jc, w, H, bnd, mxu_dtype=None):
             Js = Js.to(torch.float32)
             upd = (Js.transpose(-1, -2) @ Js).to(bnd.dtype)
         else:
-            upd = (Jc * w[:, :, None]).transpose(-1, -2) @ Jc
+            upd = precision.twin_matmul(
+                (Jc * w[:, :, None]).transpose(-1, -2), Jc, mode)
         Q = upd if H is None else H + upd
     elif H is None:
         Q = torch.zeros(B, n, n, dtype=bnd.dtype, device=bnd.device)
@@ -89,27 +103,29 @@ def _cuda_operands(Jc, w, H, bnd):
     return B, m, n
 
 
-def _launch_counted(Jc, w, H, bnd, counter):
+def _launch_counted(Jc, w, H, bnd, counter, mode):
     """Q from the kernel of `csrc/fused_q.cu` for CUDA tensors, counted in
-    LAUNCHES[counter]; the plain version for CPU tensors."""
+    LAUNCHES[counter] (and by mode); the plain version for CPU tensors."""
+    mode = precision.kernel_mode(bnd, mode)
     if bnd.device.type == "cpu":
-        return xla_fused_q(Jc, w, H, bnd)
+        return xla_fused_q(Jc, w, H, bnd, mode=mode)
     B, m, n = _cuda_operands(Jc, w, H, bnd)
     Q = torch.empty(B, n, n, dtype=bnd.dtype, device=bnd.device)
     if B == 0 or n == 0:
         return Q
-    launch_fused_q(Jc, w, H, bnd, Q)
-    LAUNCHES[counter] += 1
+    launch_fused_q(Jc, w, H, bnd, Q, mode=mode)
+    count_launch(counter, mode)
     return Q
 
 
-def pallas_fused_q(Jc, w, H, bnd):
+def pallas_fused_q(Jc, w, H, bnd, mode=None):
     """Q = H + Jc^T diag(w) Jc + diag(bnd): the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
-    return _launch_counted(Jc, w, H, bnd, "fused_q")
+    tensors, the plain version for CPU tensors; in matmul mode `mode`
+    (default: the current scope's, ops/precision.py)."""
+    return _launch_counted(Jc, w, H, bnd, "fused_q", mode)
 
 
-def pallas_fused_q_tri(Jc, w, H, bnd):
+def pallas_fused_q_tri(Jc, w, H, bnd, mode=None):
     """The same Q as `pallas_fused_q`, with the rank-m product formed for
     the lower tile pairs only and mirrored, so Q - H is symmetric bit for
     bit: the same kernel, its launches counted apart; the plain version
@@ -117,7 +133,7 @@ def pallas_fused_q_tri(Jc, w, H, bnd):
 
     As in the JAX package, `fused_q` does not dispatch here: the function
     is kept as the symmetric-tiling building block and held by its tests."""
-    return _launch_counted(Jc, w, H, bnd, "fused_q_tri")
+    return _launch_counted(Jc, w, H, bnd, "fused_q_tri", mode)
 
 
 def _batch_stride(t):
@@ -125,17 +141,19 @@ def _batch_stride(t):
     return 0 if (t is None or t.dim() == 2) else t.shape[-2] * t.shape[-1]
 
 
-def launch_fused_q(Jc, w, H, bnd, Q, lower: bool = False):
+def launch_fused_q(Jc, w, H, bnd, Q, lower: bool = False, mode=None):
     """Launch `csrc/fused_q.cu` on validated operands (w, H, bnd may be
     None).  `lower` declares Jc square and lower triangular, so tile (i, j),
     i >= j, sums only over rows k >= i: the Gram product of the triangular
-    inverse (ops/cholesky.py)."""
+    inverse (ops/cholesky.py).  `mode`: the matmul mode of a float32 Q (the
+    moded instantiation; None: the current scope's); float64 runs IEEE."""
     B, n = Q.shape[0], Q.shape[-1]
     with torch.cuda.device(Q.device):
         err = _build.entry("op_fused_q", Q.dtype)(
             _build.ptr(Jc), _batch_stride(Jc), _build.ptr(w), _build.ptr(H),
             _batch_stride(H), _build.ptr(bnd), _build.ptr(Q), B,
-            Jc.shape[-2], n, int(lower), _build.stream_ptr(Q))
+            Jc.shape[-2], n, int(lower), precision.kernel_mode(Q, mode).code,
+            _build.stream_ptr(Q))
     _build.check(err, "fused_q")
 
 

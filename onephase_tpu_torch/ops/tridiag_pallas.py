@@ -22,7 +22,10 @@ version):
 The Pallas plumbing (padding to the TPU's (8, 128) tiling, the `_View`
 adapter, interpret mode) is not ported: the CUDA kernels mask the ragged
 edge themselves.  The kernels take nb <= 64 (the repo's chain shapes use
-nb <= 32); the wrappers raise on larger blocks.
+nb <= 32); the wrappers raise on larger blocks.  The kernels run IEEE
+float32 and float64 only: a non-IEEE `matmul_precision` mode on float32
+CUDA tensors raises NotImplementedError (`check_ieee`) instead of running
+IEEE (the chain and banded `xla` lanes take every mode).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 
 from . import LAUNCHES
 from . import _build
+from . import precision
 from .block_tridiag import tridiag_factor
 
 _FLOATS = (torch.float32, torch.float64)
@@ -66,6 +70,19 @@ def xla_tridiag_solve_inv(Ci, Ek, b):
     return torch.stack(x, dim=-3).squeeze(-1)
 
 
+def check_ieee(dtype, device, mode=None):
+    """K5 and K7 take no matmul mode: NotImplementedError for a non-IEEE
+    `mode` (default: the current scope's) on float32 CUDA operands."""
+    mode = precision.current() if mode is None else mode
+    if (torch.device(device).type == "cuda" and dtype == torch.float32
+            and not mode.ieee):
+        raise NotImplementedError(
+            f"matmul mode {mode} is not ported to the block-tridiagonal "
+            "kernels K5 (tridiag_solve) and K7 (tridiag_factor), which run "
+            "IEEE float32 only: use kkt.linear_solver_type='xla' or "
+            "matmul_precision='highest'")
+
+
 def _check_band(name, D, S):
     """D (B, K, nb, nb) and S (B, K-1, nb, nb), one dtype and device."""
     if D.dim() != 4 or D.shape[-1] != D.shape[-2]:
@@ -95,6 +112,7 @@ def pallas_tridiag_factor(Ad, Bs, delta):
     _check_band("tridiag_factor", Ad, Bs)
     if Ad.device.type == "cpu":
         return xla_tridiag_factor_inv(Ad, Bs, delta)
+    check_ieee(Ad.dtype, Ad.device)
     B, K, nb, _ = Ad.shape
     dvec = torch.as_tensor(delta, dtype=Ad.dtype, device=Ad.device)
     dvec = dvec.expand(B).contiguous()
@@ -127,6 +145,7 @@ def pallas_tridiag_solve(Ci, Ek, b):
         return xla_tridiag_solve_inv(Ci, Ek, b)
     if not b.is_contiguous():
         raise ValueError("tridiag_solve: a CUDA b must be contiguous")
+    check_ieee(Ci.dtype, Ci.device)
     B, K, nb, _ = Ci.shape
     x = torch.empty_like(b)
     if B > 0 and K > 0 and nb > 0:

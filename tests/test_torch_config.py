@@ -123,12 +123,18 @@ def test_unported_options_raise():
     """The dense kernel takes every ported knob, `make_kernel` builds every
     KKT system (symmetric and clever_symmetric, also with the eigh
     backend, and schur_dual on an LP), refuses a value no package knows
-    and the JAX package's invalid combinations (ValueError) and still
-    refuses the unported option `matmul_precision` on every kernel
-    (NotImplementedError).  The structured kernels take the dense-path
-    knobs as the JAX package's do (tests/test_torch_structured_options.py)
+    and the JAX package's invalid combinations (ValueError) and an
+    unported linear solver (NotImplementedError).  The structured kernels
+    take the dense-path knobs as the JAX package's do
+    (tests/test_torch_structured_options.py)
     and a mesh (parallel/mesh.py; tests/test_torch_mesh.py): a one-rank
-    mesh here, on the chain and banded kernels with partitions."""
+    mesh here, on the chain and banded kernels with partitions.
+
+    `matmul_precision` (ops/precision.py): on the CPU "high" builds every
+    kernel, the chain and banded `pallas` lanes included; a card-only preset
+    (BF16_BF16_F32_X3) and a value no package knows raise ValueError.  The
+    K5/K7 refusal of a non-IEEE mode exists on CUDA tensors only
+    (tests/test_torch_gpu.py, chip_smoke.py's precision phase)."""
     from onephase_tpu_torch.ipm.core import OnePhaseKernel
     from onephase_tpu_torch.ipm.dual import SchurDualKernel, make_kernel
     from onephase_tpu_torch.models import zoo
@@ -158,15 +164,21 @@ def test_unported_options_raise():
     for over in (dual, dict(dual, **{"kkt.factor_precision": "f32"})):
         k = make_kernel(lp, tcfg.Params().with_overrides(over))
         assert type(k) is SchurDualKernel
-    for over in ({"matmul_precision": "high"},
-                 {"kkt.linear_solver_type": "cholmod"}):
-        with pytest.raises(NotImplementedError):
-            make_kernel(nlp, tcfg.Params().with_overrides(over))
+    with pytest.raises(NotImplementedError):
+        make_kernel(nlp, tcfg.Params().with_overrides(
+            {"kkt.linear_solver_type": "cholmod"}))
+    make_kernel(nlp, tcfg.Params().with_overrides({"matmul_precision":
+                                                   "high"}))
+    make_kernel(lp, tcfg.Params().with_overrides(
+        dict(dual, matmul_precision="high")))
     for prob, over in (
             (nlp, {"kkt.factor_precision": "f16"}),
             (nlp, {"kkt.q_form_dtype": "fp8"}),
             (nlp, {"init.init_style": "mehrotra2"}),
             (nlp, {"kkt.kkt_solver_type": "ldl"}),
+            (nlp, {"matmul_precision": "BF16_BF16_F32_X3"}),   # card only
+            (nlp, {"matmul_precision": "fastest"}),            # no package
+            (lp, dict(dual, matmul_precision="BF16_BF16_F32_X3")),
             (nlp, {"kkt.kkt_solver_type": "symmetric",
                    "kkt.factor_precision": "f32"}),
             (nlp, {"kkt.kkt_solver_type": "clever_symmetric",
@@ -184,12 +196,16 @@ def test_unported_options_raise():
     xla = {"kkt.linear_solver_type": "xla"}
     parts = dict(xla, **{"kkt.chain_partitions": 2})
     from onephase_tpu_torch.parallel.mesh import make_mesh
+    pallas = {"kkt.linear_solver_type": "pallas"}
     for make, axis, over in zip(structured, ("chain", "chain", "blk"),
                                 (parts, parts, xla)):
         make(tcfg.Params().with_overrides(xla))
-        with pytest.raises(NotImplementedError):
+        for lane in (xla, pallas):
             make(tcfg.Params().with_overrides(
-                dict(xla, matmul_precision="high")))
+                dict(lane, matmul_precision="high")))
+            with pytest.raises(ValueError):
+                make(tcfg.Params().with_overrides(
+                    dict(lane, matmul_precision="BF16_BF16_F32_X3")))
         k = make(tcfg.Params().with_overrides(over),
                  mesh=make_mesh(axis=axis, device="cpu"))
         assert k.mesh.size == 1

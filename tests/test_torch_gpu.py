@@ -562,3 +562,124 @@ def test_row_sum_depends_on_the_batch_and_the_kernels_do_not(cuda, dt, n,
     whole, part = v.sum(1), v[:rows].sum(1)
     assert not torch.equal(whole[:rows], part)
     assert _rel_err(whole[:rows], part) <= TOL[dt]
+
+
+# ---------------------------------------------------------------------
+# matmul modes (ops/precision.py): K1-K3's moded variants against their
+# twins in the same mode, max |kernel - twin| / max |twin| <= 1e-4 as in
+# IEEE (summation order), and the mode visible in the launch tally
+# ---------------------------------------------------------------------
+def _mode_ids():
+    from onephase_tpu_torch.ops import precision
+    return [str(m) for m in precision.CARD_MODES]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode_name", _mode_ids())
+@pytest.mark.parametrize("n, m, B, shared", [(130, 70, 3, False),
+                                             (256, 128, 4, True)])
+def test_kernels_in_mode_match_twins(cuda, mode_name, n, m, B, shared):
+    from onephase_tpu_torch.ops import precision
+    mode = next(x for x in precision.CARD_MODES if str(x) == mode_name)
+    Jc, w, H, bnd = _fq_inputs(np.random.default_rng(n + 3 * m), n, m, B,
+                               shared, torch.float32, cuda)
+    ops.reset_launch_counts()
+    # the lower triangle, which the path reads: above it K1 mirrors its
+    # rank-m part, whose operands are rounded after the other side's scaling
+    Q = schur.pallas_fused_q(Jc, w, H, bnd, mode=mode).tril()
+    assert _rel_err(Q, schur.xla_fused_q(Jc, w, H, bnd, mode=mode).tril()) \
+        <= 1e-4
+    S = _spd(np.random.default_rng(n), B, n, torch.float32, cuda)
+    L, d, ok = ch.pallas_chol(S, mode=mode)
+    Lt, dt_, okt = ch.blocked_chol(S, mode)
+    assert bool(ok.all()) and bool(okt.all())
+    assert _rel_err(L, Lt) <= 1e-4 and _rel_err(d, dt_) <= 1e-4
+    M = ch.pallas_tri_inv_gram(Lt, mode=mode)
+    assert torch.equal(M, M.mT)
+    assert _rel_err(M, ch.xla_chol_inv_from_L(Lt, mode)) <= 1e-4
+    assert ops.launch_modes() == {k: {mode_name: 1} for k in
+                                  ("fused_q", "chol", "tri_inv_gram")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode_name", _mode_ids())
+def test_fused_q_rank_one_in_mode_is_its_twin(cuda, mode_name):
+    """With one constraint row each entry is one product: the kernel adds
+    the mode's part products to +0 in the twin's order (smallest first), so
+    kernel and twin agree bit for bit, in both of K1's modes."""
+    from onephase_tpu_torch.ops import precision
+    mode = next(x for x in precision.CARD_MODES if str(x) == mode_name)
+    Jc, w, H, bnd = _fq_inputs(np.random.default_rng(1), 96, 1, 2, True,
+                               torch.float32, cuda)
+    Q = schur.pallas_fused_q(Jc, w, H, bnd, mode=mode)
+    assert torch.equal(Q.tril(),
+                       schur.xla_fused_q(Jc, w, H, bnd, mode=mode).tril())
+    if mode.passes <= 3:
+        # (the 6- and 9-product sets come within an ulp of the IEEE
+        # product, and may round to it)
+        assert not torch.equal(Q.tril(), schur.pallas_fused_q(
+            Jc, w, H, bnd).tril())
+    # the Gram mode: Li with one nonzero row (its last)
+    Li = torch.zeros(2, 96, 96, device=cuda)
+    Li[:, -1] = torch.as_tensor(np.random.default_rng(2).normal(size=(2, 96)),
+                                dtype=torch.float32, device=cuda)
+    G = torch.empty_like(Li)
+    schur.launch_fused_q(Li, None, None, None, G, lower=True, mode=mode)
+    assert torch.equal(G.tril(),
+                       precision.matmul(Li.mT, Li, mode).tril())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode_name", _mode_ids())
+def test_chol_tri_inv_one_product_in_mode_is_its_twin(cuda, mode_name):
+    """On chip_smoke.py's one-product operands (one product an entry of the
+    output, taken in a trailing or block update from +0) K2 and K3's
+    inverse equal their twins bit for bit in every mode, and differ from
+    the IEEE kernels where the mode takes at most 3 products."""
+    import importlib.util
+    from pathlib import Path
+    from onephase_tpu_torch.ops import precision
+    mode = next(x for x in precision.CARD_MODES if str(x) == mode_name)
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    Q, L = smoke.one_product_operands(3, 256, 7, cuda)
+    Lk = ch.pallas_chol(Q, mode=mode)[0]
+    assert torch.equal(Lk, ch.blocked_chol(Q, mode)[0])
+    X = torch.empty_like(L)
+    ch.launch_tri_inv(L, X, mode)
+    assert torch.equal(X, ch.blocked_tri_inv(L, mode=mode))
+    if mode.passes <= 3:
+        Xi = torch.empty_like(L)
+        ch.launch_tri_inv(L, Xi, precision.IEEE)
+        assert not torch.equal(Lk, ch.pallas_chol(Q, mode=precision.IEEE)[0])
+        assert not torch.equal(X, Xi)
+
+
+@pytest.mark.gpu
+def test_modes_refused_where_not_built(cuda):
+    """A mode code no kernel has raises (nothing falls back to IEEE); K5 and
+    K7 refuse every non-IEEE float32 mode, on their wrappers and on the
+    chain kernel's pallas lane; float64 operands run IEEE under any mode."""
+    from onephase_tpu_torch.config import Params
+    from onephase_tpu_torch.models.examples import chain_ocp
+    from onephase_tpu_torch.ops import precision
+    from onephase_tpu_torch.ops import tridiag_pallas as tp
+    from onephase_tpu_torch.parallel.chain import ChainKernel
+    S = _spd(np.random.default_rng(0), 2, 64, torch.float32, cuda)
+    with pytest.raises(RuntimeError):
+        ch.pallas_chol(S, mode=precision.Mode("f16", 3))
+    D = _spd(np.random.default_rng(1), 1, 8, torch.float32, cuda)
+    Ad = D[:, None].expand(1, 3, 8, 8).contiguous()
+    Bs = torch.zeros(1, 2, 8, 8, device=cuda)
+    with precision.scope("BF16_BF16_F32", "cuda"):
+        with pytest.raises(NotImplementedError, match="K5"):
+            tp.pallas_tridiag_factor(Ad, Bs, 0.0)
+        L64, _, _ = ch.pallas_chol(S.double())
+    assert torch.equal(L64, ch.pallas_chol(S.double())[0])
+    pars = Params().with_overrides({"kkt.linear_solver_type": "pallas",
+                                    "matmul_precision": "BF16_BF16_F32"})
+    with pytest.raises(NotImplementedError, match="K7"):
+        ChainKernel(chain_ocp(K=4, nx=2, mc=1, device=cuda), pars,
+                    dtype=torch.float32, device=cuda)

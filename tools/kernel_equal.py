@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Hold K3, K1, K6 or K5 of this tree value for value against another
+"""Hold K3, K1, K2, K6 or K5 of this tree value for value against another
 checkout's.
 
 K3 (`ops/cholesky.py:pallas_tri_inv_gram`, M = L^-T L^-1) feeds every
@@ -13,6 +13,7 @@ earlier values bit for bit.  On a machine with a CUDA card:
     mkdir -p _parent && git archive <commit> onephase_tpu_torch | tar -x -C _parent
     python3 tools/kernel_equal.py --parent _parent                         # K3
     python3 tools/kernel_equal.py --parent _parent --kernel fused_q        # K1
+    python3 tools/kernel_equal.py --parent _parent --kernel chol           # K2
     python3 tools/kernel_equal.py --parent _parent --kernel fused_q_tri    # K6
     python3 tools/kernel_equal.py --parent _parent --kernel tridiag_solve  # K5
 
@@ -33,6 +34,10 @@ the lower triangle and the diagonal are read on the path, so the check is
 `torch.equal(tril(this), tril(other))`; the entries that differ above the
 diagonal are counted and printed.  The rank-m part of this tree's Q (H =
 None, bnd = 0) must also be bit-symmetric.
+
+`--kernel chol`: both packages' `pallas_chol` on the same seeded Q, K3's
+cases (f32 and f64, n from 1 to 2048, ill-conditioned Q) and a non-PD Q;
+`torch.equal` on L, d and ok.
 
 `--kernel fused_q_tri`: both packages' `pallas_fused_q_tri` on the same
 operands: f32 and f64, n in {256, 1024, 2048} and ragged n, Jc and H
@@ -223,6 +228,51 @@ def check_tri_inv_gram(parent: Path, dev):
         print(f"K3 {dname} n={n} B={B}: other checkout {t_old:.4f} ms, this "
               f"tree {t_new:.4f} ms ({t_new / t_old:.3f}x); device ms by "
               f"kernel: other {d_old}, this {d_new}", flush=True)
+    return results, timings, differing
+
+
+def check_chol(parent: Path, dev):
+    """K2 of both trees on the same Q: (results, timings, differing)."""
+    from onephase_tpu_torch.ops import cholesky as new
+    old = _load(parent, "parent_onephase_tpu_torch", "ops.cholesky")
+    rng = np.random.default_rng(5)
+    differing, results = 0, []
+    cases = CASES + [("float32", 130, 4, "non-PD"), ("float64", 130, 4,
+                                                     "non-PD")]
+    for dname, n, B, cond in cases:
+        dtype = getattr(torch, dname)
+        if cond == "non-PD":
+            Q = _spd(rng, B, n, None, dtype, dev) - 1e3 * n * torch.eye(
+                n, dtype=dtype, device=dev)
+        else:
+            Q = _spd(rng, B, n, cond, dtype, dev)
+        new_out, old_out = new.pallas_chol(Q), old.pallas_chol(Q)
+        torch.cuda.synchronize()
+        L_new, d_new, ok_new = new_out
+        L_old, d_old, ok_old = old_out
+        ok_same = torch.equal(ok_new, ok_old)
+        # a failed factor is garbage: L and d count only where ok
+        good = ok_new & ok_old
+        same = ok_same and torch.equal(L_new[good], L_old[good]) and \
+            torch.equal(d_new[good], d_old[good])
+        n_diff = int((L_new[good] != L_old[good]).sum())
+        differing += not same
+        results.append(dict(dtype=dname, n=n, B=B, cond=cond, equal=same,
+                            differing_entries=n_diff,
+                            ok=int(ok_new.sum())))
+        print(f"K2 {dname} n={n} B={B} cond={cond}: torch.equal {same} "
+              f"({n_diff} entries differ), ok {int(ok_new.sum())}/{B} "
+              f"(other {int(ok_old.sum())})", flush=True)
+
+    timings = []
+    for dname, n, B in TIMED:
+        Q = _spd(rng, B, n, None, getattr(torch, dname), dev)
+        t_old, t_new = _time_abba(lambda: old.pallas_chol(Q),
+                                  lambda: new.pallas_chol(Q))
+        timings.append(dict(n=n, B=B, dtype=dname, other_ms=t_old,
+                            this_ms=t_new))
+        print(f"K2 {dname} n={n} B={B}: other checkout {t_old:.4f} ms, this "
+              f"tree {t_new:.4f} ms ({t_new / t_old:.3f}x)", flush=True)
     return results, timings, differing
 
 
@@ -419,11 +469,11 @@ def main() -> int:
                     help="directory holding the other checkout's "
                          "onephase_tpu_torch/")
     ap.add_argument("--kernel", nargs="+", default=["tri_inv_gram"],
-                    choices=("tri_inv_gram", "fused_q", "fused_q_tri",
-                             "tridiag_solve"),
-                    help="K3 (tri_inv_gram, the default), K1 (fused_q), K6 "
-                         "(fused_q_tri), K5 (tridiag_solve); several run "
-                         "in turn in one process")
+                    choices=("tri_inv_gram", "fused_q", "chol",
+                             "fused_q_tri", "tridiag_solve"),
+                    help="K3 (tri_inv_gram, the default), K1 (fused_q), K2 "
+                         "(chol), K6 (fused_q_tri), K5 (tridiag_solve); "
+                         "several run in turn in one process")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_equal: no CUDA device; the kernels run only "
@@ -436,6 +486,7 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     checks = {"tri_inv_gram": check_tri_inv_gram,
               "fused_q": check_fused_q,
+              "chol": check_chol,
               "fused_q_tri": check_fused_q_tri,
               "tridiag_solve": check_tridiag_solve}
     any_differ = False
