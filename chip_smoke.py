@@ -36,8 +36,17 @@ paths on the `pallas` lane:
   QP 256/128/16 float32 under BF16_BF16_F32_X6 on `pallas` (K1-K3
   launched in the run's mode), beside the TPU's records of that
   configuration (PREC_TPU_INVCHOL; tools/precision_bench.py runs the
-  other names and the `invchol` lane); the chain kernel's `pallas` lane
-  refusing a mode (K5 and K7 run IEEE only);
+  other names and the `invchol` lane); K7 and K5 in every mode at the
+  chain's (K=400, nb=32) and the banded path's (K=204, nb=63) shapes,
+  timed in turns with their IEEE kernels beside their bounds;
+- K7 and K5 in every mode against their twins (a later phase,
+  `tridiag_mode_phase`): the band within `_tridiag_tol`, K7's output
+  within TRIDIAG_RESIDUAL_TOL of its mode's recurrences (TF32, BF16 and
+  F16 at least 10x closer than the IEEE kernel's), one-product operands
+  (`tridiag_one_product_operands`) bit for bit and off the IEEE kernels
+  where the mode takes at most 3 products; then the chain path on
+  `pallas` under "high" and BF16_BF16_F32_X6 (CHAIN_MODE_RUNS), K5 and K7
+  launched in the run's mode, printed beside the IEEE run;
 - the chain path (`chain_ocp -> ChainKernel (block-tridiagonal Schur) ->
   run_chunk`): chain_ocp(K=400, nx=32, mc=16) in float32, the JAX
   package's large-instance configuration (scripts/bench_large.py), on the
@@ -101,11 +110,12 @@ paths on the `pallas` lane:
 
 The phases up to the precision phase, and K2's times at the scenario
 shapes, run alone on the card: every time in the kernels line is theirs.
-The later phases then share the card (`later_phases`): the scenario and
-campaign phases each run in a spawned process of its own, and the mesh
-phase's ranks start with them, while this process runs the chain, banded
-and kkt phases and the mesh phase's unsharded runs, so the seconds those
-phases print are taken beside one another.  A child that fails or outlives
+The later phases then share the card (`later_phases`): the scenario
+phase followed by K7/K5's twin checks and the chain runs under the
+modes, and the campaign phase, each run in a spawned process of its own,
+and the mesh phase's ranks start with them, while this process runs the
+chain, banded and kkt phases and the mesh phase's unsharded runs, so the
+seconds those phases print are taken beside one another.  A child that fails or outlives
 PHASE_TIMEOUT fails the script, and every child is killed when it ends.
 
 The mixed phase also times K1, K2 and K3 at its shape in float64 and in
@@ -136,8 +146,10 @@ the final line; without a CUDA card it refuses to run.  The line before
 the last lists every kernel with its launches on its path, its error
 against the plain version, its time, the plain version's, a library
 call's where one PyTorch call computes the same function, and its bound
-(K1-K3 also with their records in each matmul mode at n=1024, `modes`,
-and their launches on the mixed phase's float32 run, on
+(K1-K3 also with their records in each matmul mode at n=1024, and K5
+and K7 at their two shapes, with their launches on the chain runs under
+the modes, `modes`; K1-K3 also with their launches on the mixed phase's
+float32 run, on
 the kkt phase's LP pool and on the campaign's C1 run, K1 also with its
 per-instance-Jc record; K2 also with its launches on the scenario run and
 its times at the scenario shapes; K1-K3 also with their launches on each
@@ -1170,8 +1182,9 @@ def _tridiag_dep_bounds(K, nb, hz):
     return K * 4 * nb * per, 2 * K * 2 * nb * per
 
 
-def _tridiag_bounds(B, K, nb, el):
-    """(K7's bound, K5's bound) at one shape, element size `el`."""
+def _tridiag_work(B, K, nb, el):
+    """((K7's bytes, operations), (K5's bytes, operations)) at one shape,
+    element size `el`."""
     blk = nb * nb
     # K7 reads Ad, Bs, delta, writes Ck, Ci, Ek, ok; per stage E E^T and
     # E_k = B_k Ci^T on nb (nb + 1) / 2 entries of length nb (k >= 1,
@@ -1182,7 +1195,13 @@ def _tridiag_bounds(B, K, nb, el):
     # sweep (one at the chain's ends)
     f5 = B * 2 * 2 * blk * (2 * K - 1)
     b5 = el * B * (K * blk + (K - 1) * blk + 2 * K * nb)
-    return _bound(b7, f7, DNAME[el]), _bound(b5, f5, DNAME[el])
+    return (b7, f7), (b5, f5)
+
+
+def _tridiag_bounds(B, K, nb, el):
+    """(K7's bound, K5's bound) at one shape, element size `el`."""
+    return tuple(_bound(nbytes, flops, DNAME[el])
+                 for nbytes, flops in _tridiag_work(B, K, nb, el))
 
 
 def tridiag_parity(dev):
@@ -1272,20 +1291,26 @@ def tridiag_parity(dev):
     return record
 
 
-def chain_run(dev, lane):
+def chain_run(dev, lane, precision_name=None):
     """scripts/bench_large.py:54-67 on the port: chain_ocp(K=400, nx=32,
     mc=16) in float32 through ChainKernel on `lane`; one warm-up chunk,
     then a timed run from a fresh state to termination.  Launches are
-    counted from the fresh state's init on.  Returns (summary, final x)."""
+    counted from the fresh state's init on.  With `precision_name`, under
+    that `matmul_precision`: the run ends with any final status, and on
+    `pallas` K5 and K7 must launch in its mode only.  Returns (summary,
+    final x)."""
     import torch
     from onephase_tpu_torch import ops
     from onephase_tpu_torch.config import Params
     from onephase_tpu_torch.ipm.state import RUNNING, STATUS_NAMES
     from onephase_tpu_torch.models.examples import chain_ocp
+    from onephase_tpu_torch.ops import precision
     from onephase_tpu_torch.parallel.chain import ChainKernel
 
-    pars = Params().with_overrides(
-        dict(CHAIN_OPTIONS, **{"kkt.linear_solver_type": lane}))
+    extra = {"kkt.linear_solver_type": lane}
+    if precision_name is not None:
+        extra["matmul_precision"] = precision_name
+    pars = Params().with_overrides(dict(CHAIN_OPTIONS, **extra))
     spec = chain_ocp(**CHAIN_SHAPE, device=dev)
     ck = ChainKernel(spec, pars, dtype=torch.float32, device=dev)
     ck.run_chunk(ck.initial_state())
@@ -1299,18 +1324,32 @@ def chain_run(dev, lane):
         st = ck.run_chunk(st)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    mode = str(precision.resolve(pars.matmul_precision, "cuda"))
     summary = {
-        "lane": lane, "status": STATUS_NAMES[int(st.status[0])],
+        "lane": lane, "precision": pars.matmul_precision, "mode": mode,
+        "status": STATUS_NAMES[int(st.status[0])],
         "outer_its": int(st.t[0]) - 1, "cum_fac": int(st.cum_fac[0]),
         "obj": float(st.cache.fval[0]), "seconds": dt,
-        "host_syncs": ck.host_syncs, "launches": ops.launch_counts()}
+        "host_syncs": ck.host_syncs, "launches": ops.launch_counts(),
+        "launch_modes": ops.launch_modes()}
+    label = lane if precision_name is None else \
+        f"{lane} {precision_name} ({mode})"
     print(f"chain K={CHAIN_SHAPE['K']} nx={CHAIN_SHAPE['nx']} "
-          f"mc={CHAIN_SHAPE['mc']} f32 {lane}: {summary['status']} obj "
+          f"mc={CHAIN_SHAPE['mc']} f32 {label}: {summary['status']} obj "
           f"{summary['obj']:.6f} in {summary['outer_its']} outer its, "
           f"{summary['cum_fac']} factorizations, {dt:.4f} s, host_syncs "
-          f"{ck.host_syncs}, launches {summary['launches']}", flush=True)
-    if summary["status"] != "Optimal":
+          f"{ck.host_syncs}, launches {summary['launches']}, by mode "
+          f"{json.dumps(summary['launch_modes'])}", flush=True)
+    if precision_name is None and summary["status"] != "Optimal":
         raise RuntimeError(f"chain {lane}: {summary['status']}")
+    if summary["status"] == STATUS_NAMES[RUNNING]:
+        raise RuntimeError(f"chain {label}: still running")
+    if lane == "pallas":
+        for k in ("tridiag_factor", "tridiag_solve"):
+            n = summary["launches"][k]
+            if not (n > 0 and summary["launch_modes"].get(k) == {mode: n}):
+                raise RuntimeError(f"chain {label}: {k} not launched in "
+                                   f"{mode} only: {summary['launch_modes']}")
     return summary, st.p.x[0]
 
 
@@ -1994,6 +2033,335 @@ def precision_kernel_checks(dev):
     return rec
 
 
+# K7 and K5 in every card mode (the matmul modes of csrc/tridiag.cu): at
+# the chain path's and the banded path's shapes (K, nb), timed alone in
+# the precision phase and held to their twins beside the later phases
+# (`tridiag_mode_phase`); the chain path under one single-pass name and one
+# split name on `pallas`, beside its IEEE run
+TRIDIAG_MODE_SHAPES = ((CHAIN_SHAPE["K"], CHAIN_SHAPE["nx"]),
+                       (BANDED_BAND["K"], BANDED_BAND["nb"]))
+CHAIN_MODE_RUNS = ("high", "BF16_BF16_F32_X6")
+# max |kernel - twin| / max |twin| for K7 and K5: in a one-pass mode 8 u,
+# u the unit roundoff of the mode's input type.  Kernel and twin sum in
+# other orders, so an operand a float32 rounding apart can round to the
+# mode's neighbouring value, a step of u that the rest of the recursion
+# carries on (K7 against the whole recursion in TF32 at K = 40, nb = 32:
+# 3.1e-4, 0.64 u, on an H100);
+# the split modes represent an operand to 2^-16 or closer, and take
+# PREC_TOL_DEFAULT.  Each kernel's own output is also held to its mode's
+# recurrences (`_tridiag_factor_residual`, TRIDIAG_RESIDUAL_TOL)
+TRIDIAG_UNIT_ROUNDOFF = {"tf32": 2.0 ** -11, "bf16": 2.0 ** -8,
+                         "f16": 2.0 ** -11}
+# K7's recurrences on its own entries, float64 with exact part products,
+# over the magnitudes of each entry's terms: float32 sums of at most 64
+# terms (and the reach criterion of PREC_REACH: 10x closer than IEEE's)
+TRIDIAG_RESIDUAL_TOL = 1e-5
+
+
+def _tridiag_tol(md):
+    """K7's and K5's tolerance against their twins in mode `md`."""
+    if md.passes == 1:
+        return 8 * TRIDIAG_UNIT_ROUNDOFF[md.kind]
+    return PREC_TOL_DEFAULT
+
+
+def _tridiag_factor_residual(Ck, Ci, Ek, Ad, Bs, delta, md):
+    """The largest error of K7's recurrences in mode `md` on a factor's own
+    entries (float64, exact part products: `_moded_f64`), over the
+    magnitudes of each entry's terms, all stages at once: S_k = A_k +
+    delta I - m(E_{k-1} E_{k-1}^T); C[i, j] C[j, j] = S[i, j] -
+    sum_{q<j} m(C[i, q], C[j, q]); Ci[r, c] C[r, r] = delta_rc -
+    sum_{q<r} m(C[r, q], Ci[q, c]); E_k = m(B_k Ci_k^T)."""
+    import torch
+    from onephase_tpu_torch.ops import precision
+    f64 = torch.float64
+    nb = Ad.shape[-1]
+    eye = torch.eye(nb, dtype=f64, device=Ad.device)
+    low = torch.ones(nb, nb, dtype=torch.bool, device=Ad.device).tril()
+
+    def mag(a, b):
+        return a.double().abs() @ b.double().abs()
+
+    def worst(err, scale, where=None):
+        r = err.abs() / scale.clamp_min(1e-30)
+        return float((r if where is None else r[..., where]).max())
+
+    S = Ad.double() + delta.double()[:, None, None, None] * eye
+    mS = S.abs()
+    if Ek.shape[1]:
+        S[:, 1:] -= _moded_f64(Ek, Ek.mT, md)
+        mS[:, 1:] += mag(Ek, Ek.mT)
+    d = torch.diagonal(Ck, dim1=-2, dim2=-1)
+    # sum over q < j only: less each entry's q = j term, m(C[i, j], C[j, j])
+    parts_c, parts_d = precision.split(Ck, md), precision.split(d, md)
+    self_term = sum(parts_c[i].double() * parts_d[j].double()[..., None, :]
+                    for i, j in md.pairs)
+    lhs = Ck.double() * d.double()[..., None, :]
+    rhs = S - (_moded_f64(Ck, Ck.mT, md) - self_term)
+    errs = [worst(lhs - rhs, mS + mag(Ck, Ck.mT) + lhs.abs(), low)]
+    strict = torch.tril(Ck, -1)
+    lhs = Ci.double() * d.double()[..., :, None]
+    errs.append(worst(lhs - (eye - _moded_f64(strict, Ci, md)),
+                      1 + mag(strict, Ci) + lhs.abs(), low))
+    if Ek.shape[1]:
+        errs.append(worst(Ek.double() - _moded_f64(Bs, Ci[:, :-1].mT, md),
+                          mag(Bs, Ci[:, :-1].mT)))
+    return max(errs)
+
+
+def tridiag_one_product_operands(K, nb, seed, device):
+    """((Ad, Bs, delta), (Ci, Ek, b)): one instance (a leading axis of 1)
+    in float32 on which K7 and K5 take at most one product of two nonzero
+    entries for an entry of every product they form, so that a kernel and
+    its twin, which sum a dot product's terms and a product's parts in
+    other orders, agree bit for bit in every mode.  With h = nb // 2 and
+    rows i in [h, 2h), c = i - h:
+    - K7: A_k has 4 on the diagonal of rows c < h, A[i, c] = A[c, i] = a
+      and A[i, i] = 1 + a^2 (1 past 2h); B_k has one entry a row, B[c, i].
+      So C_k has column c's one entry below the diagonal at row i (one
+      product in the pivot of row i), C_k^-1 row i entries at c and i (one
+      product at c), E_k = B_k Ci_k^T one entry a row, at column i (column
+      i of Ci_k holds its diagonal alone), and E_k E_k^T is diagonal, one
+      product an entry, for the next stage.
+    - K5: Ci_k diagonal, E_k a scaled permutation (one entry a row and a
+      column), so every matvec entry of both sweeps is one product; |Ci_k|
+      <= 1.5 and |E_k| <= 0.5 keep the sweeps' vectors bounded, within
+      fp16's range at any K.
+    Every sum of products starts from +0 and is subtracted where the
+    recurrence subtracts it, in kernel and twin alike (csrc/tridiag.cu)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    h = nb // 2
+    i, c = np.arange(h, 2 * h), np.arange(h)
+    a = rng.normal(size=(K, h)).astype(np.float32)
+    Ad = np.zeros((K, nb, nb), np.float32)
+    Ad[:, np.arange(nb), np.arange(nb)] = 1.0
+    Ad[:, c, c] = 4.0
+    Ad[:, i, i] = 1.0 + a.astype(np.float64) ** 2
+    Ad[:, i, c] = a
+    Ad[:, c, i] = a
+    Bs = np.zeros((max(K - 1, 0), nb, nb), np.float32)
+    Bs[:, c, i] = 0.3 * rng.normal(size=(max(K - 1, 0), h))
+    Ci = np.zeros((K, nb, nb), np.float32)
+    Ci[:, np.arange(nb), np.arange(nb)] = rng.uniform(0.5, 1.5, (K, nb))
+    Ek = np.zeros((max(K - 1, 0), nb, nb), np.float32)
+    for k in range(K - 1):
+        Ek[k, np.arange(nb), rng.permutation(nb)] = rng.choice(
+            [-1.0, 1.0], nb) * rng.uniform(0.1, 0.5, nb)
+    b = rng.normal(size=(K, nb)).astype(np.float32)
+
+    def t(x):
+        return torch.as_tensor(x[None], device=device)
+    return (t(Ad), t(Bs), 1e-3), (t(Ci), t(Ek), t(b))
+
+
+def _tridiag_mode_operands(rng, K, nb, dev):
+    """((Ad, Bs, delta), (Ci, Ek, b)), float32, two instances: 0 the kernel
+    phase's kind of SPD band (Ci and Ek its IEEE factor's), 1 the
+    one-product operands."""
+    import torch
+    from onephase_tpu_torch.ops import precision
+    from onephase_tpu_torch.ops import tridiag_pallas as tp
+    f32 = torch.float32
+    Ad0, Bs0 = _band(rng, 1, K, nb, f32, dev)
+    _, Ci0, Ek0, _ = tp.pallas_tridiag_factor(Ad0, Bs0, 1e-4,
+                                              mode=precision.IEEE)
+    b0 = torch.as_tensor(rng.normal(size=(1, K, nb)), dtype=f32, device=dev)
+    (Ad1, Bs1, d1), (Ci1, Ek1, b1) = tridiag_one_product_operands(
+        K, nb, K + nb, dev)
+    delta = torch.tensor([1e-4, d1], dtype=f32, device=dev)
+    return ((torch.cat([Ad0, Ad1]), torch.cat([Bs0, Bs1]), delta),
+            (torch.cat([Ci0, Ci1]), torch.cat([Ek0, Ek1]),
+             torch.cat([b0, b1])))
+
+
+def _shape_key(K, nb):
+    """The records' key suffix of a tridiagonal shape: "" for the chain's,
+    "_banded" for the banded path's."""
+    return "" if (K, nb) == TRIDIAG_MODE_SHAPES[0] else "_banded"
+
+
+def tridiag_mode_times(dev):
+    """K7 and K5 in every card mode at TRIDIAG_MODE_SHAPES (one instance,
+    the kernel phase's kind of band), each timed in turns with the IEEE
+    kernel (medians of 5) beside its bound: the larger of the bytes over
+    the memory rate and the operations x products a pass set over the
+    tensor cores' rate for the mode's input type, and the same products
+    over the FP32 rate (`ffma_bound_ms`), where the kernels run them.
+    Runs alone on the card (the precision phase).  Returns {kernel: {mode:
+    record}}."""
+    import torch
+    from onephase_tpu_torch.ops import precision
+    from onephase_tpu_torch.ops import tridiag_pallas as tp
+    rec = {"tridiag_factor": {}, "tridiag_solve": {}}
+    rng = np.random.default_rng(2)
+    ieee = precision.IEEE
+    for K, nb in TRIDIAG_MODE_SHAPES:
+        Ad, Bs = _band(rng, 1, K, nb, torch.float32, dev)
+        _, Ci, Ek, _ = tp.pallas_tridiag_factor(Ad, Bs, 1e-4, mode=ieee)
+        b = torch.as_tensor(rng.normal(size=(1, K, nb)),
+                            dtype=torch.float32, device=dev)
+        work = dict(zip(rec, _tridiag_work(1, K, nb, 4)))
+        key = _shape_key(K, nb)
+        parts = []
+        for md in precision.CARD_MODES:
+            times = {
+                "tridiag_factor": _time_turns(
+                    lambda: tp.pallas_tridiag_factor(Ad, Bs, 1e-4, mode=md),
+                    lambda: tp.pallas_tridiag_factor(Ad, Bs, 1e-4,
+                                                     mode=ieee), reps=5),
+                "tridiag_solve": _time_turns(
+                    lambda: tp.pallas_tridiag_solve(Ci, Ek, b, mode=md),
+                    lambda: tp.pallas_tridiag_solve(Ci, Ek, b, mode=ieee),
+                    reps=5)}
+            line = []
+            for name, (ms, ieee_ms) in times.items():
+                nbytes, flops = work[name]
+                bound, bound_by = _bound(nbytes, flops * md.passes, md.kind)
+                ffma = flops * md.passes / PEAK_FLOPS["float32"] * 1e3
+                rec[name].setdefault(str(md), {}).update({
+                    f"ms{key}": ms, f"ieee_ms{key}": ieee_ms,
+                    f"bound_ms{key}": bound, f"bound_by{key}": bound_by,
+                    f"ffma_bound_ms{key}": ffma})
+                line.append(f"{'K7' if name == 'tridiag_factor' else 'K5'} "
+                            f"{ms:.4f} ms vs IEEE {ieee_ms:.4f} bound "
+                            f"{bound:.4f} ({bound_by}; on the FP32 cores "
+                            f"{ffma:.4f})")
+            parts.append(f"{md} " + ", ".join(line))
+        print(f"precision K7/K5 K={K} nb={nb} f32 (alone, in turns): "
+              + "; ".join(parts), flush=True)
+    return rec
+
+
+def tridiag_factor_stages(Ad, Bs, delta, Ek, md):
+    """K7's twin in mode `md`, every stage at once from a factor's own
+    carried blocks: `moded_factor_stage` (the twin's stage, which
+    `xla_tridiag_factor_inv` runs stage after stage) on the (B K) blocks
+    A_k with E_{k-1} = Ek[k-1] (zero at k = 0) and B_k (zero at k = K-1),
+    as the repo's parity tests step the JAX package's recursion from the
+    port's carried state.  Returns (Ck, Ci, Ek, ok) shaped as K7's."""
+    import torch
+    from onephase_tpu_torch.ops import tridiag_pallas as tp
+    B, K, nb, _ = Ad.shape
+    zero = Ad.new_zeros(B, 1, nb, nb)
+
+    def flat(t):
+        return t.reshape(B * K, nb, nb)
+    C, Ci, E, ok = tp.moded_factor_stage(
+        flat(Ad), flat(torch.cat([Bs, zero], 1)),
+        flat(torch.cat([zero, Ek], 1)), delta.repeat_interleave(K), md)
+    return (C.reshape(B, K, nb, nb), Ci.reshape(B, K, nb, nb),
+            E.reshape(B, K, nb, nb)[:, :K - 1], ok.reshape(B, K).all(1))
+
+
+def _event_ms(fn):
+    """(fn(), its time in ms between two CUDA events)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def tridiag_mode_phase(dev):
+    """K7 and K5 in every card mode against their twins in the same mode
+    (K7's stage by stage from its own carried E_{k-1}, all stages in one
+    batched call: `tridiag_factor_stages`; K5's the whole recursion,
+    `xla_tridiag_solve_inv` with the mode) at TRIDIAG_MODE_SHAPES on two
+    instances (`_tridiag_mode_operands`): the
+    band within `_tridiag_tol` (max |kernel - twin| / max |twin| over Ck,
+    Ci, Ek and over x), K7's output on it within TRIDIAG_RESIDUAL_TOL of
+    its mode's recurrences (and, in the modes of PREC_REACH, 10x closer
+    than the IEEE kernel's), the one-product instance bit for bit, and off
+    the IEEE kernel there wherever the mode takes at most 3 products (a
+    kernel that ran IEEE in place of a mode fails).  Then the chain path on
+    `pallas` under CHAIN_MODE_RUNS, K5 and K7 launched in the run's mode.
+    A later phase (beside the others on the card): the twins' times are
+    taken there.  Returns {"records": {kernel: {mode: record}}, "chain":
+    {name: (summary, x as numpy)}}."""
+    import torch
+    from onephase_tpu_torch.ops import precision
+    from onephase_tpu_torch.ops import tridiag_pallas as tp
+    t0 = time.perf_counter()
+    rec = {"tridiag_factor": {}, "tridiag_solve": {}}
+    rng = np.random.default_rng(6)
+    ieee = precision.IEEE
+    for K, nb in TRIDIAG_MODE_SHAPES:
+        (Ad, Bs, delta), (Ci, Ek, b) = _tridiag_mode_operands(rng, K, nb,
+                                                              dev)
+        i7 = tp.pallas_tridiag_factor(Ad, Bs, delta, mode=ieee)
+        i5 = tp.pallas_tridiag_solve(Ci, Ek, b, mode=ieee)
+        key = _shape_key(K, nb)
+        parts = []
+        for md in precision.CARD_MODES:
+            k7 = tp.pallas_tridiag_factor(Ad, Bs, delta, mode=md)
+            k5 = tp.pallas_tridiag_solve(Ci, Ek, b, mode=md)
+            t7, p7 = _event_ms(
+                lambda: tridiag_factor_stages(Ad, Bs, delta, k7[2], md))
+            t5, p5 = _event_ms(
+                lambda: tp.xla_tridiag_solve_inv(Ci, Ek, b, mode=md))
+            if not (bool(k7[3].all()) and bool(t7[3].all())):
+                raise RuntimeError(f"precision K7 K={K} nb={nb} in {md}: "
+                                   "an SPD band rejected")
+            errs7 = [_err(k[0], t[0]) for k, t in zip(k7[:3], t7[:3])
+                     if k.shape[1] > 0]
+            e7 = max(e for e, _ in errs7), max(a for _, a in errs7)
+            e5 = _err(k5[0], t5[0])
+            same7 = all(torch.equal(k[1], t[1]) for k, t in zip(k7, t7))
+            same5 = torch.equal(k5[1], t5[1])
+            moved7 = sum(int((k[1] != i[1]).sum())
+                         for k, i in zip(k7[:3], i7[:3]))
+            moved5 = int((k5[1] != i5[1]).sum())
+            # K7's output against its mode's recurrences, and the IEEE
+            # kernel's against the same
+            r_mode = _tridiag_factor_residual(*k7[:3], Ad, Bs, delta, md)
+            r_ieee = _tridiag_factor_residual(*i7[:3], Ad, Bs, delta, md)
+            tol = _tridiag_tol(md)
+            part = (f"{md} K7 err {e7[0]:.2e} (tol {tol:.1e}), residual "
+                    f"{r_mode:.2e} (IEEE's {r_ieee:.2e}, "
+                    f"{r_ieee / max(r_mode, 1e-30):.1f}x), one-product "
+                    f"{'=' if same7 else 'DIFFERS'} ({moved7} entries off "
+                    f"IEEE), twin's stages {p7:.1f} ms; K5 err "
+                    f"{e5[0]:.2e}, "
+                    f"one-product {'=' if same5 else 'DIFFERS'} ({moved5} "
+                    f"off IEEE), twin {p5:.2f} ms")
+            parts.append(part)
+            for name, e, p_ms in (("tridiag_factor", e7, p7),
+                                  ("tridiag_solve", e5, p5)):
+                plain = "plain_stages_ms" if name == "tridiag_factor" \
+                    else "plain_ms"
+                rec[name].setdefault(str(md), {}).update({
+                    f"max_abs_err{key}": e[1], f"rel_to_twin{key}": e[0],
+                    f"{plain}{key}": p_ms, "library_ms": None})
+            rec["tridiag_factor"][str(md)].update({
+                f"residual{key}": r_mode, f"residual_ieee{key}": r_ieee})
+            if not (e7[0] <= tol and e5[0] <= tol):
+                raise RuntimeError(f"precision K7/K5 K={K} nb={nb} in {md} "
+                                   f"disagree with their twins: {part}")
+            if not r_mode <= TRIDIAG_RESIDUAL_TOL or (
+                    str(md) in PREC_REACH and not r_ieee >= 10 * r_mode):
+                raise RuntimeError(f"precision K7 K={K} nb={nb} in {md} "
+                                   f"does not hold its recurrences: {part}")
+            if not (same7 and same5):
+                raise RuntimeError(f"precision K7/K5 K={K} nb={nb} in {md}: "
+                                   f"one-product not bit for bit: {part}")
+            if md.passes <= 3 and not (moved7 and moved5):
+                raise RuntimeError(f"precision K7/K5 K={K} nb={nb} in {md}: "
+                                   f"one-product equal to IEEE: {part}")
+        print(f"precision K7/K5 K={K} nb={nb} f32 vs twins: "
+              + "; ".join(parts), flush=True)
+    chain = {}
+    for name in CHAIN_MODE_RUNS:
+        summary, x = chain_run(dev, "pallas", name)
+        chain[name] = (summary, x.cpu().numpy())
+    print(f"precision K7/K5 phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"records": rec, "chain": chain}
+
+
 def precision_bench(dev, runs, seed=0):
     """The bench QP at PREC_BENCH_SHAPE in float32 under each (lane, name)
     of `runs` (the QP and starts from `seed`, as `bench_run`), printed
@@ -2034,17 +2402,14 @@ def precision_bench(dev, runs, seed=0):
 
 def precision_phase(dev, x_same_f64):
     """Params.matmul_precision on the card: the resolver's table; K1-K3 in
-    every mode against their twins; the mixed phase's float64 "same" run
-    under "high", bit for bit its "highest" run (`x_same_f64`); the bench
-    QP under PREC_BENCH beside the TPU's records (the certified counts are
-    findings; every run ends with valid statuses and, on `pallas`, K1-K3
-    launched in the run's mode); the chain kernel's `pallas` lane refusing
-    a mode (K5/K7 run IEEE only).  Returns {kernel: {mode: record}}."""
-    import torch
-    from onephase_tpu_torch.config import Params
-    from onephase_tpu_torch.models.examples import chain_ocp
+    every mode against their twins; K7 and K5 in every mode timed against
+    their IEEE kernels (their twins: `tridiag_mode_phase`, a later phase);
+    the mixed phase's float64 "same" run under "high", bit for bit its
+    "highest" run (`x_same_f64`); the bench QP under PREC_BENCH beside the
+    TPU's records (the certified counts are findings; every run ends with
+    valid statuses and, on `pallas`, K1-K3 launched in the run's mode).
+    Returns {kernel: {mode: record}}."""
     from onephase_tpu_torch.ops import precision
-    from onephase_tpu_torch.parallel.chain import ChainKernel
 
     t0 = time.perf_counter()
     table = {}
@@ -2056,6 +2421,7 @@ def precision_phase(dev, x_same_f64):
     print(f"precision table (cuda): {json.dumps(table)}", flush=True)
 
     rec = precision_kernel_checks(dev)
+    rec.update(tridiag_mode_times(dev))
 
     # float64 under "high": the knob touches float32 products only
     high, st, _ = bench_run(
@@ -2072,18 +2438,6 @@ def precision_phase(dev, x_same_f64):
                            "departs from \"highest\"")
 
     precision_bench(dev, PREC_BENCH)
-
-    # K5 and K7 take no mode: the chain kernel's pallas lane refuses one
-    pars = Params().with_overrides({"kkt.linear_solver_type": "pallas",
-                                    "matmul_precision": "BF16_BF16_F32"})
-    try:
-        ChainKernel(chain_ocp(K=4, nx=2, mc=1, device=dev), pars,
-                    dtype=torch.float32, device=dev)
-    except NotImplementedError as e:
-        print(f"precision chain pallas BF16_BF16_F32: NotImplementedError "
-              f"({e})", flush=True)
-    else:
-        raise RuntimeError("precision: the chain pallas lane took a mode")
     print(f"precision phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return rec
 
@@ -2997,17 +3351,29 @@ def mesh_phase(dev, worlds, refs=None):
             "M5_f64": [out["M5_f64"]["launches"] for out in nccl]}
 
 
+def scenario_then_tridiag_modes(dev):
+    """The scenario phase, then K7 and K5 in the matmul modes
+    (`tridiag_mode_phase`), in one process: the two together take about
+    the campaign phase's time, and a process more on the card would slow
+    every other one."""
+    return {"scenario": scenario_phase(dev),
+            "tridiag_modes": tridiag_mode_phase(dev)}
+
+
 def later_phases(dev, stack, mixed, mesh_refs):
     """The phases after the precision phase, side by side on the card (see
-    CHILD_THREADS): the scenario and campaign phases and the mesh phase's
-    ranks start in processes of their own (killed by `stack` if the
-    script fails first), then this process runs the chain, banded and kkt
-    phases and the mesh phase, and collects the others.  Returns
+    CHILD_THREADS): the scenario phase followed by K7 and K5's mode checks
+    and the chain runs under the modes, the campaign phase, and the mesh
+    phase's ranks start in processes of their own (killed by `stack` if
+    the script fails first), then this process runs the chain, banded and
+    kkt phases and the mesh phase, and collects the others.  Returns
     {phase: result}."""
     import torch
 
-    # the scenario path: K2 on many small blocks and a border down to 1 x 1
-    scenario = phase_start(dev, scenario_phase, stack)
+    # the scenario path: K2 on many small blocks and a border down to 1 x 1;
+    # then K7 and K5 in every matmul mode against their twins, and the
+    # chain path under CHAIN_MODE_RUNS
+    scenario = phase_start(dev, scenario_then_tridiag_modes, stack)
     # the LP campaign path: bucketed parametric batches, K1 on a (B, m, n)
     # Jc, K2 and K3, float64 escalation on the card
     campaign = phase_start(dev, campaign_phase, stack)
@@ -3037,9 +3403,33 @@ def later_phases(dev, stack, mixed, mesh_refs):
     mesh_refs["M1_f64"] = mixed["same"]["figures"]
     mesh = mesh_phase(dev, worlds, mesh_refs)
     torch.cuda.synchronize()
+    scen = scenario.results()[0]
+    chain_modes_line(chain, x_chain, scen["tridiag_modes"]["chain"])
     return {"chain": chain, "banded": banded, "kkt": kkt_pool,
-            "mesh": mesh, "scenario": scenario.results()[0],
-            "campaign": campaign.results()[0]}
+            "mesh": mesh, "scenario": scen["scenario"],
+            "campaign": campaign.results()[0],
+            "tridiag_modes": scen["tridiag_modes"]}
+
+
+def chain_modes_line(chain, x_chain, runs):
+    """The chain path on `pallas` under each of CHAIN_MODE_RUNS beside its
+    IEEE run: status, outer iterations, factorizations, seconds (each
+    beside the other later phases), K7/K5 launches, and the argmin's
+    distance from the IEEE run's."""
+    x_ieee = x_chain.cpu().numpy()
+
+    def fig(s):
+        return (f"{s['status']}, {s['outer_its']} outer its, "
+                f"{s['cum_fac']} factorizations, {s['seconds']:.4f} s, K7/K5 "
+                f"{s['launches']['tridiag_factor']}/"
+                f"{s['launches']['tridiag_solve']}")
+    parts = [f"\"highest\" (ieee) {fig(chain)}"]
+    for name, (s, x) in runs.items():
+        d = float(np.abs(x - x_ieee).max() / np.abs(x_ieee).max())
+        parts.append(f"\"{name}\" ({s['mode']}) {fig(s)}, argmin max rel "
+                     f"diff from ieee's {d:.3e}")
+    print(f"chain K={CHAIN_SHAPE['K']} f32 pallas by matmul_precision: "
+          + " | ".join(parts), flush=True)
 
 
 def main() -> int:
@@ -3155,8 +3545,17 @@ def main() -> int:
     for k in ("fused_q", "chol", "tri_inv_gram"):
         record[k]["launches_campaign_c1"] = campaign["C1"]["launches"][k]
     record["fused_q"]["per_instance_jc"] = k1_per_instance
-    # K1-K3 in each matmul mode at n=1024 (the precision phase)
-    for k in ("fused_q", "chol", "tri_inv_gram"):
+    # K1-K3 in each matmul mode at n=1024 (the precision phase); K7 and K5
+    # at the chain's and the banded path's shapes, timed in the precision
+    # phase, held to their twins in the later phases, with their launches
+    # on the chain runs under CHAIN_MODE_RUNS
+    for k in ("tridiag_factor", "tridiag_solve"):
+        for mode, extra in later["tridiag_modes"]["records"][k].items():
+            record_prec[k][mode].update(extra)
+        for s, _ in later["tridiag_modes"]["chain"].values():
+            record_prec[k][s["mode"]]["launches"] = s["launches"][k]
+    for k in ("fused_q", "chol", "tri_inv_gram", "tridiag_factor",
+              "tridiag_solve"):
         record[k]["modes"] = record_prec[k]
     # the mesh phase: launches on every rank (M1 f64 sharded 2 x 8 over
     # gloo and on one nccl rank: K1-K3; S1 with 128 scenarios a rank: K2)

@@ -130,14 +130,20 @@ __device__ __forceinline__ void tile_phase(
     if (last[i] < j) continue;
     const int r = rr[i], c = cc[i];
     T upd;
-    if constexpr (MODED)   // the column update's product in the mode
-      upd = mode_fma(-(lr[i] * dinv), lc[i] * dinv, s[i], md);
+    if constexpr (MODED && INV)   // the column update's product in the mode
+      upd = s[i] - mode_prod(lr[i] * dinv, lc[i] * dinv, md);
+    else if constexpr (MODED)     // (K2: inlined, one product a slot)
+      upd = s[i] - mode_fma(lr[i] * dinv, lc[i] * dinv, T(0), md);
     else
       upd = s[i] - (lr[i] * dinv) * (lc[i] * dinv);
     const T scaled = s[i] * dinv;
     s[i] = c == j ? scaled : (c > j ? upd : s[i]);
     if (INV) {
-      const T xupd = x[i] - (pr[i] * dinv_prev) * xq[i];
+      T xupd;
+      if constexpr (MODED)   // the substitution's product in the mode
+        xupd = x[i] - mode_prod(pr[i] * dinv_prev, xq[i], md);
+      else
+        xupd = x[i] - (pr[i] * dinv_prev) * xq[i];
       x[i] = (r >= j && c < j) ? xupd : x[i];
       // row j lies in the slots of one or two warps: divide there only
       if (__any_sync(0xffffffffu, r == j)) {
@@ -162,9 +168,15 @@ __device__ __forceinline__ void tile_phase(
 // holds L^{-1}.  The upper triangles are not touched (X's must be zero on
 // entry for X to be L^{-1}).  `vec` is 6 NB + 2 elements of scratch.
 // Thread 0's `ok` is cleared on a bad pivot.  Every thread of the block
-// calls it; it starts and ends with a barrier.  MODED (float32, no INV):
-// the trailing entries' product is taken in the matmul mode `md`
-// (mm_mode.cuh); K7 instantiates the IEEE routine only.
+// calls it; it starts and ends with a barrier.  MODED (float32): every
+// product of two entries, the trailing entries' L[r, j] L[c, j] and, with
+// INV, the inverse's L[r, q] X[q, c], is taken in the matmul mode `md`
+// (mm_mode.cuh): its part products summed from +0 in the mode's order, the
+// sum then subtracted, as the twins subtract a dot product (K2's diagonal
+// blocks, and K7's blocks with their inverses).  With INV both products
+// are calls (`mode_prod`): the two inlined into every slot of the unrolled
+// phases multiplied the build time; K2's one product a slot stays inline,
+// which the build takes and K2's moded time needs.
 //
 // The arithmetic is that of the unblocked column loops it replaces, value
 // for value: column j is scaled by dinv_j = 1/sqrt(pivot) and the trailing
@@ -183,8 +195,7 @@ __device__ void chol_tile(T* S, T* X, T* vec,
                           const int (&own)[tile_entries<NB, NT>()], int tid,
                           int& ok, MmMode md = MmMode{0, 1}) {
   static_assert(NB % 4 == 0, "the phases run in groups of four");
-  static_assert(!MODED || (sizeof(T) == 4 && !INV),
-                "modes: float32 factors only");
+  static_assert(!MODED || sizeof(T) == 4, "modes: float32 only");
   constexpr int LD = tile_ld<NB>();
   constexpr int ME = tile_entries<NB, NT>();
   T s[ME], x[ME];

@@ -104,4 +104,12 @@ __device__ __forceinline__ float mode_fma(float a, float b, float acc,
   return mm_fma_parts(pa, pb, acc, m.passes);
 }
 
+// a b in mode m, its part products summed from +0: the product that K7's
+// tile Cholesky and inverse (chol_tile.cuh) subtract.  Not inlined: their
+// phases are unrolled over a thread's entries, and two inlined splits with
+// their branches on the mode at every entry multiply the build time.
+static __device__ __noinline__ float mode_prod(float a, float b, MmMode m) {
+  return mode_fma(a, b, 0.0f, m);
+}
+
 }  // namespace onephase

@@ -78,6 +78,22 @@
 // one fma a term (the earlier one-row-per-thread kernel's `s += a * b`, as
 // nvcc contracted it), r = b - s and y - s as before; x is what that kernel
 // returned, bit for bit (tools/kernel_equal.py).  nb <= 64.
+//
+// Matmul modes (`matmul_precision`, mm_mode.cuh; float32 only): each kernel
+// has one moded instantiation beside its IEEE ones, which are unchanged, as
+// K1-K3 have; the mode is a runtime code (0 = IEEE), and a code the kernels
+// lack is refused at launch.  The JAX kernels' dots take no `precision`, so
+// the knob reaches every product of two matrix entries:
+// - K7: E_{k-1} E_{k-1}^T and B_k Ci_k^T, each operand split once when a
+//   thread loads it (the part products of a term summed into the running
+//   dot product, smallest first), and the tile's Cholesky and inverse
+//   (chol_tile.cuh, its products summed from +0 and subtracted);
+// - K5: both chains, each E and Ci term split where a lane reads it (once
+//   a stage), and the carried vector v and the residual r split once a
+//   stage by the lane that writes each entry, into parts in shared memory
+//   that every lane reads.
+// The products run on the FP32 cores, 1, 3, 6 or 9 FMAs each; sums,
+// divisions and square roots stay float32.
 #include <cuda_runtime.h>
 
 #include "chol_tile.cuh"
@@ -85,6 +101,9 @@
 namespace {
 
 using onephase::chol_tile;
+using onephase::MmMode;
+using onephase::mm_fma_parts;
+using onephase::mm_split;
 using onephase::tile_entries;
 using onephase::tile_ld;
 using onephase::tile_owner;
@@ -126,28 +145,43 @@ __device__ __forceinline__ void fetch_block(T* dst, const T* src, int nb,
 }
 
 // acc[a][c] = sum_p A[ty + TY a][p] Bt[tx + 16 c][p] over NB x NB tiles in
-// shared memory (leading dimension NB | 1), p in increasing order.
-template <typename T, int NB, int NT>
+// shared memory (leading dimension NB | 1), p in increasing order.  MODED:
+// each loaded entry split once, every term's part products summed into
+// acc in the mode's order.
+template <typename T, int NB, int NT, bool MODED>
 __device__ __forceinline__ void band_product(
     const T* A, const T* Bt, T (&acc)[NB * 16 / NT][NB / 16], int ty,
-    int tx) {
+    int tx, MmMode md) {
   constexpr int LD = tile_ld<NB>(), TY = NT / 16;
   constexpr int RA = NB * 16 / NT, RC = NB / 16;
 #pragma unroll
   for (int a = 0; a < RA; ++a)
 #pragma unroll
     for (int c = 0; c < RC; ++c) acc[a][c] = T(0);
-#pragma unroll 8
+#pragma unroll(MODED ? 1 : 8)
   for (int p = 0; p < NB; ++p) {
     T av[RA], bv[RC];
 #pragma unroll
     for (int a = 0; a < RA; ++a) av[a] = A[(ty + TY * a) * LD + p];
 #pragma unroll
     for (int c = 0; c < RC; ++c) bv[c] = Bt[(tx + 16 * c) * LD + p];
+    if constexpr (MODED) {
+      float pa[RA][3], pb[RC][3];
 #pragma unroll
-    for (int a = 0; a < RA; ++a)
+      for (int a = 0; a < RA; ++a) mm_split(av[a], md, pa[a]);
 #pragma unroll
-      for (int c = 0; c < RC; ++c) acc[a][c] += av[a] * bv[c];
+      for (int c = 0; c < RC; ++c) mm_split(bv[c], md, pb[c]);
+#pragma unroll
+      for (int a = 0; a < RA; ++a)
+#pragma unroll
+        for (int c = 0; c < RC; ++c)
+          acc[a][c] = mm_fma_parts(pa[a], pb[c], acc[a][c], md.passes);
+    } else {
+#pragma unroll
+      for (int a = 0; a < RA; ++a)
+#pragma unroll
+        for (int c = 0; c < RC; ++c) acc[a][c] += av[a] * bv[c];
+    }
   }
 }
 
@@ -156,12 +190,16 @@ constexpr size_t factor_smem() {
   return sizeof(T) * (6 * NB * tile_ld<NB>() + 6 * NB + 2);
 }
 
-template <typename T, int NB, int NT>
+// MODED (float32 only): every product in the matmul mode `mode` (the
+// header); the IEEE instantiations ignore it.
+template <typename T, int NB, int NT, bool MODED>
 __global__ void __launch_bounds__(NT)
 tridiag_factor_kernel(const T* __restrict__ Ad, const T* __restrict__ Bs,
                       const T* __restrict__ delta, T* __restrict__ Ck,
                       T* __restrict__ Ci, T* __restrict__ Ek,
-                      int* __restrict__ ok_out, int K, int nb) {
+                      int* __restrict__ ok_out, int K, int nb, int mode) {
+  static_assert(!MODED || sizeof(T) == 4, "modes are float32 only");
+  const MmMode md = onephase::mm_mode(mode);
   constexpr int LD = tile_ld<NB>(), TY = NT / 16;
   constexpr int RA = NB * 16 / NT, RC = NB / 16;
   static_assert(RA >= 1 && NB % 16 == 0, "NB x NB tiles on NT threads");
@@ -206,7 +244,7 @@ tridiag_factor_kernel(const T* __restrict__ Ad, const T* __restrict__ Bs,
     // 1. S = (A_k + delta I) - E_{k-1} E_{k-1}^T on the lower triangle
     //    (upper zeroed, the identity past nb); a thread reads only the
     //    entries of A_k it copied itself, so no barrier is needed first
-    band_product<T, NB, NT>(E, E, acc, ty, tx);
+    band_product<T, NB, NT, MODED>(E, E, acc, ty, tx, md);
 #pragma unroll
     for (int a = 0; a < RA; ++a)
 #pragma unroll
@@ -228,10 +266,11 @@ tridiag_factor_kernel(const T* __restrict__ Ad, const T* __restrict__ Bs,
                              B_b + (k + 1) * blk, nb, ty, tx);
 
     // 2. C_k and C_k^{-1} (chol_tile starts and ends with a barrier)
-    chol_tile<T, NB, NT, true>(S, X, vec, own, tid, ok);
+    chol_tile<T, NB, NT, true, MODED>(S, X, vec, own, tid, ok, md);
 
     // 3. C_k and X out; E_k = B_k X^T
-    if (k < K - 1) band_product<T, NB, NT>(Bk, X, acc, ty, tx);
+    if (k < K - 1)
+      band_product<T, NB, NT, MODED>(Bk, X, acc, ty, tx, md);
 #pragma unroll
     for (int a = 0; a < RA; ++a)
 #pragma unroll
@@ -421,6 +460,28 @@ __device__ __forceinline__ void copy_block(T* dst, const T* src, int nb,
   }
 }
 
+// acc + a w[c] in matmul mode md, a split here, w given by its parts (hi,
+// mid, lo at wp[c], wp[NB + c], wp[2 NB + c]).
+template <int NB>
+__device__ __forceinline__ float moded_term(float a, const float* wp, int c,
+                                            float acc, MmMode md) {
+  float pa[3];
+  const float pw[3] = {wp[c], wp[NB + c], wp[2 * NB + c]};
+  mm_split(a, md, pa);
+  return mm_fma_parts(pa, pw, acc, md.passes);
+}
+
+// Entry t of a vector, split in mode md, into its parts in wp.
+template <int NB>
+__device__ __forceinline__ void put_parts(float* wp, int t, float w,
+                                          MmMode md) {
+  float pw[3];
+  mm_split(w, md, pw);
+  wp[t] = pw[0];
+  wp[NB + t] = pw[1];
+  wp[2 * NB + t] = pw[2];
+}
+
 // One sweep on the consumer warps (FWD: stages g = 0 .. K-1, k = g; else
 // g = K .. 2K-1, k = 2K-1-g), lane t owning row t (t < nb) of each stage:
 //   forward  r = b_k - E_{k-1} v,     y = Ci_k r      (v = y_{k-1})
@@ -432,11 +493,16 @@ __device__ __forceinline__ void copy_block(T* dst, const T* src, int nb,
 // E row (column) of stage g + 1 while stage g's second chain runs, so a
 // stage's first chain waits only on v.  `done` is published (release)
 // before the stage's store to x, so its fence waits on no fresh global
-// store.
-template <typename T, int NB, bool ROWS, bool FULL, bool FWD>
+// store.  MODED: every term's product in the mode `md`, the E and Ci terms
+// read from the slot and split there, v and r from their parts `vp` and
+// `rp` (hi, mid, lo: 3 NB each in shared memory), which the lane that
+// writes an entry of v or r splits once; the moded loops are not unrolled
+// (an unrolled moded step multiplies the build time).
+template <typename T, int NB, bool ROWS, bool FULL, bool FWD, bool MODED>
 __device__ __forceinline__ void consume_sweep(
     const T* ring, unsigned long long* full, unsigned* done, const T* Ci_b,
-    const T* Ek_b, T* x_b, T* v, T* r, int K, int nb, int t) {
+    const T* Ek_b, T* x_b, T* v, T* r, T* vp, T* rp, int K, int nb, int t,
+    MmMode md) {
   using S = SolveShape<T, NB>;
   constexpr int CH = S::CH;
   const long long blk = (long long)nb * nb;
@@ -456,6 +522,7 @@ __device__ __forceinline__ void consume_sweep(
     }
   };
   auto live = [&](int c) { return FULL || c < nb; };
+  [[maybe_unused]] const int nc = FULL ? NB : nb;   // terms (MODED)
   T e[NB];
   // wait for stage g's slot, then read its E row (column) into e
   auto take = [&](int g) {
@@ -479,34 +546,57 @@ __device__ __forceinline__ void consume_sweep(
     for (int c0 = 0; c0 < CH; c0 += 4) terms4(Ms, c0, mr + c0);
     T s = T(0);
     if (ke >= 0 && ke < K - 1) {
-      T vv[NB];
+      if constexpr (MODED) {
+        // from the slot (a runtime index would put e in local memory)
+        const T* Es = ring + (g % S::STAGES) * S::SLOT + S::AREA +
+                      block_phase<T, NB, ROWS>(Ek_b + ke * blk);
+#pragma unroll 1
+        for (int c = 0; c < nc; ++c)
+          s = moded_term<NB>(Es[FWD ? t * ld + c : c * ld + t], vp, c, s,
+                             md);
+      } else {
+        T vv[NB];
 #pragma unroll
-      for (int c0 = 0; c0 < NB; c0 += 4) ld4(v + c0, vv + c0);
+        for (int c0 = 0; c0 < NB; c0 += 4) ld4(v + c0, vv + c0);
 #pragma unroll
-      for (int c = 0; c < NB; ++c)
-        if (live(c)) s = fma_t(e[c], vv[c], s);
+        for (int c = 0; c < NB; ++c)
+          if (live(c)) s = fma_t(e[c], vv[c], s);
+      }
     }
-    if (own) r[t] = vs[t] - s;
+    if (own) {
+      const T rt = vs[t] - s;
+      r[t] = rt;
+      if constexpr (MODED) put_parts<NB>(rp, t, rt, md);
+    }
     consumer_sync<S::NCW>();
     T y = T(0);
+    if constexpr (MODED) {
+#pragma unroll 1
+      for (int c = 0; c < nc; ++c)
+        y = moded_term<NB>(Ms[FWD ? t * ld + c : c * ld + t], rp, c, y, md);
+    } else {
 #pragma unroll
-    for (int h = 0; h < NB; h += CH) {
-      T m[CH], rr[CH];
+      for (int h = 0; h < NB; h += CH) {
+        T m[CH], rr[CH];
 #pragma unroll
-      for (int c0 = 0; c0 < CH; c0 += 4) {
-        if (h == 0) {
+        for (int c0 = 0; c0 < CH; c0 += 4) {
+          if (h == 0) {
 #pragma unroll
-          for (int u = 0; u < 4; ++u) m[c0 + u] = mr[c0 + u];
-        } else {
-          terms4(Ms, h + c0, m + c0);
+            for (int u = 0; u < 4; ++u) m[c0 + u] = mr[c0 + u];
+          } else {
+            terms4(Ms, h + c0, m + c0);
+          }
+          ld4(r + h + c0, rr + c0);
         }
-        ld4(r + h + c0, rr + c0);
-      }
 #pragma unroll
-      for (int c = 0; c < CH; ++c)
-        if (live(h + c)) y = fma_t(m[c], rr[c], y);
+        for (int c = 0; c < CH; ++c)
+          if (live(h + c)) y = fma_t(m[c], rr[c], y);
+      }
     }
-    if (own) v[t] = y;
+    if (own) {
+      v[t] = y;
+      if constexpr (MODED) put_parts<NB>(vp, t, y, md);
+    }
     if (g + 1 < g1) take(g + 1);
     consumer_sync<S::NCW>();
     if (t == 0) flag_store(done, g + 1);
@@ -523,12 +613,17 @@ __device__ __forceinline__ void consume_sweep(
 // is the slot's use g / STAGES), and `done`, the count of stages the
 // consumers have finished, so slot g % STAGES may be refilled for stage
 // g + STAGES.  At g = K the whole block meets once: the forward sweep's y
-// is in x, for the producers to copy back.
-template <typename T, int NB, bool ROWS, bool FULL>
+// is in x, for the producers to copy back.  MODED (float32 only): every
+// product in the matmul mode `mode`, the parts of v and r after the ring
+// (6 NB more elements); the IEEE instantiations ignore `mode`.
+template <typename T, int NB, bool ROWS, bool FULL, bool MODED>
 __global__ void __launch_bounds__(SolveShape<T, NB>::THREADS)
 tridiag_solve_kernel(const T* __restrict__ Ci, const T* __restrict__ Ek,
-                     const T* __restrict__ rhs, T* x, int K, int nb) {
+                     const T* __restrict__ rhs, T* x, int K, int nb,
+                     int mode) {
+  static_assert(!MODED || sizeof(T) == 4, "modes are float32 only");
   using S = SolveShape<T, NB>;
+  const MmMode md = onephase::mm_mode(mode);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned* done = reinterpret_cast<unsigned*>(smem_raw);
   unsigned long long* full =
@@ -536,6 +631,8 @@ tridiag_solve_kernel(const T* __restrict__ Ci, const T* __restrict__ Ek,
   T* v = reinterpret_cast<T*>(full + 2 * S::STAGES);   // y_{k-1} / x_{k+1}
   T* r = v + NB;                                        // the residual
   T* ring = r + NB;
+  T* vp = ring + S::STAGES * S::SLOT;   // MODED: the parts of v, then of r
+  T* rp = vp + 3 * NB;
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -551,14 +648,15 @@ tridiag_solve_kernel(const T* __restrict__ Ci, const T* __restrict__ Ek,
     *done = 0;
   }
   if (tid < NB) v[tid] = r[tid] = T(0);
+  if (MODED && tid < 3 * NB) vp[tid] = rp[tid] = T(0);
   __syncthreads();
 
   if (tid < S::NC) {
-    consume_sweep<T, NB, ROWS, FULL, true>(ring, full, done, Ci_b, Ek_b, x_b,
-                                           v, r, K, nb, tid);
+    consume_sweep<T, NB, ROWS, FULL, true, MODED>(
+        ring, full, done, Ci_b, Ek_b, x_b, v, r, vp, rp, K, nb, tid, md);
     block_sync<S::THREADS>();
-    consume_sweep<T, NB, ROWS, FULL, false>(ring, full, done, Ci_b, Ek_b,
-                                            x_b, v, r, K, nb, tid);
+    consume_sweep<T, NB, ROWS, FULL, false, MODED>(
+        ring, full, done, Ci_b, Ek_b, x_b, v, r, vp, rp, K, nb, tid, md);
   } else {
     const int p = tid - S::NC;
     for (int g = 0; g < 2 * K; ++g) {
@@ -588,42 +686,63 @@ int set_smem(Kern kern, size_t bytes) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int NB, int NT>
+template <typename T, int NB, int NT, bool MODED>
 int launch_factor_nb(const void* Ad, const void* Bs, const void* delta,
                      void* Ck, void* Ci, void* Ek, void* ok, int B, int K,
-                     int nb, void* stream) {
+                     int nb, int mode, void* stream) {
+  const auto kernel = tridiag_factor_kernel<T, NB, NT, MODED>;
   const size_t smem = factor_smem<T, NB>();
-  int err = set_smem(tridiag_factor_kernel<T, NB, NT>, smem);
+  int err = set_smem(kernel, smem);
   if (err) return err;
-  tridiag_factor_kernel<T, NB, NT><<<B, NT, smem, (cudaStream_t)stream>>>(
+  kernel<<<B, NT, smem, (cudaStream_t)stream>>>(
       (const T*)Ad, (const T*)Bs, (const T*)delta, (T*)Ck, (T*)Ci, (T*)Ek,
-      (int*)ok, K, nb);
+      (int*)ok, K, nb, mode);
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool MODED>
+int launch_factor_mode(const void* Ad, const void* Bs, const void* delta,
+                       void* Ck, void* Ci, void* Ek, void* ok, int B, int K,
+                       int nb, int mode, void* stream) {
+  if (nb <= 32)
+    return launch_factor_nb<T, 32, 256, MODED>(Ad, Bs, delta, Ck, Ci, Ek, ok,
+                                               B, K, nb, mode, stream);
+  return launch_factor_nb<T, 64, 512, MODED>(Ad, Bs, delta, Ck, Ci, Ek, ok, B,
+                                             K, nb, mode, stream);
+}
+
+// `mode`: a matmul mode's code (mm_mode.cuh), 0 = IEEE; float64 takes 0
+// only, and a code without a moded variant is refused, never run as IEEE.
 template <typename T>
 int launch_factor(const void* Ad, const void* Bs, const void* delta, void* Ck,
                   void* Ci, void* Ek, void* ok, int B, int K, int nb,
-                  void* stream) {
+                  int mode, void* stream) {
   if (nb > MAX_NB) return (int)cudaErrorInvalidValue;
-  if (nb <= 32)
-    return launch_factor_nb<T, 32, 256>(Ad, Bs, delta, Ck, Ci, Ek, ok, B, K,
-                                        nb, stream);
-  return launch_factor_nb<T, 64, 512>(Ad, Bs, delta, Ck, Ci, Ek, ok, B, K, nb,
-                                      stream);
+  if (mode == 0)
+    return launch_factor_mode<T, false>(Ad, Bs, delta, Ck, Ci, Ek, ok, B, K,
+                                        nb, 0, stream);
+  if constexpr (sizeof(T) == 4) {
+    if (onephase::mm_mode_valid(mode))
+      return launch_factor_mode<T, true>(Ad, Bs, delta, Ck, Ci, Ek, ok, B, K,
+                                         nb, mode, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, int NB, bool ROWS>
+template <typename T, int NB, bool ROWS, bool MODED>
 int launch_solve_nb(const void* Ci, const void* Ek, const void* b, void* x,
-                    int B, int K, int nb, void* stream) {
+                    int B, int K, int nb, int mode, void* stream) {
   using S = SolveShape<T, NB>;
   // unmasked where nb fills the block edge
-  const auto kernel = nb == NB ? tridiag_solve_kernel<T, NB, ROWS, true>
-                               : tridiag_solve_kernel<T, NB, ROWS, false>;
-  int err = set_smem(kernel, S::SMEM);
+  const auto kernel = nb == NB
+                          ? tridiag_solve_kernel<T, NB, ROWS, true, MODED>
+                          : tridiag_solve_kernel<T, NB, ROWS, false, MODED>;
+  // the moded variant's parts of v and r after the ring
+  const size_t smem = S::SMEM + (MODED ? 6 * NB * sizeof(T) : 0);
+  int err = set_smem(kernel, smem);
   if (err) return err;
-  kernel<<<B, S::THREADS, S::SMEM, (cudaStream_t)stream>>>(
-      (const T*)Ci, (const T*)Ek, (const T*)b, (T*)x, K, nb);
+  kernel<<<B, S::THREADS, smem, (cudaStream_t)stream>>>(
+      (const T*)Ci, (const T*)Ek, (const T*)b, (T*)x, K, nb, mode);
   return (int)cudaGetLastError();
 }
 
@@ -631,19 +750,35 @@ bool aligned16(const void* p) {
   return reinterpret_cast<unsigned long long>(p) % 16 == 0;
 }
 
-template <typename T>
-int launch_solve(const void* Ci, const void* Ek, const void* b, void* x,
-                 int B, int K, int nb, void* stream) {
-  if (nb > MAX_NB) return (int)cudaErrorInvalidValue;
+template <typename T, bool MODED>
+int launch_solve_mode(const void* Ci, const void* Ek, const void* b, void* x,
+                      int B, int K, int nb, int mode, void* stream) {
   // the row layout where every row of every block is 16-byte aligned
   const bool rows = nb * sizeof(T) % 16 == 0 && aligned16(Ci) &&
                     aligned16(Ek);
   if (nb <= 32)
-    return rows ? launch_solve_nb<T, 32, true>(Ci, Ek, b, x, B, K, nb, stream)
-                : launch_solve_nb<T, 32, false>(Ci, Ek, b, x, B, K, nb,
-                                                stream);
-  return rows ? launch_solve_nb<T, 64, true>(Ci, Ek, b, x, B, K, nb, stream)
-              : launch_solve_nb<T, 64, false>(Ci, Ek, b, x, B, K, nb, stream);
+    return rows ? launch_solve_nb<T, 32, true, MODED>(Ci, Ek, b, x, B, K, nb,
+                                                      mode, stream)
+                : launch_solve_nb<T, 32, false, MODED>(Ci, Ek, b, x, B, K, nb,
+                                                       mode, stream);
+  return rows ? launch_solve_nb<T, 64, true, MODED>(Ci, Ek, b, x, B, K, nb,
+                                                    mode, stream)
+              : launch_solve_nb<T, 64, false, MODED>(Ci, Ek, b, x, B, K, nb,
+                                                     mode, stream);
+}
+
+// `mode` as for launch_factor.
+template <typename T>
+int launch_solve(const void* Ci, const void* Ek, const void* b, void* x,
+                 int B, int K, int nb, int mode, void* stream) {
+  if (nb > MAX_NB) return (int)cudaErrorInvalidValue;
+  if (mode == 0)
+    return launch_solve_mode<T, false>(Ci, Ek, b, x, B, K, nb, 0, stream);
+  if constexpr (sizeof(T) == 4) {
+    if (onephase::mm_mode_valid(mode))
+      return launch_solve_mode<T, true>(Ci, Ek, b, x, B, K, nb, mode, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -651,26 +786,27 @@ int launch_solve(const void* Ci, const void* Ek, const void* b, void* x,
 extern "C" int op_tridiag_factor_f32(const void* Ad, const void* Bs,
                                      const void* delta, void* Ck, void* Ci,
                                      void* Ek, void* ok, int B, int K, int nb,
-                                     void* stream) {
-  return launch_factor<float>(Ad, Bs, delta, Ck, Ci, Ek, ok, B, K, nb, stream);
+                                     int mode, void* stream) {
+  return launch_factor<float>(Ad, Bs, delta, Ck, Ci, Ek, ok, B, K, nb, mode,
+                              stream);
 }
 
 extern "C" int op_tridiag_factor_f64(const void* Ad, const void* Bs,
                                      const void* delta, void* Ck, void* Ci,
                                      void* Ek, void* ok, int B, int K, int nb,
-                                     void* stream) {
-  return launch_factor<double>(Ad, Bs, delta, Ck, Ci, Ek, ok, B, K, nb,
+                                     int mode, void* stream) {
+  return launch_factor<double>(Ad, Bs, delta, Ck, Ci, Ek, ok, B, K, nb, mode,
                                stream);
 }
 
 extern "C" int op_tridiag_solve_f32(const void* Ci, const void* Ek,
                                     const void* b, void* x, int B, int K,
-                                    int nb, void* stream) {
-  return launch_solve<float>(Ci, Ek, b, x, B, K, nb, stream);
+                                    int nb, int mode, void* stream) {
+  return launch_solve<float>(Ci, Ek, b, x, B, K, nb, mode, stream);
 }
 
 extern "C" int op_tridiag_solve_f64(const void* Ci, const void* Ek,
                                     const void* b, void* x, int B, int K,
-                                    int nb, void* stream) {
-  return launch_solve<double>(Ci, Ek, b, x, B, K, nb, stream);
+                                    int nb, int mode, void* stream) {
+  return launch_solve<double>(Ci, Ek, b, x, B, K, nb, mode, stream);
 }

@@ -48,10 +48,8 @@ kernel takes as it is.
 JAX's meaning on the device (ops/precision.py): on the CPU the names its
 CPU runs, as plain float32; on a CUDA card one-pass TF32 for "default" and
 "high", full float32 for "highest", and the dot-algorithm presets, in the
-kernels K1-K3 and in every float32 matrix product of plain PyTorch code.
-What is still refused (NotImplementedError): a non-IEEE float32 mode on
-the chain and banded kernels' `pallas` lane on a card, whose
-block-tridiagonal kernels K5 and K7 run IEEE float32 only.
+kernels K1-K3, K5 and K7 and in every float32 matrix product of plain
+PyTorch code.  No accepted name is refused on any lane.
 """
 
 from __future__ import annotations
@@ -411,6 +409,12 @@ class OnePhaseKernel:
     def scaled_dual_feas(self, p: Point, cache: Cache, mu):
         return (_norm_inf(self.grad_lag(cache, p.y, mu))
                 * self.dual_scale(p.y, p.s))
+
+    def kkt_err(self, p: Point, cache: Cache):
+        """scaled_dual_feas + ||comp||_inf (eval.jl:274-277), per
+        instance (B,)."""
+        return (self.scaled_dual_feas(p, cache, p.mu)
+                + _norm_inf(self.comp(p)))
 
     # ==================================================================
     # cache construction

@@ -4,10 +4,10 @@
 A kernel wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  Each wrapper adds one to its
 entry of `LAUNCHES` where it launches its kernel, and nowhere else, so a run
-can show that the main path went through the kernels.  K1-K3's wrappers
-also tally each launch under its matmul mode (ops/precision.py) in
-`LAUNCH_MODES`, {kernel: {mode: launches}}, so a run can show that the mode
-reached the kernel.
+can show that the main path went through the kernels.  The wrappers of
+K1-K3, K5 and K7 also tally each launch under its matmul mode
+(ops/precision.py) in `LAUNCH_MODES`, {kernel: {mode: launches}}, so a run
+can show that the mode reached the kernel.
 """
 
 LAUNCHES = {"fused_q": 0, "fused_q_tri": 0, "chol": 0, "tri_inv_gram": 0,

@@ -49,10 +49,10 @@ _SIGNATURES = {
     "op_chol": [_P, _P, _P, _P, _I, _I, _I, _P],
     # L, Li, B, n, mode, stream
     "op_tri_inv": [_P, _P, _I, _I, _I, _P],
-    # Ad, Bs, delta, Ck, Ci, Ek, ok, B, K, nb, stream
-    "op_tridiag_factor": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # Ci, Ek, b, x, B, K, nb, stream
-    "op_tridiag_solve": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # Ad, Bs, delta, Ck, Ci, Ek, ok, B, K, nb, mode, stream
+    "op_tridiag_factor": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # Ci, Ek, b, x, B, K, nb, mode, stream
+    "op_tridiag_solve": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

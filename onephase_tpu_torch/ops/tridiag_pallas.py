@@ -22,20 +22,33 @@ version):
 The Pallas plumbing (padding to the TPU's (8, 128) tiling, the `_View`
 adapter, interpret mode) is not ported: the CUDA kernels mask the ragged
 edge themselves.  The kernels take nb <= 64 (the repo's chain shapes use
-nb <= 32); the wrappers raise on larger blocks.  The kernels run IEEE
-float32 and float64 only: a non-IEEE `matmul_precision` mode on float32
-CUDA tensors raises NotImplementedError (`check_ieee`) instead of running
-IEEE (the chain and banded `xla` lanes take every mode).
+nb <= 32); the wrappers raise on larger blocks.
+
+Matmul modes (`Params.matmul_precision`, ops/precision.py): the JAX
+kernels' dots take no `precision`, so the knob reaches them.  The wrappers
+take `mode=` (default: the solve's scope) and launch the kernels' moded
+variants for a non-IEEE float32 mode, every product of two matrix entries
+in the mode: E E^T, the block Cholesky and inverse, and B_k Ci_k^T in K7,
+both matvec chains in K5.  Their twins in a mode (a non-IEEE Mode given to
+`xla_tridiag_factor_inv` or `xla_tridiag_solve_inv`) run the same
+recursions from K2's and K3's moded twins (`cholesky.blocked_chol`,
+`cholesky._moded_tri_inv`) and `precision.matmul`, with E_k taken as the
+product B_k Ci_k^T, as the JAX kernel takes it; `moded_factor_stage` is
+one stage of the factor's.
 """
 
 from __future__ import annotations
 
+import operator
+from functools import partial
+
 import torch
 
-from . import LAUNCHES
 from . import _build
+from . import count_launch
 from . import precision
-from .block_tridiag import tridiag_factor
+from .block_tridiag import _delta_eye, tridiag_factor
+from .cholesky import _moded_tri_inv, blocked_chol
 
 _FLOATS = (torch.float32, torch.float64)
 MAX_NB = 64
@@ -48,39 +61,72 @@ def block_inverses(Ck):
     return torch.linalg.solve_triangular(Ck, eye.expand_as(Ck), upper=False)
 
 
-def xla_tridiag_factor_inv(Ad, Bs, delta):
-    """Plain version of the factor kernel: (Ck, Ci, Ek, ok)."""
+def _moded(t, mode) -> bool:
+    """A non-IEEE Mode that reaches float32 `t` (None: the plain twin)."""
+    return mode is not None and not precision.kernel_mode(t, mode).ieee
+
+
+def xla_tridiag_factor_inv(Ad, Bs, delta, mode=None):
+    """Plain version of the factor kernel: (Ck, Ci, Ek, ok).  `mode` None
+    or IEEE: `tridiag_factor` + `block_inverses`; a non-IEEE float32 Mode:
+    K7's recursion with every product in that mode (Ad (B, K, nb, nb))."""
+    if _moded(Ad, mode):
+        return _moded_factor_inv(Ad, Bs, delta, mode)
     f = tridiag_factor(Ad, Bs, delta)
     return f.Ck, block_inverses(f.Ck), f.Ek, f.ok
 
 
-def xla_tridiag_solve_inv(Ci, Ek, b):
+def moded_factor_stage(A, Bk, E_prev, delta, mode):
+    """One stage of K7's recursion in `mode` on a batch of blocks (B, nb,
+    nb): S = (A + delta I) - m(E_prev E_prev^T) (none where E_prev is
+    None), C and its ok by `blocked_chol(S, mode)`, Ci = `_moded_tri_inv(C,
+    mode)`, E = m(Bk Ci^T) (None where Bk is None); each m a product in
+    `mode`.  Returns (C, Ci, E, ok)."""
+    S = A + _delta_eye(A, delta)
+    if E_prev is not None:
+        S = S - precision.matmul(E_prev, E_prev.transpose(-1, -2), mode)
+    C, _, ok = blocked_chol(S, mode)
+    Ci = _moded_tri_inv(C, mode)
+    E = (None if Bk is None
+         else precision.matmul(Bk, Ci.transpose(-1, -2), mode))
+    return C, Ci, E, ok
+
+
+def _moded_factor_inv(Ad, Bs, delta, mode):
+    """`moded_factor_stage` stage after stage, E_k carried."""
+    K = Ad.shape[1]
+    ok = torch.ones(Ad.shape[0], dtype=torch.bool, device=Ad.device)
+    Cs, Cis, Es = [], [], []
+    for k in range(K):
+        C, Ci, E, ok_k = moded_factor_stage(
+            Ad[:, k], Bs[:, k] if k < K - 1 else None,
+            Es[-1] if Es else None, delta, mode)
+        ok = ok & ok_k
+        Cs.append(C)
+        Cis.append(Ci)
+        if E is not None:
+            Es.append(E)
+    Ek = torch.stack(Es, dim=1) if Es else torch.zeros_like(Bs)
+    return torch.stack(Cs, dim=1), torch.stack(Cis, dim=1), Ek, ok
+
+
+def xla_tridiag_solve_inv(Ci, Ek, b, mode=None):
     """Plain version of the solve kernel: the forward and backward matvec
-    sweeps against the block inverses."""
+    sweeps against the block inverses (`mode` a non-IEEE float32 Mode:
+    every product in that mode)."""
+    mm = (partial(precision.matmul, mode=mode) if _moded(Ci, mode)
+          else operator.matmul)
     K = Ci.shape[-3]
-    y = [Ci[..., 0, :, :] @ b[..., 0, :, None]]
+    y = [mm(Ci[..., 0, :, :], b[..., 0, :, None])]
     for k in range(1, K):
-        y.append(Ci[..., k, :, :] @ (b[..., k, :, None]
-                                     - Ek[..., k - 1, :, :] @ y[-1]))
+        y.append(mm(Ci[..., k, :, :], b[..., k, :, None]
+                    - mm(Ek[..., k - 1, :, :], y[-1])))
     x = [None] * K
-    x[K - 1] = Ci[..., K - 1, :, :].transpose(-1, -2) @ y[K - 1]
+    x[K - 1] = mm(Ci[..., K - 1, :, :].transpose(-1, -2), y[K - 1])
     for k in range(K - 2, -1, -1):
-        x[k] = Ci[..., k, :, :].transpose(-1, -2) @ (
-            y[k] - Ek[..., k, :, :].transpose(-1, -2) @ x[k + 1])
+        x[k] = mm(Ci[..., k, :, :].transpose(-1, -2),
+                  y[k] - mm(Ek[..., k, :, :].transpose(-1, -2), x[k + 1]))
     return torch.stack(x, dim=-3).squeeze(-1)
-
-
-def check_ieee(dtype, device, mode=None):
-    """K5 and K7 take no matmul mode: NotImplementedError for a non-IEEE
-    `mode` (default: the current scope's) on float32 CUDA operands."""
-    mode = precision.current() if mode is None else mode
-    if (torch.device(device).type == "cuda" and dtype == torch.float32
-            and not mode.ieee):
-        raise NotImplementedError(
-            f"matmul mode {mode} is not ported to the block-tridiagonal "
-            "kernels K5 (tridiag_solve) and K7 (tridiag_factor), which run "
-            "IEEE float32 only: use kkt.linear_solver_type='xla' or "
-            "matmul_precision='highest'")
 
 
 def _check_band(name, D, S):
@@ -105,14 +151,15 @@ def _check_band(name, D, S):
             raise ValueError(f"{name}: CUDA inputs must be contiguous")
 
 
-def pallas_tridiag_factor(Ad, Bs, delta):
+def pallas_tridiag_factor(Ad, Bs, delta, mode=None):
     """Factor tridiag(B, A + delta I, B^T): (Ck, Ci, Ek, ok) with the
     diagonal Cholesky blocks, their inverses, the subdiagonal blocks of L
-    and ok (B,) bool = every pivot finite and > 0."""
+    and ok (B,) bool = every pivot finite and > 0.  In matmul mode `mode`
+    (default: the current scope's; float32 only)."""
     _check_band("tridiag_factor", Ad, Bs)
+    mode = precision.kernel_mode(Ad, mode)
     if Ad.device.type == "cpu":
-        return xla_tridiag_factor_inv(Ad, Bs, delta)
-    check_ieee(Ad.dtype, Ad.device)
+        return xla_tridiag_factor_inv(Ad, Bs, delta, mode)
     B, K, nb, _ = Ad.shape
     dvec = torch.as_tensor(delta, dtype=Ad.dtype, device=Ad.device)
     dvec = dvec.expand(B).contiguous()
@@ -125,15 +172,16 @@ def pallas_tridiag_factor(Ad, Bs, delta):
             err = _build.entry("op_tridiag_factor", Ad.dtype)(
                 Ad.data_ptr(), Bs.data_ptr(), dvec.data_ptr(),
                 Ck.data_ptr(), Ci.data_ptr(), Ek.data_ptr(), ok.data_ptr(),
-                B, K, nb, _build.stream_ptr(Ad))
+                B, K, nb, mode.code, _build.stream_ptr(Ad))
         _build.check(err, "tridiag_factor")
-        LAUNCHES["tridiag_factor"] += 1
+        count_launch("tridiag_factor", mode)
     return Ck, Ci, Ek, ok != 0
 
 
-def pallas_tridiag_solve(Ci, Ek, b):
+def pallas_tridiag_solve(Ci, Ek, b, mode=None):
     """Solve L L^T x = b given the factor's block inverses Ci and the
-    subdiagonal blocks Ek of L; b (B, K, nb)."""
+    subdiagonal blocks Ek of L; b (B, K, nb).  In matmul mode `mode`
+    (default: the current scope's; float32 only)."""
     _check_band("tridiag_solve", Ci, Ek)
     if tuple(b.shape) != tuple(Ci.shape[:3]):
         raise ValueError(f"tridiag_solve: b has shape {tuple(b.shape)}, "
@@ -141,18 +189,18 @@ def pallas_tridiag_solve(Ci, Ek, b):
     if b.dtype != Ci.dtype or b.device != Ci.device:
         raise ValueError(f"tridiag_solve: b is {b.dtype} on {b.device}, "
                          f"blocks are {Ci.dtype} on {Ci.device}")
+    mode = precision.kernel_mode(Ci, mode)
     if Ci.device.type == "cpu":
-        return xla_tridiag_solve_inv(Ci, Ek, b)
+        return xla_tridiag_solve_inv(Ci, Ek, b, mode)
     if not b.is_contiguous():
         raise ValueError("tridiag_solve: a CUDA b must be contiguous")
-    check_ieee(Ci.dtype, Ci.device)
     B, K, nb, _ = Ci.shape
     x = torch.empty_like(b)
     if B > 0 and K > 0 and nb > 0:
         with torch.cuda.device(Ci.device):
             err = _build.entry("op_tridiag_solve", Ci.dtype)(
                 Ci.data_ptr(), Ek.data_ptr(), b.data_ptr(), x.data_ptr(),
-                B, K, nb, _build.stream_ptr(Ci))
+                B, K, nb, mode.code, _build.stream_ptr(Ci))
         _build.check(err, "tridiag_solve")
-        LAUNCHES["tridiag_solve"] += 1
+        count_launch("tridiag_solve", mode)
     return x

@@ -59,9 +59,7 @@ from ..ops.block_tridiag import (TridiagFactor, check_mesh_partitions,
                                  partitioned_factor,
                                  partitioned_solve, tridiag_factor,
                                  tridiag_solve)
-from ..ops import precision
-from ..ops.tridiag_pallas import (check_ieee, pallas_tridiag_factor,
-                                  pallas_tridiag_solve)
+from ..ops.tridiag_pallas import pallas_tridiag_factor, pallas_tridiag_solve
 from .mesh import check_mesh_device
 
 
@@ -150,10 +148,6 @@ class BandedKernel(OnePhaseKernel):
         self.matrix_free = matrix_free
         self._skip_const_fold = matrix_free
         super().__init__(nlp, pars)
-        if self.use_pallas:
-            # K5 and K7 run IEEE float32 only
-            check_ieee(self.dtype, self.device, precision.resolve(
-                pars.matmul_precision, self.device.type))
 
         # host-side symbolic analysis: RCM ordering + bandwidth
         if pattern is None:

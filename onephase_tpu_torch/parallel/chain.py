@@ -51,9 +51,7 @@ from ..ops.block_tridiag import (TridiagFactor, check_mesh_partitions,
                                  partitioned_factor, partitioned_solve,
                                  tridiag_factor, tridiag_matvec,
                                  tridiag_solve)
-from ..ops import precision
-from ..ops.tridiag_pallas import (check_ieee, pallas_tridiag_factor,
-                                  pallas_tridiag_solve)
+from ..ops.tridiag_pallas import pallas_tridiag_factor, pallas_tridiag_solve
 from .mesh import check_mesh_device
 
 
@@ -146,10 +144,6 @@ class ChainKernel(OnePhaseKernel):
         nlp = canonicalize(spec.to_nlpspec(),
                            dtype=dtype or torch.float64, device=device)
         super().__init__(nlp, pars)
-        if self.use_pallas:
-            # K5 and K7 run IEEE float32 only
-            check_ieee(self.dtype, self.device, precision.resolve(
-                pars.matmul_precision, self.device.type))
 
     # ---------------- structured pieces ------------------------------
     def _split_x(self, x):

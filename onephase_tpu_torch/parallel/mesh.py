@@ -234,11 +234,7 @@ class ShardedBatchSolver(BatchSolver):
         check_mesh_device(self.mesh, self.kernel.device)
 
     def init(self, x0s, bvals=None, pdata=None) -> State:
-        b = len(x0s)
-        if b % self.mesh.size:
-            raise ValueError(f"batch {b} not divisible by mesh size "
-                             f"{self.mesh.size}")
-        lo, hi = self.mesh.rows(b)
+        lo, hi = self._rows(len(x0s))
         if bvals is not None:
             bvals = {k: v[lo:hi] for k, v in bvals.items()}
         if pdata is not None:
@@ -254,6 +250,21 @@ class ShardedBatchSolver(BatchSolver):
     def gather(self, st: State) -> State:
         """The full batched State, rows in batch order, on every rank."""
         return _tree_map(lambda t: self.mesh.gather(t, 0), st)
+
+    def shard_state(self, st: State) -> State:
+        """This rank's rows of a full batched State (every tensor's
+        leading axis): the inverse of `gather`, as a sharded checkpoint
+        is resumed (parallel/checkpoint.py)."""
+        def rows(t):
+            lo, hi = self._rows(t.shape[0])
+            return t[lo:hi].clone()
+        return _tree_map(rows, st)
+
+    def _rows(self, b: int):
+        if b % self.mesh.size:
+            raise ValueError(f"batch {b} not divisible by mesh size "
+                             f"{self.mesh.size}")
+        return self.mesh.rows(b)
 
     def statuses(self, st: State):
         codes = self.mesh.gather(st.status, 0)

@@ -40,6 +40,9 @@ from onephase_tpu_torch.nlp import canonicalize as tcanon
 from onephase_tpu_torch.parallel.banded import BandedKernel as TBanded
 from test_torch_twins import assert_close
 from test_torch_twins import compare_states as _compare
+from test_torch_twins import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SHAPE = dict(K=8, nx=6, mc=3)
 OPTS = {"output_level": 0, "term.max_it": 100, "chunk_size": 100}

@@ -7,6 +7,9 @@ import pytest
 import torch
 
 from test_torch_twins import check_batch_case
+from test_torch_twins import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.mark.parametrize("dtype", [torch.float64])

@@ -30,6 +30,9 @@ from onephase_tpu_torch.models.examples import chain_ocp as tchain
 from onephase_tpu_torch.nlp import canonicalize
 from onephase_tpu_torch.parallel.chain import ChainKernel as TChain
 from test_torch_twins import compare_states as _compare
+from test_torch_twins import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CPU = torch.device("cpu")
 SHAPE = dict(K=8, nx=6, mc=3)

@@ -132,8 +132,8 @@ def test_unported_options_raise():
 
     `matmul_precision` (ops/precision.py): on the CPU "high" builds every
     kernel, the chain and banded `pallas` lanes included; a card-only preset
-    (BF16_BF16_F32_X3) and a value no package knows raise ValueError.  The
-    K5/K7 refusal of a non-IEEE mode exists on CUDA tensors only
+    (BF16_BF16_F32_X3) and a value no package knows raise ValueError.  On
+    a card every accepted name runs on every lane, K5 and K7 included
     (tests/test_torch_gpu.py, chip_smoke.py's precision phase)."""
     from onephase_tpu_torch.ipm.core import OnePhaseKernel
     from onephase_tpu_torch.ipm.dual import SchurDualKernel, make_kernel

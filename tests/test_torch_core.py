@@ -18,6 +18,9 @@ from onephase_tpu_torch.nlp import canonicalize as tcanon
 from test_torch_twins import (assert_close as _assert_close,
                               compare_states as _compare_states, qp_pair,
                               zoo_pair)
+from test_torch_twins import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 OPTS = {"term!max_it": 81, "a_norm_penalty": 1e-4, "output_level": 0}
 
@@ -107,3 +110,34 @@ def test_one_chunk_from_carried_state_matches():
     _assert_close(st.delta[0], jst.delta, 1e-10, "delta")
     _assert_close(st.p.x[0], jst.p.x, 1e-10, "x")
     _assert_close(st.p.mu[0], jst.p.mu, 1e-10, "mu")
+
+
+@pytest.mark.parametrize("name", ["hs071", "circle1", "toy_lp5"])
+def test_kkt_err_matches_jax(name):
+    """OnePhaseKernel.kkt_err (scaled dual feasibility + ||comp||_inf,
+    eval.jl:274-277) equals the JAX method's to 1e-12 in float64: at the
+    JAX package's initial state, and at a seeded interior point (x off the
+    start, y and s in [0.1, 2], mu = 0.3) whose caches each package forms
+    with its own `make_cache`."""
+    import jax.numpy as jnp
+    jk, tk = _kernels(name, "xla")
+    jst = jk.initial_state()
+    st = state_from_numpy(_np_tree(jst), device="cpu")
+    got = [tk.kkt_err(st.p, st.cache)]
+    want = [jk.kkt_err(jst.p, jst.cache)]
+    rng = np.random.default_rng(len(name))
+    n, m = tk.n, tk.m
+    x = np.asarray(jst.p.x) + 0.1 * rng.normal(size=n)
+    y, s = rng.uniform(0.1, 2.0, size=(2, m))
+    jp = jst.p._replace(x=jnp.asarray(x), y=jnp.asarray(y),
+                        s=jnp.asarray(s), mu=jnp.asarray(0.3))
+    want.append(jk.kkt_err(jp, jk.make_cache(jp.x, jp.y)))
+    tp = st.p._replace(x=torch.as_tensor(x)[None],
+                       y=torch.as_tensor(y)[None],
+                       s=torch.as_tensor(s)[None],
+                       mu=torch.full((1,), 0.3, dtype=torch.float64))
+    got.append(tk.kkt_err(tp, tk.make_cache(tp.x, tp.y)))
+    for g, w in zip(got, want):
+        assert g.shape == (1,)
+        np.testing.assert_allclose(g.numpy()[0], float(w), rtol=1e-12,
+                                   atol=0)

@@ -27,6 +27,9 @@ from onephase_tpu.models.lp import LPData as JLPData
 from onephase_tpu_torch.config import Params as TParams
 from onephase_tpu_torch.models.lp import LPData as TLPData
 from test_torch_twins import assert_close, check_carried_steps
+from test_torch_twins import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 DUAL = {"output_level": 0, "kkt.kkt_solver_type": "schur_dual"}
 # The JAX package's dual solves of _lp(seed) for seeds 0, 1, 2 take 11, 21

@@ -22,6 +22,9 @@ from onephase_tpu_torch.models import examples as tex
 from onephase_tpu_torch.models import tax as ttax
 from test_torch_twins import (check_carried_steps, check_solve_parity,
                               jax_solve, port_solve)
+from test_torch_twins import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # name -> (JAX module, port module, function, args); sizes cut to seconds
 FAMILIES = {

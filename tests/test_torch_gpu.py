@@ -657,29 +657,102 @@ def test_chol_tri_inv_one_product_in_mode_is_its_twin(cuda, mode_name):
         assert not torch.equal(X, Xi)
 
 
+def _smoke():
+    """chip_smoke.py, loaded as a module (its one-product operands)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode_name", _mode_ids())
+@pytest.mark.parametrize("K, nb", [(40, 32), (20, 63), (7, 30)])
+def test_tridiag_in_mode_matches_twins(cuda, mode_name, K, nb):
+    """K7 and K5 in each mode against their twins in the same mode
+    (chip_smoke.py's `_tridiag_tol`: 8 unit roundoffs of the mode's input
+    type in a one-pass mode, 1e-4 in a split mode), K7 within 1e-5 of its
+    mode's recurrences on its own output, with the launches tallied under
+    the mode; on chip_smoke.py's one-product operands bit for bit their
+    twins, and off the IEEE kernels where the mode takes at most 3
+    products."""
+    from onephase_tpu_torch.ops import precision
+    from onephase_tpu_torch.ops import tridiag_pallas as tp
+    mode = next(x for x in precision.CARD_MODES if str(x) == mode_name)
+    smoke = _smoke()
+    tol = smoke._tridiag_tol(mode)
+    rng = np.random.default_rng(K + nb)
+    Ad, Bs = _band(rng, 2, K, nb, torch.float32, cuda)
+    b = torch.as_tensor(rng.normal(size=(2, K, nb)), dtype=torch.float32,
+                        device=cuda)
+    ops.reset_launch_counts()
+    got = tp.pallas_tridiag_factor(Ad, Bs, 1e-4, mode=mode)
+    twin = tp.xla_tridiag_factor_inv(Ad, Bs, 1e-4, mode=mode)
+    assert bool(got[3].all()) and bool(twin[3].all())
+    for g, t in zip(got[:3], twin[:3]):
+        assert _rel_err(g, t) <= tol
+    delta = torch.full((2,), 1e-4, device=cuda)
+    assert smoke._tridiag_factor_residual(*got[:3], Ad, Bs, delta,
+                                          mode) <= 1e-5
+    x = tp.pallas_tridiag_solve(twin[1], twin[2], b, mode=mode)
+    assert _rel_err(x, tp.xla_tridiag_solve_inv(twin[1], twin[2], b,
+                                                mode=mode)) <= tol
+    assert ops.launch_modes() == {"tridiag_factor": {mode_name: 1},
+                                  "tridiag_solve": {mode_name: 1}}
+    (Ad, Bs, delta), (Ci, Ek, b) = smoke.tridiag_one_product_operands(
+        K, nb, 3, cuda)
+    got = tp.pallas_tridiag_factor(Ad, Bs, delta, mode=mode)
+    twin = tp.xla_tridiag_factor_inv(Ad, Bs, delta, mode=mode)
+    assert all(torch.equal(g, t) for g, t in zip(got, twin))
+    x = tp.pallas_tridiag_solve(Ci, Ek, b, mode=mode)
+    assert torch.equal(x, tp.xla_tridiag_solve_inv(Ci, Ek, b, mode=mode))
+    if mode.passes <= 3:
+        ieee = tp.pallas_tridiag_factor(Ad, Bs, delta, mode=precision.IEEE)
+        assert any(not torch.equal(g, i) for g, i in zip(got[:3], ieee[:3]))
+        assert not torch.equal(x, tp.pallas_tridiag_solve(
+            Ci, Ek, b, mode=precision.IEEE))
+
+
 @pytest.mark.gpu
 def test_modes_refused_where_not_built(cuda):
-    """A mode code no kernel has raises (nothing falls back to IEEE); K5 and
-    K7 refuse every non-IEEE float32 mode, on their wrappers and on the
-    chain kernel's pallas lane; float64 operands run IEEE under any mode."""
+    """A mode code no kernel has raises (nothing falls back to IEEE), in K2,
+    K7 and K5; under a non-IEEE mode K7 and K5 run in it on float32
+    operands (their launches tallied under it) and the chain kernel's
+    pallas lane takes it; float64 operands run IEEE under any mode."""
     from onephase_tpu_torch.config import Params
     from onephase_tpu_torch.models.examples import chain_ocp
     from onephase_tpu_torch.ops import precision
     from onephase_tpu_torch.ops import tridiag_pallas as tp
     from onephase_tpu_torch.parallel.chain import ChainKernel
+    bad = precision.Mode("f16", 3)
     S = _spd(np.random.default_rng(0), 2, 64, torch.float32, cuda)
     with pytest.raises(RuntimeError):
-        ch.pallas_chol(S, mode=precision.Mode("f16", 3))
+        ch.pallas_chol(S, mode=bad)
     D = _spd(np.random.default_rng(1), 1, 8, torch.float32, cuda)
     Ad = D[:, None].expand(1, 3, 8, 8).contiguous()
     Bs = torch.zeros(1, 2, 8, 8, device=cuda)
+    b = torch.ones(1, 3, 8, device=cuda)
+    with pytest.raises(RuntimeError):
+        tp.pallas_tridiag_factor(Ad, Bs, 0.0, mode=bad)
+    _, Ci, Ek, _ = tp.pallas_tridiag_factor(Ad, Bs, 0.0)
+    with pytest.raises(RuntimeError):
+        tp.pallas_tridiag_solve(Ci, Ek, b, mode=bad)
+    ops.reset_launch_counts()
     with precision.scope("BF16_BF16_F32", "cuda"):
-        with pytest.raises(NotImplementedError, match="K5"):
-            tp.pallas_tridiag_factor(Ad, Bs, 0.0)
+        tp.pallas_tridiag_factor(Ad, Bs, 0.0)
+        tp.pallas_tridiag_solve(Ci, Ek, b)
         L64, _, _ = ch.pallas_chol(S.double())
+        x64 = tp.pallas_tridiag_solve(Ci.double(), Ek.double(), b.double())
+    assert ops.launch_modes() == {"tridiag_factor": {"bf16": 1},
+                                  "tridiag_solve": {"bf16": 1, "ieee": 1},
+                                  "chol": {"ieee": 1}}
     assert torch.equal(L64, ch.pallas_chol(S.double())[0])
+    assert torch.equal(x64, tp.pallas_tridiag_solve(
+        Ci.double(), Ek.double(), b.double()))
     pars = Params().with_overrides({"kkt.linear_solver_type": "pallas",
                                     "matmul_precision": "BF16_BF16_F32"})
-    with pytest.raises(NotImplementedError, match="K7"):
-        ChainKernel(chain_ocp(K=4, nx=2, mc=1, device=cuda), pars,
-                    dtype=torch.float32, device=cuda)
+    ChainKernel(chain_ocp(K=4, nx=2, mc=1, device=cuda), pars,
+                dtype=torch.float32, device=cuda)

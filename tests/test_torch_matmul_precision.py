@@ -19,6 +19,14 @@
     factorizations are held by their recurrences on the twin's own factor
     (the rounding of an operand is decided by the twin's value, which an
     independent float64 factor could round to the other side).
+(d) The twins of K7 and K5 (ops/tridiag_pallas.py) in the same modes, the
+    same way: K7's on its recurrences (E E^T, the block Cholesky, its
+    inverse, B_k Ci_k^T) over its own entries, K5's against a float64
+    run of its two sweeps, the vectors carried in float32 as the twin
+    carries them; the IEEE route is the plain one bit for bit; and
+    chip_smoke.py's one-product operands take at most one product of two
+    nonzero entries an entry, so that on the card kernel and twin agree
+    bit for bit.
 """
 
 import dataclasses
@@ -32,9 +40,11 @@ import onephase_tpu_torch
 from onephase_tpu.config import Params as JParams
 from onephase_tpu_torch.config import Params
 from onephase_tpu_torch.ipm.dual import make_kernel
+from onephase_tpu_torch.ops import block_tridiag as tbt
 from onephase_tpu_torch.ops import cholesky as ch
 from onephase_tpu_torch.ops import precision as prec
 from onephase_tpu_torch.ops import schur
+from onephase_tpu_torch.ops import tridiag_pallas as ttp
 
 from test_torch_twins import jax_solve, zoo_pair
 from test_torch_twins import one_torch_thread  # noqa: F401
@@ -376,15 +386,19 @@ def test_tri_inv_gram_twin_in_mode(mode, operands):
                           Mt)
 
 
-def _one_product_operands(B, n, seed):
-    """chip_smoke.py's `one_product_operands`, on the CPU."""
+def _chip_smoke():
     import importlib.util
     from pathlib import Path
     path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.one_product_operands(B, n, seed, "cpu")
+    return mod
+
+
+def _one_product_operands(B, n, seed):
+    """chip_smoke.py's `one_product_operands`, on the CPU."""
+    return _chip_smoke().one_product_operands(B, n, seed, "cpu")
 
 
 def _f32_sum_pairs(pa, pb, mode):
@@ -440,6 +454,213 @@ def test_one_product_operands_closed_form(mode):
     if mode.passes <= 3:
         Li, Xi = closed(prec.IEEE)
         assert np.any(Lw != Li) and np.any(X != Xi)
+
+
+# ----------------------------------------------------------------------
+# (d) K7 and K5's twins in every mode
+# ----------------------------------------------------------------------
+def _band32(B, K, nb, seed):
+    """tests/test_torch_tridiag.py's band in float32: A_k = G G^T + 3 I,
+    B_k = 0.3 N(0, 1), and b ~ N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    G = rng.normal(size=(B, K, nb, nb))
+    Ad = (G @ G.transpose(0, 1, 3, 2) + 3 * np.eye(nb)).astype(np.float32)
+    Bs = (0.3 * rng.normal(size=(B, K - 1, nb, nb))).astype(np.float32)
+    return Ad, Bs, rng.normal(size=(B, K, nb)).astype(np.float32)
+
+
+def _mT(a):
+    return np.swapaxes(a, -1, -2)
+
+
+def _factor_err(Ck, Ci, Ek, Ad, Bs, delta, mode):
+    """The largest error of K7's recurrences in `mode` on a factor's own
+    entries, over the magnitudes of each entry's terms: S_k = A_k +
+    delta I - m(E_{k-1} E_{k-1}^T); C[i, j] C[j, j] = S[i, j] -
+    sum_{q<j} m(C[i, q], C[j, q]); Ci[r, c] C[r, r] = delta_rc -
+    sum_{q<r} m(C[r, q], Ci[q, c]); E_k = m(B_k Ci_k^T)."""
+    K, nb = Ad.shape[1], Ad.shape[-1]
+    low = np.tril(np.ones((nb, nb), bool))
+    eye = np.eye(nb)
+    errs = []
+    for k in range(K):
+        S = Ad[:, k].astype(np.float64) + delta * eye
+        magS = np.abs(S)
+        if k:
+            p, m = np_prod(Ek[:, k - 1], _mT(Ek[:, k - 1]), mode,
+                           lambda a, b: a @ b)
+            S, magS = S - p, magS + m
+        C, X = Ck[:, k], Ci[:, k]
+        d = np.diagonal(C, axis1=1, axis2=2)
+        prod, mag = np_prod(C, _mT(C), mode, lambda a, b: a @ b)
+        self_term = np_prod(C, np.broadcast_to(d[:, None, :], C.shape),
+                            mode, lambda a, b: a * b)
+        lhs = C.astype(np.float64) * d[:, None, :]
+        rhs = S - (prod - self_term[0])
+        errs.append(_err(lhs[:, low], rhs[:, low],
+                         (magS + mag + np.abs(lhs))[:, low]))
+        prod, mag = np_prod(np.tril(C, -1), X, mode, lambda a, b: a @ b)
+        lhs = X.astype(np.float64) * d[:, :, None]
+        errs.append(_err(lhs[:, low], (eye - prod)[:, low],
+                         (1 + mag + np.abs(lhs))[:, low]))
+        if k < K - 1:
+            prod, mag = np_prod(Bs[:, k], _mT(X), mode, lambda a, b: a @ b)
+            errs.append(_err(Ek[:, k], prod, mag))
+    return max(errs)
+
+
+@pytest.mark.parametrize("mode", prec.CARD_MODES, ids=str)
+def test_tridiag_factor_twin_in_mode(mode):
+    """xla_tridiag_factor_inv in a mode holds K7's recurrences in that mode
+    on its own entries (`_factor_err`); the wrapper takes the Mode on CPU
+    tensors and runs that twin; in the coarse one-pass modes the IEEE
+    twin stands more than 10x farther from those recurrences."""
+    Ad, Bs, _ = _band32(2, 4, 8, seed=21)
+    delta = 1e-3
+    out = ttp.xla_tridiag_factor_inv(_t(Ad), _t(Bs), delta, mode=mode)
+    assert bool(out[3].all())
+    err = _factor_err(*(o.numpy() for o in out[:3]), Ad, Bs, delta, mode)
+    assert err <= TOL
+    wrapped = ttp.pallas_tridiag_factor(_t(Ad), _t(Bs), delta, mode=mode)
+    assert all(torch.equal(a, b) for a, b in zip(wrapped, out))
+    if mode.kind in COARSE and mode.passes == 1:
+        ieee = ttp.xla_tridiag_factor_inv(_t(Ad), _t(Bs), delta)
+        assert _factor_err(*(o.numpy() for o in ieee[:3]), Ad, Bs, delta,
+                           mode) > 10 * err
+
+
+def _solve_model(Ci, Ek, b, mode):
+    """x of K5's two sweeps in float64, every product the mode's
+    (`np_prod`), each vector the twin carries (r, y, x) rounded to float32
+    before it is split."""
+    def mv(A, v):
+        return np_prod(A, v[..., None].astype(np.float32), mode,
+                       lambda a, c: a @ c)[0][..., 0]
+    K = Ci.shape[1]
+    y = []
+    for k in range(K):
+        r = b[:, k].astype(np.float64)
+        if k:
+            r = r - mv(Ek[:, k - 1], y[-1])
+        y.append(mv(Ci[:, k], r).astype(np.float32))
+    x = [None] * K
+    for k in range(K - 1, -1, -1):
+        r = y[k].astype(np.float64)
+        if k < K - 1:
+            r = r - mv(_mT(Ek[:, k]), x[k + 1])
+        x[k] = mv(_mT(Ci[:, k]), r)
+        if k:
+            x[k] = x[k].astype(np.float32)
+    return np.stack(x, axis=1)
+
+
+@pytest.mark.parametrize("mode", prec.CARD_MODES, ids=str)
+def test_tridiag_solve_twin_in_mode(mode):
+    """xla_tridiag_solve_inv in a mode against a float64 run of the same
+    sweeps (`_solve_model`), to TOL of the largest entry; the wrapper takes
+    the Mode on CPU tensors and runs that twin; in the coarse one-pass
+    modes the IEEE twin stands more than 10x farther from the model."""
+    Ad, Bs, b = _band32(2, 5, 8, seed=22)
+    _, Ci, Ek, _ = ttp.xla_tridiag_factor_inv(_t(Ad), _t(Bs), 1e-3)
+    x = ttp.xla_tridiag_solve_inv(Ci, Ek, _t(b), mode=mode)
+    want = _solve_model(Ci.numpy(), Ek.numpy(), b, mode)
+    scale = np.abs(want).max()
+    err = np.abs(x.numpy() - want).max() / scale
+    assert err <= TOL
+    assert torch.equal(ttp.pallas_tridiag_solve(Ci, Ek, _t(b), mode=mode), x)
+    if mode.kind in COARSE and mode.passes == 1:
+        ieee = ttp.xla_tridiag_solve_inv(Ci, Ek, _t(b)).numpy()
+        assert np.abs(ieee - want).max() / scale > 10 * err
+
+
+def test_tridiag_ieee_route_is_the_plain_one():
+    """With mode None, an IEEE Mode, or a float64 band under any Mode, the
+    wrappers run the plain twins as they were before the modes, bit for
+    bit: `tridiag_factor` with `block_inverses`, and the two sweeps of
+    matrix products written out here."""
+    def sweeps(Ci, Ek, b):
+        K = Ci.shape[-3]
+        y = [Ci[..., 0, :, :] @ b[..., 0, :, None]]
+        for k in range(1, K):
+            y.append(Ci[..., k, :, :] @ (b[..., k, :, None]
+                                         - Ek[..., k - 1, :, :] @ y[-1]))
+        x = [None] * K
+        x[K - 1] = Ci[..., K - 1, :, :].transpose(-1, -2) @ y[K - 1]
+        for k in range(K - 2, -1, -1):
+            x[k] = Ci[..., k, :, :].transpose(-1, -2) @ (
+                y[k] - Ek[..., k, :, :].transpose(-1, -2) @ x[k + 1])
+        return torch.stack(x, dim=-3).squeeze(-1)
+
+    Ad, Bs, b = (_t(a) for a in _band32(2, 4, 6, seed=23))
+    for dt, modes in ((torch.float32, (None, prec.IEEE)),
+                      (torch.float64, (None, prec.IEEE, prec.Mode("bf16", 1),
+                                       prec.TF32))):
+        f = tbt.tridiag_factor(Ad.to(dt), Bs.to(dt), 1e-3)
+        want = (f.Ck, ttp.block_inverses(f.Ck), f.Ek, f.ok)
+        x_want = sweeps(want[1], want[2], b.to(dt))
+        for mode in modes:
+            got = ttp.pallas_tridiag_factor(Ad.to(dt), Bs.to(dt), 1e-3,
+                                            mode=mode)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            assert torch.equal(ttp.pallas_tridiag_solve(
+                want[1], want[2], b.to(dt), mode=mode), x_want)
+
+
+def test_tridiag_factor_stages_are_the_recursion():
+    """chip_smoke.py's `tridiag_factor_stages`, K7's twin evaluated on
+    every stage at once from a factor's own carried E_{k-1}, is the
+    sequential twin `xla_tridiag_factor_inv` bit for bit in every mode,
+    given that twin's own E: so on the card it holds each stage of the
+    kernel to the twin's stage on the same inputs."""
+    Ad, Bs, _ = (_t(a) for a in _band32(2, 6, 8, seed=24))
+    delta = torch.tensor([1e-3, 2e-3])
+    smoke = _chip_smoke()
+    for mode in prec.CARD_MODES:
+        seq = ttp.xla_tridiag_factor_inv(Ad, Bs, delta, mode=mode)
+        stages = smoke.tridiag_factor_stages(Ad, Bs, delta, seq[2], mode)
+        assert all(torch.equal(a, b) for a, b in zip(seq, stages)), mode
+
+
+@pytest.mark.parametrize("nb", [8, 7])
+def test_tridiag_one_product_operands(nb):
+    """On chip_smoke.py's `tridiag_one_product_operands`, in the twin of
+    every mode, each entry of every product K7 forms (E_{k-1} E_{k-1}^T,
+    the Cholesky's and the inverse's updates, B_k Ci_k^T) and of both of
+    K5's sweeps sums at most one product of two nonzero entries; and the
+    modes of at most 3 products move both twins off their IEEE results,
+    so a kernel that ran IEEE in a mode's place cannot equal its twin."""
+    K = 3
+    (Ad, Bs, delta), (Ci, Ek, b) = _chip_smoke() \
+        .tridiag_one_product_operands(K, nb, 5, "cpu")
+
+    def most(a, b_):
+        """The largest number of nonzero products in an entry of a @ b_."""
+        return int(((a != 0).double() @ (b_ != 0).double()).max())
+
+    for M in (Ci[0], Ek[0]):
+        assert int((M != 0).sum(-1).max()) <= 1
+        assert int((M != 0).sum(-2).max()) <= 1
+    ieee = ttp._moded_factor_inv(Ad, Bs, delta, prec.IEEE)
+    x_ieee = ttp.xla_tridiag_solve_inv(Ci, Ek, b, mode=prec.IEEE)
+    for mode in (prec.IEEE,) + prec.CARD_MODES:
+        Ck, Cx, E, ok = ttp._moded_factor_inv(Ad, Bs, delta, mode)
+        assert bool(ok.all())
+        for k in range(K):
+            Ls, X = torch.tril(Ck[0, k], -1), Cx[0, k]
+            assert most(Ls, Ls.T) <= 1 and most(Ls, X) <= 1
+            if k < K - 1:
+                assert most(Bs[0, k], X.T) <= 1
+                assert int((E[0, k] != 0).sum(-1).max()) <= 1
+        if not mode.ieee and mode.passes <= 3:
+            assert any(bool((a != c).any()) for a, c in
+                       zip((Ck, Cx, E), ieee[:3]))
+            assert bool((ttp.xla_tridiag_solve_inv(Ci, Ek, b, mode=mode)
+                         != x_ieee).any())
+    # at the chain path's depth the sweeps stay within fp16's range
+    _, (Ci, Ek, b) = _chip_smoke().tridiag_one_product_operands(
+        400, nb, 5, "cpu")
+    x = ttp.xla_tridiag_solve_inv(Ci, Ek, b, mode=prec.Mode("f16", 1))
+    assert bool(torch.isfinite(x).all()) and float(x.abs().max()) < 100
 
 
 # ----------------------------------------------------------------------

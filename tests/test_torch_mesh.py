@@ -197,6 +197,37 @@ def _rank_dp(mesh, name, start=None):
     return out
 
 
+# the checkpoint leg: the mixed leg in chunks of 3 outer iterations,
+# saved after 2 (one instance done, three running)
+RESUME_OPTS = dict(DP_OPTS, chunk_size=3)
+RESUME_CHUNKS = 2
+
+
+def _chunks(solver, st, limit=None):
+    """run_chunk until no instance runs (or `limit` chunks)."""
+    n = 0
+    while solver.num_running(st) and (limit is None or n < limit):
+        st, n = solver.run_chunk(st), n + 1
+    return st
+
+
+def _rank_resume(mesh, ckpt_dir):
+    """The checkpoint leg on one rank: run through, and run RESUME_CHUNKS
+    chunks, gather, save, load, `shard_state` and run on; both gathered
+    (numpy), and the instances still running at the checkpoint."""
+    from onephase_tpu_torch.parallel.checkpoint import load_state, save_state
+    nlp, x0s, _ = _dp_case("mixed")
+    solver = ShardedBatchSolver(nlp, _pars(RESUME_OPTS, **TRACE), mesh=mesh)
+    whole = solver.gather(_chunks(solver, solver.init(x0s)))
+    full = solver.gather(_chunks(solver, solver.init(x0s), RESUME_CHUNKS))
+    path = os.path.join(ckpt_dir, f"rank{mesh.rank}.npz")
+    save_state(path, full)
+    st = solver.shard_state(load_state(path, full))
+    resumed = solver.gather(_chunks(solver, st))
+    return (state_to_numpy(whole), state_to_numpy(resumed),
+            int((full.status == 0).sum()))
+
+
 def _rank_arrow(mesh):
     """The sharded arrow solve on both lanes, and the exactness of the
     gather (signed zeros, infinities, NaN, a subnormal)."""
@@ -282,6 +313,33 @@ def _jax_dp(name):
             break
         st = solver.run_chunk(st)
     return start, _np_tree(st), None if bvals is None else _np_tree(bvals)
+
+
+def _jax_resume(ckpt_dir):
+    """The JAX package's checkpoint leg: its ShardedBatchSolver on two CPU
+    devices runs RESUME_CHUNKS chunks, saves, loads, `shard_state`s and
+    runs on (numpy)."""
+    import jax.numpy as jnp
+    from onephase_tpu.config import Params as JParams
+    from onephase_tpu.models import zoo as jzoo
+    from onephase_tpu.nlp import canonicalize as jcanon
+    from onephase_tpu.parallel.checkpoint import load_state, save_state
+    from onephase_tpu.parallel.mesh import ShardedBatchSolver as JSharded
+    from onephase_tpu.parallel.mesh import make_mesh as jmesh
+    _, x0s, _ = _dp_case("mixed")
+    solver = JSharded(jcanon(jzoo.circle_nc2()),
+                      JParams().with_overrides(RESUME_OPTS), mesh=jmesh(2))
+    st = solver.init(x0s)
+    for _ in range(RESUME_CHUNKS):
+        st = solver.run_chunk(st)
+    path = os.path.join(ckpt_dir, "jax.npz")
+    save_state(path, st)
+    st = solver.shard_state(load_state(path, st))
+    for _ in range(100):
+        if not bool(jnp.any(st.status == 0)):
+            break
+        st = solver.run_chunk(st)
+    return _np_tree(st)
 
 
 def _jax_structured(name):
@@ -397,6 +455,53 @@ def test_sharded_indivisible_batch_rejected():
     solver = ShardedBatchSolver(nlp, _pars(DP_OPTS), mesh=two)
     with pytest.raises(ValueError, match="not divisible"):
         solver.init(np.zeros((5, nlp.n)))
+
+
+def test_sharded_checkpoint_resumes(tmp_path):
+    """ShardedBatchSolver.shard_state, the resume half of a sharded
+    checkpoint (onephase_tpu/parallel/checkpoint.py:10-11): on two ranks
+    of one world the mixed leg runs RESUME_CHUNKS chunks, is gathered,
+    saved, loaded, re-sharded and run on to the end, which equals the
+    uninterrupted sharded run's bit for bit (the whole gathered state) and
+    the JAX package's save/load/shard_state run of the same batch (run
+    meanwhile) in status, outer iterations and x (1e-8)."""
+    with _ranks(tmp_path, _rank_resume, str(tmp_path)) as ranks:
+        jend = _jax_resume(str(tmp_path))
+        outs = ranks.results()
+    for whole, resumed, running in outs:
+        assert running == 3
+        _equal(resumed, whole)
+    _held_to_jax(outs[0][1], jend)
+
+
+def test_shard_state_takes_each_ranks_rows():
+    """shard_state slices every tensor's leading axis to the rank's rows
+    (`Mesh.rows`), as `init` slices the starts, and refuses a batch the
+    mesh does not divide; two-rank Mesh values, no process group."""
+    nlp, x0s, _ = _dp_case("mixed")
+    full = BatchSolver(nlp, _pars(DP_OPTS)).init(x0s)
+    want = state_to_numpy(full)
+    for rank in range(WORLD):
+        mesh = Mesh(None, "dp", rank, WORLD, CPU)
+        solver = ShardedBatchSolver(nlp, _pars(DP_OPTS), mesh=mesh)
+        got = state_to_numpy(solver.shard_state(full))
+        rows = slice(2 * rank, 2 * rank + 2)
+        _equal(got, _slice_rows(want, rows))
+        odd = BatchSolver(nlp, _pars(DP_OPTS)).init(np.zeros((5, nlp.n)))
+        with pytest.raises(ValueError, match="not divisible"):
+            solver.shard_state(odd)
+
+
+def _slice_rows(tree, rows):
+    """`tree` (numpy leaves) with every array's leading axis sliced."""
+    if isinstance(tree, np.ndarray):
+        return tree[rows]
+    if isinstance(tree, dict):
+        return {k: _slice_rows(v, rows) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        vals = [_slice_rows(v, rows) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    return tree
 
 
 def test_shared_matrix_product_depends_on_batch_size():

@@ -21,6 +21,9 @@ from onephase_tpu_torch.ipm.state import MAX_TIME, RUNNING
 from onephase_tpu_torch.nlp import canonicalize as tcanon
 from test_torch_twins import (ZOO_OPTS, assert_close, jax_solve, port_solve,
                               zoo_pair)
+from test_torch_twins import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _np_tree(t):

@@ -10,6 +10,9 @@ import torch
 import onephase_tpu.nlp as jnlp
 import onephase_tpu_torch.nlp as tnlp
 from test_torch_twins import fixed_var_pair, qp_pair, zoo_pair
+from test_torch_twins import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = 1e-12
 PROBLEMS = ["rosenbrook2", "toy_lp1", "toy_lp_inf1", "circle1", "quad_opt",

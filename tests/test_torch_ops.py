@@ -19,6 +19,9 @@ from onephase_tpu_torch import ops as tops
 from onephase_tpu_torch.ops import cholesky as tchol
 from onephase_tpu_torch.ops import refine as tref
 from onephase_tpu_torch.ops import schur as tschur
+from test_torch_twins import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # max |port - JAX| / max |JAX| by dtype: f64 agrees to rounding; f32
 # products of length m ~ 100 and factorizations of n <= 256 stay within

@@ -20,6 +20,9 @@ from onephase_tpu_torch.config import Params as TParams
 from onephase_tpu_torch.ipm.state import RUNNING
 from onephase_tpu_torch.parallel.batch import BatchSolver as TBatch
 from test_torch_twins import qp_pair
+from test_torch_twins import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 MIXED = {"output_level": 0, "term.max_it": 60, "term.tol_opt": 1e-6,
          "chunk_size": 20, "history_capacity": 2,

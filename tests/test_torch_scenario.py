@@ -39,6 +39,9 @@ from onephase_tpu_torch.nlp import canonicalize
 from onephase_tpu_torch.parallel.scenario import ScenarioKernel as TScen
 from test_torch_twins import check_carried_steps
 from test_torch_twins import compare_states as _compare
+from test_torch_twins import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CPU = torch.device("cpu")
 OPTS = {"output_level": 0, "term.max_it": 100, "chunk_size": 100}

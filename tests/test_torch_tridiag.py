@@ -20,6 +20,9 @@ from onephase_tpu.ops import tridiag_pallas as jtp
 from onephase_tpu_torch import ops
 from onephase_tpu_torch.ops import block_tridiag as tbt
 from onephase_tpu_torch.ops import tridiag_pallas as ttp
+from test_torch_twins import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _spd_band(K, nb, seed, dtype=np.float64, B=None):

@@ -5,6 +5,9 @@ float64."""
 import pytest
 
 from test_torch_twins import check_zoo_case
+from test_torch_twins import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 NAMES = ["rosenbrook2", "toy_lp0", "toy_lp1", "circle1", "circle_nc1",
          "quad_opt"]

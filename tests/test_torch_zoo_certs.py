@@ -7,6 +7,9 @@ import pytest
 import onephase_tpu_torch
 from onephase_tpu_torch.models import zoo
 from test_torch_twins import check_zoo_case
+from test_torch_twins import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 NAMES = ["toy_lp_inf1", "lp_unbd", "quad_unbd", "unbd_feas", "hs071"]
 

@@ -5,6 +5,9 @@ float64 (tests/test_zoo.py's LP cases)."""
 import pytest
 
 from test_torch_twins import check_zoo_case
+from test_torch_twins import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 NAMES = ["toy_lp2", "toy_lp3", "toy_lp5", "toy_lp6", "toy_lp7", "toy_lp8",
          "toy_lp_inf2"]

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Hold K3, K1, K2, K6 or K5 of this tree value for value against another
-checkout's.
+"""Hold K3, K1, K2, K6, K5 or K7 of this tree value for value against
+another checkout's.
 
 K3 (`ops/cholesky.py:pallas_tri_inv_gram`, M = L^-T L^-1) feeds every
 backsolve of the dense path, K1 (`ops/schur.py:pallas_fused_q`, Q = H +
@@ -16,6 +16,7 @@ earlier values bit for bit.  On a machine with a CUDA card:
     python3 tools/kernel_equal.py --parent _parent --kernel chol           # K2
     python3 tools/kernel_equal.py --parent _parent --kernel fused_q_tri    # K6
     python3 tools/kernel_equal.py --parent _parent --kernel tridiag_solve  # K5
+    python3 tools/kernel_equal.py --parent _parent --kernel tridiag_factor # K7
 
 The other checkout's `onephase_tpu_torch` is imported under another name
 (its kernels build into its own `build/`).
@@ -50,6 +51,13 @@ same Ci, Ek (this tree's factor of a seeded SPD band) and b: f32 and f64,
 and (1, 200, 64), ragged (2, 7, 30), K = 1 (2, 1, 32) and more edges;
 `torch.equal` on x.  This tree's K5 is also timed at B = 16 and 132 (one
 block per instance: does B > 1 fill the card?).
+
+`--kernel tridiag_factor`: both packages' `pallas_tridiag_factor` on the
+same seeded SPD band (A_k = G G^T + 3 I, B_k ~ 0.3 N(0, 1)) and a per
+instance delta: f32 and f64 at K5's (B, K, nb) cases, and a band with one
+non-PD block; `torch.equal` on Ck, Ci, Ek and ok (a failed instance's
+blocks are garbage and count only through ok).  Timed in turns, with
+device times, at the chain's and the banded path's shapes.
 
 Each case prints whether its check holds and how many entries differ.
 Then both are timed in turns (other, this, this, other; medians of
@@ -463,6 +471,73 @@ def check_tridiag_solve(parent: Path, dev):
     return results, timings, differing
 
 
+def _band(rng, B, K, nb, dtype, dev):
+    """A seeded SPD band (A_k = G G^T + 3 I, B_k ~ 0.3 N(0, 1)) and a delta
+    per instance in [0, 1e-3]."""
+    G = rng.normal(size=(B, K, nb, nb))
+    Ad = torch.as_tensor(G @ G.transpose(0, 1, 3, 2) + 3.0 * np.eye(nb),
+                         dtype=dtype, device=dev)
+    Bs = torch.as_tensor(rng.normal(size=(B, K - 1, nb, nb)) * 0.3,
+                         dtype=dtype, device=dev)
+    delta = torch.as_tensor(rng.uniform(0.0, 1e-3, size=B), dtype=dtype,
+                            device=dev)
+    return Ad, Bs, delta
+
+
+def check_tridiag_factor(parent: Path, dev):
+    """K7 of both trees on the same band: (results, timings, differing)."""
+    from onephase_tpu_torch.ops import tridiag_pallas as new
+    old = _load(parent, "parent_onephase_tpu_torch", "ops.tridiag_pallas")
+    rng = np.random.default_rng(19)
+    differing, results = 0, []
+    for dname in ("float32", "float64"):
+        dtype = getattr(torch, dname)
+        # K5's cases, then a band whose instance 1 has a non-PD block
+        for B, K, nb, non_pd in [c + (False,) for c in TS_CASES] + [
+                (3, 8, 30, True)]:
+            Ad, Bs, delta = _band(rng, B, K, nb, dtype, dev)
+            if non_pd:
+                Ad[1, 3] -= 50.0 * torch.eye(nb, dtype=dtype, device=dev)
+            got, want = (new.pallas_tridiag_factor(Ad, Bs, delta),
+                         old.pallas_tridiag_factor(Ad, Bs, delta))
+            torch.cuda.synchronize()
+            good = got[3] & want[3]
+            same = torch.equal(got[3], want[3]) and all(
+                torch.equal(g[good], w[good]) for g, w in zip(got[:3],
+                                                              want[:3]))
+            n_diff = sum(int((g[good] != w[good]).sum())
+                         for g, w in zip(got[:3], want[:3]))
+            differing += not same
+            results.append(dict(dtype=dname, B=B, K=K, nb=nb, non_pd=non_pd,
+                                equal=same, differing_entries=n_diff,
+                                ok=int(got[3].sum())))
+            print(f"K7 {dname} B={B} K={K} nb={nb}: torch.equal on Ck, Ci, "
+                  f"Ek, ok {same} ({n_diff} entries differ), ok "
+                  f"{int(got[3].sum())}/{B} (other {int(want[3].sum())})",
+                  flush=True)
+
+    timings = []
+    for dname in ("float32", "float64"):
+        dtype = getattr(torch, dname)
+        for B, K, nb in TS_TIMED:
+            Ad, Bs, delta = _band(rng, B, K, nb, dtype, dev)
+            t_old, t_new = _time_abba(
+                lambda: old.pallas_tridiag_factor(Ad, Bs, delta),
+                lambda: new.pallas_tridiag_factor(Ad, Bs, delta))
+            d_old = _device_ms(lambda: old.pallas_tridiag_factor(Ad, Bs,
+                                                                 delta))
+            d_new = _device_ms(lambda: new.pallas_tridiag_factor(Ad, Bs,
+                                                                 delta))
+            timings.append(dict(B=B, K=K, nb=nb, dtype=dname,
+                                other_ms=t_old, this_ms=t_new,
+                                other_device_ms=d_old, this_device_ms=d_new))
+            print(f"K7 {dname} B={B} K={K} nb={nb}: other checkout "
+                  f"{t_old:.4f} ms, this tree {t_new:.4f} ms "
+                  f"({t_new / t_old:.3f}x); device ms by kernel: other "
+                  f"{d_old}, this {d_new}", flush=True)
+    return results, timings, differing
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, type=Path,
@@ -470,10 +545,12 @@ def main() -> int:
                          "onephase_tpu_torch/")
     ap.add_argument("--kernel", nargs="+", default=["tri_inv_gram"],
                     choices=("tri_inv_gram", "fused_q", "chol",
-                             "fused_q_tri", "tridiag_solve"),
+                             "fused_q_tri", "tridiag_solve",
+                             "tridiag_factor"),
                     help="K3 (tri_inv_gram, the default), K1 (fused_q), K2 "
-                         "(chol), K6 (fused_q_tri), K5 (tridiag_solve); "
-                         "several run in turn in one process")
+                         "(chol), K6 (fused_q_tri), K5 (tridiag_solve), K7 "
+                         "(tridiag_factor); several run in turn in one "
+                         "process")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_equal: no CUDA device; the kernels run only "
@@ -488,7 +565,8 @@ def main() -> int:
               "fused_q": check_fused_q,
               "chol": check_chol,
               "fused_q_tri": check_fused_q_tri,
-              "tridiag_solve": check_tridiag_solve}
+              "tridiag_solve": check_tridiag_solve,
+              "tridiag_factor": check_tridiag_factor}
     any_differ = False
     for kernel in args.kernel:
         results, timings, differing = checks[kernel](args.parent.resolve(),
