@@ -165,6 +165,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -717,8 +718,8 @@ REPS = 20
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 # the tensor cores' dense rates for a matmul mode's input type: a mode's
-# products are products of that type (the moded kernels run them on the
-# FP32 cores, but the card could take them at these rates)
+# products are products of that type (K1's and K2's trailing update run
+# them on the tensor cores; K3's inverse, K5 and K7 on the FP32 cores)
 PEAK_FLOPS_MODE = {"tf32": 495e12, "bf16": 989e12, "f16": 989e12}
 DNAME = {4: "float32", 8: "float64"}    # by element size
 # cycles from one FMA's issue to its dependent's (FP32 on Hopper), the unit
@@ -841,17 +842,23 @@ def _time_ms(fn) -> float:
 
 def _ptxas_report(log, kernels):
     """The -Xptxas -v lines (registers, shared memory, spills) of every
-    instantiation of the named kernels in the build log."""
+    instantiation of the named kernels in the build log, and each
+    source's compile seconds."""
     out, current = [], None
     for ln in log.splitlines():
-        if "Compiling entry function" in ln:
+        head = re.match(r"^(\S+\.cu) \(([\d.]+) s\):$", ln)
+        if head:
+            out.append(f"{head.group(1)}: nvcc {head.group(2)} s")
+            current = None
+        elif "Compiling entry function" in ln:
             current = next((k for k in kernels if k in ln), None)
             if current:
-                # the template arguments of the mangled name: the type,
-                # then the integers (tile edge, thread count, ...) and flags
-                # where there are any
+                # the template arguments of the mangled name: the type
+                # where there is one, then the integers (tile edge, thread
+                # count, mode kind and passes, ...) and flags
                 args = ln.split(current, 1)[1].split("EEv")[0]
-                targs = [{"f": "float", "d": "double"}[args[1]]]
+                targs = ([{"f": "float", "d": "double"}[args[1]]]
+                         if args[1:2] in ("f", "d") else [])
                 targs += [v if kind == "i" else ("true" if v == "1" else
                                                  "false")
                           for kind, v in re.findall(r"L([ib])(\d+)E", args)]
@@ -1849,7 +1856,7 @@ def _prec_kernels(dev, n, m, B):
         "K3": (lambda md: ch.pallas_tri_inv_gram(L, mode=md),
                lambda md: ch.xla_chol_inv_from_L(L, md), 2 * B * n ** 3 / 3,
                (inverse, res_inv)),
-    }, (Jc, w, H)
+    }, (Jc, w, H, Q, L)
 
 
 def one_product_operands(B, n, seed, device):
@@ -1959,7 +1966,7 @@ def precision_kernel_checks(dev):
     _prec_one_product(dev)
     rec = {}
     n, m, B = PREC_SHAPE
-    kernels, (Jc, w, H) = _prec_kernels(dev, n, m, B)
+    kernels, (Jc, w, H, Q, L) = _prec_kernels(dev, n, m, B)
     for name, (kern, twin, flops, (rin, residual)) in kernels.items():
         # K1's two modes: compared on the lower triangle
         view = torch.tril if name.startswith("K1") else (lambda t: t)
@@ -1988,8 +1995,8 @@ def precision_kernel_checks(dev):
             times = _time_turns(lambda: kern(md),
                                 lambda: kern(precision.IEEE), reps=5)
             # the bound at the mode's input type's tensor-core rate; beside
-            # it, the same products on the FP32 cores, where the moded
-            # kernels run them
+            # it, the same products on the FP32 cores (where K3's moded
+            # inverse runs them)
             bound, bound_by = _bound(nbytes, flops * md.passes, md.kind)
             ffma = flops * md.passes / PEAK_FLOPS["float32"] * 1e3
             part = (f"{md} err {d_twin:.2e}, residual {r_mode:.2e} "
@@ -2016,8 +2023,23 @@ def precision_kernel_checks(dev):
                                    f"does not show its mode: {part}")
         print(f"precision {name} n={n} m={m} B={B}: " + "; ".join(parts),
               flush=True)
-    # K1's library yardstick under TF32: baddbmm with cuBLAS's TF32 on
-    kern = kernels["K1"][0]
+    _prec_library(kernels["K1"][0], (Jc, w, H, Q, L), rec)
+    _prec_chol_phases(Q)
+    return rec
+
+
+def _prec_library(k1, operands, rec):
+    """The library yardsticks of the moded kernels at PREC_SHAPE, each one
+    PyTorch call on the same operands, timed in turns with the kernel: K1
+    in one-pass TF32 against `baddbmm` with cuBLAS's TF32 on, in one-pass
+    bf16 and fp16 against `baddbmm` on operands of that type with a
+    float32 result (`out_dtype`, where the installed torch takes it); K2
+    in every mode against `cholesky_ex`, K3 against `cholesky_inverse`
+    (IEEE, timed once).  The split modes have none."""
+    import torch
+    from onephase_tpu_torch.ops import precision
+    Jc, w, H, Q, L = operands
+    B = w.shape[0]
     Hb, A, Jb = _baddbmm_operands(Jc, w, H, B)
     saved = torch.backends.cuda.matmul.allow_tf32
 
@@ -2026,11 +2048,58 @@ def precision_kernel_checks(dev):
         torch.baddbmm(Hb, A, Jb)
         torch.backends.cuda.matmul.allow_tf32 = saved
 
-    ms, lms = _time_turns(lambda: kern(precision.TF32), tf32_baddbmm)
-    print(f"precision K1 tf32 n={n} m={m} B={B}: kernel {ms:.4f} ms, "
-          f"baddbmm with cuBLAS TF32 {lms:.4f} ms (in turns)", flush=True)
+    parts = []
+    ms, lms = _time_turns(lambda: k1(precision.TF32), tf32_baddbmm)
+    parts.append(f"tf32 kernel {ms:.4f} ms, baddbmm with cuBLAS TF32 "
+                 f"{lms:.4f}")
     rec["fused_q"]["tf32"]["library_ms"] = lms
-    return rec
+    for kind, dt in (("bf16", torch.bfloat16), ("f16", torch.float16)):
+        a, b = A.to(dt), Jb.to(dt)
+        try:
+            torch.baddbmm(Hb, a, b, out_dtype=torch.float32)
+        except (TypeError, RuntimeError) as e:
+            parts.append(f"{kind}: none (baddbmm takes no out_dtype here: "
+                         f"{str(e).splitlines()[0][:80]})")
+            continue
+        ms, lms = _time_turns(
+            lambda: k1(precision.Mode(kind, 1)),
+            lambda: torch.baddbmm(Hb, a, b, out_dtype=torch.float32))
+        parts.append(f"{kind} kernel {ms:.4f} ms, baddbmm on {kind} "
+                     f"operands, float32 out {lms:.4f}")
+        rec["fused_q"][kind]["library_ms"] = lms
+        del a, b
+    chol_ms = _time_ms(lambda: torch.linalg.cholesky_ex(Q))
+    inv_ms = _time_ms(lambda: torch.cholesky_inverse(L))
+    for md in rec["chol"]:
+        rec["chol"][md]["library_ms"] = chol_ms
+        rec["tri_inv_gram"][md]["library_ms"] = inv_ms
+    parts.append(f"K2 cholesky_ex {chol_ms:.4f}; K3 cholesky_inverse "
+                 f"{inv_ms:.4f}")
+    print(f"precision library (in turns): {'; '.join(parts)}", flush=True)
+
+
+def _prec_chol_phases(Q):
+    """K2's time by phase in IEEE and every card mode at PREC_SHAPE
+    (`ops/cholesky.py:chol_phases`, the clocked copy of csrc/chol.cu), and
+    the moded kernels' registers and spills from the build log."""
+    from onephase_tpu_torch.ops import _build
+    from onephase_tpu_torch.ops import cholesky as ch
+    from onephase_tpu_torch.ops import precision
+    for md in (precision.IEEE,) + precision.CARD_MODES:
+        ph = ch.chol_phases(Q, md)
+        print(f"precision K2 phases {md}: " + ", ".join(
+            f"{p} {v * 100:.1f}%" for p, v in ph["share"].items())
+            + f" ({ph['cycles']:.0f} cycles a block, cluster "
+            f"{ph['cluster']})", flush=True)
+    rep = _ptxas_report(_build.BUILD_LOG, ("fused_q_wg_kernel",
+                                            "fused_q_tc_kernel",
+                                            "chol_kernel"))
+    moded = [f"{k}: " + ", ".join(x.strip() for x in rep[i + 1:i + 3])
+             for i, k in enumerate(rep)
+             if k.startswith(("fused_q_wg_kernel", "fused_q_tc_kernel",
+                              "chol_kernel<float, true"))]
+    print("precision ptxas (the moded kernels): " + "; ".join(moded),
+          flush=True)
 
 
 # K7 and K5 in every card mode (the matmul modes of csrc/tridiag.cu): at
@@ -3454,9 +3523,13 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     _build.library()
     print(f"kernel build: {_build.BUILD_SECONDS:.1f} s", flush=True)
+    # the clocked copy of K2 for the precision phase's phase split, built
+    # meanwhile on the host
+    threading.Thread(target=_build.clock_library, daemon=True).start()
     for ln in _ptxas_report(_build.BUILD_LOG, (
-            "fused_q_lower_kernel", "chol_kernel", "tri_inv_kernel",
-            "tridiag_factor_kernel", "tridiag_solve_kernel")):
+            "fused_q_lower_kernel", "fused_q_wg_kernel", "fused_q_tc_kernel",
+            "chol_kernel", "tri_inv_kernel", "tridiag_factor_kernel",
+            "tridiag_solve_kernel")):
         print(f"  ptxas: {ln}", flush=True)
 
     record = kernel_parity(dev)

@@ -50,12 +50,16 @@
 //   and its mirror (j, i) from the staging tile along rows, coalesced.  A
 //   shared (folded-constant) Jc or H is read with batch stride 0.
 //
-// A `matmul_precision` mode (mm_mode.cuh; float32 only) takes one further
-// instantiation, 64-tiles with 4 x 4 a thread and element copies (any n,
-// any alignment): each k row's operands are rounded and split once as they
-// leave shared memory (the i side after its scaling by w[k], as the TPU
-// kernel forms `ji * w` before its dot), then the mode's part products are
-// added smallest first.  The IEEE instantiations below are unchanged.
+// A `matmul_precision` mode (float32 only) takes the tensor cores, in an
+// instantiation of its own (fused_q_wg_kernel and fused_q_tc_kernel below,
+// mm_tc.cuh): each entry is rounded and split once as it is staged (the i
+// side after its scaling by w[k], as the TPU kernel forms `ji * w` before
+// its dot), each part pair's products accumulate by wgmma or mma.sync from
+// +0, and the pairs are summed smallest first.  What bounds them on the
+// H100 is the split and the staging around the products, not the tensor
+// cores (operations x products over 495 TFLOP/s TF32, 989 bf16 / fp16:
+// 0.07 ms a pass at n = 1024, m = 512, B = 64).  The IEEE instantiations
+// are unchanged.
 //
 // Value for value: every entry on or below the diagonal is what the earlier
 // full-grid kernel computed there, bit for bit: acc = 0; for k = kbeg ..
@@ -78,11 +82,9 @@
 
 #include <cstdint>
 
-#include "mm_mode.cuh"
+#include "mm_tc.cuh"
 
 namespace {
-
-using onephase::MmMode;
 
 __device__ __forceinline__ float fq_fma(float a, float b, float c) {
   return fmaf(a, b, c);
@@ -129,6 +131,13 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
     asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
                  :: "r"(s), "l"(src), "n"(BYTES), "r"(nbytes) : "memory");
 }
+// The same, BYTES always copied (no zero fill): the interior's copies.
+template <int BYTES>
+__device__ __forceinline__ void cp_async_all(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], %2;\n"
+               :: "r"(s), "l"(src), "n"(BYTES) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -163,16 +172,13 @@ struct Shape {
   static_assert(KC * CPR % NT == 0, "whole copies per thread");
 };
 
-template <typename T, int BT, int RM, int RN, bool VEC, int MINB,
-          bool MODED>
+template <typename T, int BT, int RM, int RN, bool VEC, int MINB>
 __global__ void __launch_bounds__((BT / RM) * (BT / RN), MINB)
 fused_q_lower_kernel(const T* __restrict__ Jc, long long jc_bs,
                      const T* __restrict__ w, const T* __restrict__ H,
                      long long h_bs, const T* __restrict__ bnd,
-                     T* __restrict__ Q, int m, int n, int lower, int mode) {
+                     T* __restrict__ Q, int m, int n, int lower) {
   using S = Shape<T, BT, RM, RN, VEC>;
-  static_assert(!MODED || sizeof(T) == 4, "modes are float32 only");
-  const MmMode md = onephase::mm_mode(mode);
   extern __shared__ __align__(16) unsigned char fq_smem[];
   T* sm = reinterpret_cast<T*>(fq_smem);
 
@@ -233,8 +239,7 @@ fused_q_lower_kernel(const T* __restrict__ Jc, long long jc_bs,
 #pragma unroll
     for (int c = 0; c < RN; ++c) acc[r][c] = T(0);
   // k row kk of a slab: acc[r][c] = fma(a[r], b[c], acc[r][c]), a the
-  // thread's RM scaled i-side entries, b its RN j-side entries; MODED:
-  // each split once (mm_mode.cuh), then the mode's part products
+  // thread's RM scaled i-side entries, b its RN j-side entries
   auto k_step = [&](const T* As, const T* Bs, int kk) {
     T a[RM], bv[RN];
 #pragma unroll
@@ -243,25 +248,11 @@ fused_q_lower_kernel(const T* __restrict__ Jc, long long jc_bs,
 #pragma unroll
     for (int g = 0; g < RN / 4; ++g)
       ld4(Bs + kk * BT + g * S::GN + 4 * tx, bv + 4 * g);
-    if constexpr (MODED) {
-      float ap[RM][3], bp[RN][3];
 #pragma unroll
-      for (int r = 0; r < RM; ++r) onephase::mm_split(a[r], md, ap[r]);
+    for (int r = 0; r < RM; ++r)
 #pragma unroll
-      for (int c = 0; c < RN; ++c) onephase::mm_split(bv[c], md, bp[c]);
-#pragma unroll
-      for (int r = 0; r < RM; ++r)
-#pragma unroll
-        for (int c = 0; c < RN; ++c)
-          acc[r][c] = onephase::mm_fma_parts(ap[r], bp[c], acc[r][c],
-                                             md.passes);
-    } else {
-#pragma unroll
-      for (int r = 0; r < RM; ++r)
-#pragma unroll
-        for (int c = 0; c < RN; ++c)
-          acc[r][c] = fq_fma(a[r], bv[c], acc[r][c]);
-    }
+      for (int c = 0; c < RN; ++c)
+        acc[r][c] = fq_fma(a[r], bv[c], acc[r][c]);
   };
 
   // every iteration commits one copy group (empty past the last slab), so
@@ -289,12 +280,7 @@ fused_q_lower_kernel(const T* __restrict__ Jc, long long jc_bs,
     const T* As = sm + buf * 2 * S::SLAB;
     const T* Bs = As + S::SLAB;
     const int kc = m - kbeg - s * KC;
-    if constexpr (MODED) {
-      // one k row at a time: the moded step is large, its unrolled
-      // copies would only cost build time
-#pragma unroll 1
-      for (int kk = 0; kk < (kc < KC ? kc : KC); ++kk) k_step(As, Bs, kk);
-    } else if (kc >= KC) {
+    if (kc >= KC) {
 #pragma unroll
       for (int kk = 0; kk < KC; ++kk) k_step(As, Bs, kk);
     } else {
@@ -373,14 +359,12 @@ fused_q_lower_kernel(const T* __restrict__ Jc, long long jc_bs,
   }
 }
 
-template <typename T, int BT, int RM, int RN, bool VEC, int MINB,
-          bool MODED = false>
+template <typename T, int BT, int RM, int RN, bool VEC, int MINB>
 int launch_shape(const void* Jc, long long jc_bs, const void* w,
                  const void* H, long long h_bs, const void* bnd, void* Q,
-                 int B, int m, int n, int lower, void* stream,
-                 int mode = 0) {
+                 int B, int m, int n, int lower, void* stream) {
   using S = Shape<T, BT, RM, RN, VEC>;
-  const auto kernel = fused_q_lower_kernel<T, BT, RM, RN, VEC, MINB, MODED>;
+  const auto kernel = fused_q_lower_kernel<T, BT, RM, RN, VEC, MINB>;
   const long long nt = (n + BT - 1) / BT;
   const long long tiles = nt * (nt + 1) / 2;
   if (B > 65535 || tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
@@ -389,12 +373,573 @@ int launch_shape(const void* Jc, long long jc_bs, const void* w,
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3((unsigned)tiles, B), S::NT, S::SMEM, (cudaStream_t)stream>>>(
       (const T*)Jc, jc_bs, (const T*)w, (const T*)H, h_bs, (const T*)bnd,
-      (T*)Q, m, n, lower, mode);
+      (T*)Q, m, n, lower);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
+// The matmul modes on the tensor cores (mm_tc.cuh), float32 only: one
+// instantiation a mode, KIND (1 TF32, 2 bf16, 3 fp16) and PASSES (1, 3, 6
+// or 9 part products), on two routes that share the grid, the tile
+// decode, `lower`, the copies (copy_slab), the split and the staged
+// epilogue (store_tile):
+// - cp.async copies each KC-row slab of both sides (16 bytes where rows
+//   and bases allow, else one element; zero fill past the edges) and of w
+//   into a ring of ST raw slabs, ST - 1 ahead of the one being split;
+// - each thread then scales its i-side entries by w[k] (as the TPU kernel
+//   forms `ji * w` before its dot), rounds and splits every entry once
+//   into the mode's parts and stores them, one plane a part, 16 bytes a
+//   store; the planes are double-buffered, so one barrier a slab suffices,
+//   and slab s is split while slab s - 1 is multiplied;
+// - one accumulator a part pair, started at +0; the pairs summed smallest
+//   first (Mode.pairs), then H and bnd added as in the IEEE epilogue.
+// The one-pass and 3-product sets take wgmma on 128-tiles
+// (fused_q_wg_kernel): two warpgroups of 64 x 128, the tensor cores
+// reading the planes from shared memory, asynchronously, while the next
+// slab is split (64 accumulator registers a pair: two blocks an SM at one
+// pass, one at three).  The 6- and 9-product sets, whose accumulators a
+// 128-tile cannot hold, take mma.sync on 64-tiles (fused_q_tc_kernel):
+// eight warps of 32 x 16 (16 registers a pair: 144 at nine), the planes in
+// fragment order (unit_at below), 16-byte fragment loads.
+template <int KIND, int PASSES>
+struct TcShape {
+  static_assert(KIND != 1, "the 6- and 9-product sets are 16-bit");
+  using Sx = typename onephase::Tc<KIND>::S;
+  static constexpr int PARTS = onephase::mode_parts(PASSES);
+  static constexpr int BT = 64;
+  static constexpr int NT = 256;                   // threads: 8 warps, 2 x 4
+  static constexpr int WM = BT / 2, WN = BT / 4;   // a warp's block
+  static constexpr int MT = WM / 16, NT8 = WN / 8; // its m16 and n8 tiles
+  static constexpr int KC = 32;                    // k rows a slab
+  static constexpr int ST = 3;                     // raw slabs in the ring
+  static constexpr int KSTEPS = KC / onephase::Tc<KIND>::K;
+  // a raw row: BT entries and a pad that puts the rows a fragment spans on
+  // distinct banks (k + 2 t: 4 words)
+  static constexpr int LDR = BT + 4;
+  static constexpr int RAW = 2 * KC * LDR + KC;    // both sides, then w
+  static constexpr int E = 16 / (int)sizeof(Sx);   // elements a 16-byte unit
+  static constexpr int UNITS = KC * BT / E;        // units of a side's plane
+  static constexpr int UPT = 2 * UNITS / NT;       // units a thread
+  static constexpr int CPT = 2 * KC * BT / 4 / NT; // 16-byte copies a thread
+  static constexpr int PLANE = KC * BT;            // elements of a plane
+  static constexpr int LDT = BT + 1;               // the staging tile's row
+  static constexpr int RING = ST * RAW * 4;        // bytes
+  static constexpr int PLANES = 2 * 2 * PARTS * PLANE * (int)sizeof(Sx);
+  static constexpr int SMEM = RING + PLANES > BT * LDT * 4
+                                  ? RING + PLANES : BT * LDT * 4;
+  static_assert(2 * UNITS % NT == 0 && (UNITS % NT == 0 || UPT == 1),
+                "whole units per thread, one side a unit slot");
+  static_assert(NT8 % 2 == 0, "B fragments load in pairs of n8 tiles");
+  static_assert(2 * KC * BT % (4 * NT) == 0, "whole copies per thread");
+};
+
+// Copy the slab of rows k0 .. k0 + KC of both sides (columns from i0 and
+// from j0) and of w into a raw ring slot: side s's row kk at raw + (s KC +
+// kk) LDR, w after both; 16 bytes a copy where `vec` (whole 16-byte row
+// segments and an aligned Jc), else one element; zero fill past the edges.
+// One copy group.
+template <int BT, int KC, int LDR, int NT>
+__device__ __forceinline__ void copy_slab(float* raw, const float* J,
+                                          const float* wb, int k0, int m,
+                                          int n, int i0, int j0, int vec,
+                                          int tid) {
+  if (vec) {
+    const float* Jk = J + (long long)k0 * n;
+#pragma unroll
+    for (int q = 0; q < 2 * KC * BT / 4 / NT; ++q) {
+      // copy x = tid + NT q: side x / (KC BT / 4), row kk, column c
+      const int x = tid + NT * q;
+      const int side = x / (KC * BT / 4), r = x % (KC * BT / 4);
+      const int kk = r / (BT / 4), c = (r % (BT / 4)) * 4;
+      const int col = (side ? j0 : i0) + c;
+      float* dst = raw + side * KC * LDR + kk * LDR + c;
+      if (k0 + kk < m && col < n)
+        cp_async_all<16>(dst, Jk + (long long)kk * n + col);
+      else
+        cp_async<16>(dst, J, false);
+    }
+  } else {
+#pragma unroll 4
+    for (int q = 0; q < 2 * KC * BT / NT; ++q) {
+      const int x = tid + NT * q;
+      const int side = x / (KC * BT), r = x % (KC * BT);
+      const int kk = r / BT, c = r % BT;
+      const int col = (side ? j0 : i0) + c;
+      const bool ok = k0 + kk < m && col < n;
+      cp_async<4>(raw + side * KC * LDR + kk * LDR + c,
+                  ok ? J + (long long)(k0 + kk) * n + col : J, ok);
+    }
+  }
+  if (wb && tid < KC) {
+    const bool ok = k0 + tid < m;
+    cp_async<4>(raw + 2 * KC * LDR + tid, ok ? wb + k0 + tid : wb, ok);
+  }
+  cp_async_commit();
+}
+
+// Q's tile (ti, tj) of edge BT from the staging tile Ts (leading dimension
+// BT + 1), along rows, with H added from its own place and bnd on the
+// diagonal: above the diagonal of a diagonal tile the mirror of the entry
+// below it; off the diagonal also the mirror tile (tj, ti), whose rows
+// j0 + lr are < n (tj < ti).  Every thread of the block, NT of them.
+template <int BT, int NT>
+__device__ __forceinline__ void store_tile(const float* Ts, const float* Hb,
+                                           const float* bb, float* Qb, int n,
+                                           int i0, int j0, bool diag,
+                                           int tid) {
+  constexpr int LDT = BT + 1;
+#pragma unroll 4
+  for (int e = tid; e < BT * BT; e += NT) {
+    const int lr = e / BT, lc = e % BT;
+    const int row = i0 + lr, col = j0 + lc;
+    if (row < n && col < n) {
+      float v = (diag && lr < lc) ? Ts[lc * LDT + lr] : Ts[lr * LDT + lc];
+      const long long o = (long long)row * n + col;
+      if (Hb) v = Hb[o] + v;
+      if (bb && row == col) v += bb[row];
+      Qb[o] = v;
+    }
+    if (!diag && i0 + lc < n) {
+      const long long o = (long long)(j0 + lr) * n + i0 + lc;
+      float v = Ts[lc * LDT + lr];
+      if (Hb) v = Hb[o] + v;
+      Qb[o] = v;
+    }
+  }
+}
+
+// The mma.sync route's planes, in fragment order (16-bit parts: bf16 or
+// fp16, m16n8k16).  A 16-byte unit is one lane's fragment: on the A side
+// (rows of the product) a0..a7 of m16 tile mt at k step ks, unit
+// (ks * BT / 16 + mt) * 32 + lane; on the B side (columns) b0..b3 of the
+// n8 tiles 2 np and 2 np + 1, unit (ks * BT / 16 + np) * 32 + lane.  A
+// warp reads 32 consecutive units: no bank conflicts.  unit_at gives
+// element 0's (k within the slab, row or column within the tile);
+// unit_dk / unit_di the offsets of element e from it (the same unit
+// index on both sides: the two layouts differ in the elements' order).
+template <int BT>
+__device__ __forceinline__ void unit_at(int u, int& k, int& i) {
+  const int lane = u & 31, rest = u >> 5;
+  i = (rest % (BT / 16)) * 16 + (lane >> 2);
+  k = (rest / (BT / 16)) * 16 + 2 * (lane & 3);
+}
+__device__ __forceinline__ int unit_dk(bool bside, int e) {
+  return bside ? (e & 1) + 8 * ((e >> 1) & 1) : (e & 1) + 8 * (e >> 2);
+}
+__device__ __forceinline__ int unit_di(bool bside, int e) {
+  return bside ? 8 * (e >> 2) : 8 * ((e >> 1) & 1);
+}
+__device__ __forceinline__ void frag_ld(const unsigned short* plane, int unit,
+                                        uint32_t (&r)[4]) {
+  const uint4 v = reinterpret_cast<const uint4*>(plane)[unit];
+  r[0] = v.x; r[1] = v.y; r[2] = v.z; r[3] = v.w;
+}
+
+template <int KIND, int PASSES>
+__global__ void __launch_bounds__(256, 1)
+fused_q_tc_kernel(const float* __restrict__ Jc, long long jc_bs,
+                  const float* __restrict__ w, const float* __restrict__ H,
+                  long long h_bs, const float* __restrict__ bnd,
+                  float* __restrict__ Q, int m, int n, int lower, int vec) {
+  using G = TcShape<KIND, PASSES>;
+  using Sx = typename G::Sx;
+  using TC = onephase::Tc<KIND>;
+  constexpr int BT = G::BT, PARTS = G::PARTS, E = G::E, KC = G::KC;
+  constexpr int ST = G::ST, LDR = G::LDR;
+  extern __shared__ __align__(16) unsigned char fq_smem[];
+  float* ring = reinterpret_cast<float*>(fq_smem);
+  Sx* planes = reinterpret_cast<Sx*>(fq_smem + G::RING);
+  // plane (buffer, side 0 = i / 1 = j, part)
+  auto plane = [&](int buf, int side, int part) {
+    return planes + ((buf * 2 + side) * PARTS + part) * G::PLANE;
+  };
+
+  const int b = blockIdx.y;
+  const int t = blockIdx.x;
+  int ti = 0;                       // t = ti (ti + 1) / 2 + tj, tj <= ti
+  while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
+  const int tj = t - ti * (ti + 1) / 2;
+  const int i0 = ti * BT, j0 = tj * BT;
+  const bool diag = ti == tj;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const float* J = Jc + (long long)b * jc_bs;
+  const float* wb = w ? w + (long long)b * m : nullptr;
+  const int kbeg = lower ? i0 : 0;
+
+  // the slab of rows k0 .. k0 + KC into ring slot `slot`
+  auto issue = [&](int k0, int slot) {
+    copy_slab<BT, KC, LDR, G::NT>(ring + slot * G::RAW, J, wb, k0, m, n, i0,
+                                  j0, vec, tid);
+  };
+
+  // this thread's units x = tid + NT q, side x / UNITS: the raw offset of
+  // element 0 of each (its k and row or column in the slab)
+  int base[G::UPT], kbase[G::UPT];
+#pragma unroll
+  for (int q = 0; q < G::UPT; ++q) {
+    const int x = tid + G::NT * q, side = x / G::UNITS, u = x % G::UNITS;
+    int k, i;
+    unit_at<BT>(u, k, i);
+    base[q] = side * KC * LDR + k * LDR + i;
+    kbase[q] = k;
+  }
+  // scale, round and split raw slot `slot` into the planes of `buf`
+  auto split = [&](int slot, int buf) {
+    const float* raw = ring + slot * G::RAW;
+    const float* wk = raw + 2 * KC * LDR;
+#pragma unroll
+    for (int q = 0; q < G::UPT; ++q) {
+      const int x = tid + G::NT * q, side = x / G::UNITS, u = x % G::UNITS;
+      Sx pv[PARTS][E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int dk = unit_dk(side, e);
+        float v = raw[base[q] + dk * LDR + unit_di(side, e)];
+        if (!side && wb) v *= wk[kbase[q] + dk];
+        Sx p[PARTS];
+        onephase::tc_split<KIND, PARTS>(v, p);
+#pragma unroll
+        for (int r = 0; r < PARTS; ++r) pv[r][e] = p[r];
+      }
+#pragma unroll
+      for (int r = 0; r < PARTS; ++r)
+        reinterpret_cast<uint4*>(plane(buf, side, r))[u] =
+            onephase::pack16(pv[r]);
+    }
+  };
+
+  float acc[PASSES][G::MT][G::NT8][4];
+#pragma unroll
+  for (int q = 0; q < PASSES; ++q)
+#pragma unroll
+    for (int a = 0; a < G::MT; ++a)
+#pragma unroll
+      for (int c = 0; c < G::NT8; ++c)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[q][a][c][r] = 0.0f;
+  // the slab in `buf`: pair q = (i, j) takes A part i and B part j
+  auto multiply = [&](int buf) {
+#pragma unroll
+    for (int ks = 0; ks < G::KSTEPS; ++ks) {
+      uint32_t bf[PARTS][G::NT8 / 2][4];
+#pragma unroll
+      for (int r = 0; r < PARTS; ++r)
+#pragma unroll
+        for (int np = 0; np < G::NT8 / 2; ++np)
+          frag_ld(plane(buf, 1, r),
+                  (ks * (BT / 16) + wn * (G::NT8 / 2) + np) * 32 + lane,
+                  bf[r][np]);
+#pragma unroll
+      for (int ip = 0; ip < PARTS; ++ip) {
+        uint32_t af[G::MT][4];
+#pragma unroll
+        for (int a = 0; a < G::MT; ++a)
+          frag_ld(plane(buf, 0, ip),
+                  (ks * (BT / 16) + wm * G::MT + a) * 32 + lane, af[a]);
+#pragma unroll
+        for (int q = 0; q < PASSES; ++q) {
+          if (onephase::pair_i(9 - PASSES + q) != ip) continue;
+          const int jp = onephase::pair_j(9 - PASSES + q);
+#pragma unroll
+          for (int a = 0; a < G::MT; ++a)
+#pragma unroll
+            for (int c = 0; c < G::NT8; ++c)
+              TC::mma(acc[q][a][c], af[a], &bf[jp][c / 2][2 * (c % 2)]);
+        }
+      }
+    }
+  };
+
+  // every iteration commits one copy group (empty past the last slab), so
+  // the waits count groups
+  const int nslab = m > kbeg ? (m - kbeg + KC - 1) / KC : 0;
+#pragma unroll
+  for (int p = 0; p < ST - 1; ++p) {
+    if (p < nslab) issue(kbeg + p * KC, p);
+    else cp_async_commit();
+  }
+  cp_async_wait<ST - 2>();
+  __syncthreads();
+#pragma unroll 1
+  for (int s = 0; s < nslab; ++s) {
+    // slot (s - 1) % ST was split before the last barrier
+    const int s2 = s + ST - 1;
+    if (s2 < nslab) issue(kbeg + s2 * KC, s2 % ST);
+    else cp_async_commit();
+    // the planes of slab s - 1 were stored before the last barrier; those
+    // of s - 2 (the buffer split into below) were read before it.  The
+    // split's loads and arithmetic interleave with these products
+    if (s > 0) multiply((s - 1) & 1);
+    split(s % ST, s & 1);
+    cp_async_wait<ST - 2>();   // slab s + 1 has landed
+    __syncthreads();
+  }
+  if (nslab > 0) multiply((nslab - 1) & 1);
+  cp_async_wait<0>();
+  __syncthreads();   // every plane read before the staging tile reuses them
+
+  // the pairs summed smallest first, staged in shared memory (the ring and
+  // the planes are done with), then the tile and its mirror from there
+  float* Ts = reinterpret_cast<float*>(fq_smem);
+#pragma unroll
+  for (int a = 0; a < G::MT; ++a)
+#pragma unroll
+    for (int c = 0; c < G::NT8; ++c)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float v = acc[0][a][c][r];
+#pragma unroll
+        for (int q = 1; q < PASSES; ++q) v = v + acc[q][a][c][r];
+        const int lr = wm * G::WM + a * 16 + (lane >> 2) + 8 * (r >> 1);
+        const int lc = wn * G::WN + c * 8 + 2 * (lane & 3) + (r & 1);
+        Ts[lr * G::LDT + lc] = v;
+      }
+  __syncthreads();
+  store_tile<BT, G::NT>(Ts, H ? H + (long long)b * h_bs : nullptr,
+                        bnd ? bnd + (long long)b * n : nullptr,
+                        Q + (long long)b * n * n, n, i0, j0, diag, tid);
+}
+
+// The wgmma route (see above).  The planes are K-major core matrices:
+// 16-byte unit u = kc BT + i holds row i's entries kc E .. kc E + E - 1
+// (E = 4 TF32, 8 16-bit), so a descriptor's 8-row groups lie SBO = 128
+// bytes apart and its K chunks LBO = 16 x 128 bytes apart; the split's
+// reads of a raw slab and its 16-byte stores are conflict-free.
+template <int KIND, int PASSES>
+struct WgShape {
+  using Sx = typename onephase::Tc<KIND>::S;
+  static constexpr int PARTS = onephase::mode_parts(PASSES);
+  static constexpr int BT = 128, NT = 256, KC = 16;
+  static constexpr int MINB = PASSES == 1 ? 2 : 1;
+  static constexpr int ST = 4;                     // raw slabs in the ring
+  static constexpr int KSTEPS = KC / onephase::Wg<KIND>::K;
+  static constexpr int LDR = BT + 4;               // a raw row
+  static constexpr int RAW = 2 * KC * LDR + KC;    // both sides, then w
+  static constexpr int E = 16 / (int)sizeof(Sx);   // elements a unit
+  static constexpr int UNITS = KC * BT / E;        // 16-byte units a plane
+  static constexpr int UPT = 2 * UNITS / NT;       // units a thread
+  static constexpr int CPT = 2 * KC * BT / 4 / NT; // 16-byte copies a thread
+  static constexpr int PLANE = KC * BT;            // elements of a plane
+  static constexpr int LBO = 16 * 128, SBO = 128;  // bytes
+  static constexpr int LDT = BT + 1;               // the staging tile's row
+  static constexpr int RING = ST * RAW * 4;
+  static constexpr int PLANES = 2 * 2 * PARTS * PLANE * (int)sizeof(Sx);
+  static constexpr int SMEM = RING + PLANES > BT * LDT * 4
+                                  ? RING + PLANES : BT * LDT * 4;
+  static_assert(2 * UNITS % NT == 0 && UNITS % NT == 0, "whole units");
+  static_assert(RING % 128 == 0, "planes 128-byte aligned");
+};
+
+template <int KIND, int PASSES>
+__global__ void __launch_bounds__(256, WgShape<KIND, PASSES>::MINB)
+fused_q_wg_kernel(const float* __restrict__ Jc, long long jc_bs,
+                  const float* __restrict__ w, const float* __restrict__ H,
+                  long long h_bs, const float* __restrict__ bnd,
+                  float* __restrict__ Q, int m, int n, int lower, int vec) {
+  using G = WgShape<KIND, PASSES>;
+  using Sx = typename G::Sx;
+  using WG = onephase::Wg<KIND>;
+  constexpr int BT = G::BT, PARTS = G::PARTS, E = G::E, KC = G::KC;
+  constexpr int ST = G::ST, LDR = G::LDR;
+  extern __shared__ __align__(16) unsigned char fq_smem[];
+  float* ring = reinterpret_cast<float*>(fq_smem);
+  Sx* planes = reinterpret_cast<Sx*>(fq_smem + G::RING);
+  auto plane = [&](int buf, int side, int part) {
+    return planes + ((buf * 2 + side) * PARTS + part) * G::PLANE;
+  };
+
+  const int b = blockIdx.y;
+  const int t = blockIdx.x;
+  int ti = 0;                       // t = ti (ti + 1) / 2 + tj, tj <= ti
+  while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
+  const int tj = t - ti * (ti + 1) / 2;
+  const int i0 = ti * BT, j0 = tj * BT;
+  const bool diag = ti == tj;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, w4 = warp & 3;
+  const float* J = Jc + (long long)b * jc_bs;
+  const float* wb = w ? w + (long long)b * m : nullptr;
+  const int kbeg = lower ? i0 : 0;
+
+  auto issue = [&](int k0, int slot) {
+    copy_slab<BT, KC, LDR, G::NT>(ring + slot * G::RAW, J, wb, k0, m, n, i0,
+                                  j0, vec, tid);
+  };
+
+  // unit x = tid + NT q: side x / UNITS, row i = u % BT, K chunk u / BT
+  auto split = [&](int slot, int buf) {
+    const float* raw = ring + slot * G::RAW;
+    const float* wk = raw + 2 * KC * LDR;
+#pragma unroll
+    for (int q = 0; q < G::UPT; ++q) {
+      const int x = tid + G::NT * q, side = x / G::UNITS, u = x % G::UNITS;
+      const int i = u % BT, k = (u / BT) * E;
+      const float* src = raw + side * KC * LDR + k * LDR + i;
+      Sx pv[PARTS][E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        float v = src[e * LDR];
+        if (!side && wb) v *= wk[k + e];
+        Sx p[PARTS];
+        onephase::tc_split<KIND, PARTS>(v, p);
+#pragma unroll
+        for (int r = 0; r < PARTS; ++r) pv[r][e] = p[r];
+      }
+#pragma unroll
+      for (int r = 0; r < PARTS; ++r)
+        reinterpret_cast<uint4*>(plane(buf, side, r))[u] =
+            onephase::pack16(pv[r]);
+    }
+    onephase::fence_async_shared();
+  };
+
+  float acc[PASSES][64];
+#pragma unroll
+  for (int q = 0; q < PASSES; ++q)
+#pragma unroll
+    for (int r = 0; r < 64; ++r) acc[q][r] = 0.0f;
+  // issue the slab in `buf`: pair q = (i, j) takes A part i (this
+  // warpgroup's 64 rows) and B part j (all 128 columns)
+  auto multiply = [&](int buf) {
+    onephase::wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < G::KSTEPS; ++ks)
+#pragma unroll
+      for (int q = 0; q < PASSES; ++q) {
+        const int ip = onephase::pair_i(9 - PASSES + q);
+        const int jp = onephase::pair_j(9 - PASSES + q);
+        // K chunk 2 ks; this warpgroup's 8-row groups from 8 wg
+        const Sx* a = plane(buf, 0, ip) + (2 * ks * BT + 64 * wg) * E;
+        const Sx* bm = plane(buf, 1, jp) + 2 * ks * BT * E;
+        WG::mma(acc[q], onephase::wg_desc(a, G::LBO, G::SBO),
+                onephase::wg_desc(bm, G::LBO, G::SBO));
+      }
+    onephase::wg_commit();
+  };
+
+  const int nslab = m > kbeg ? (m - kbeg + KC - 1) / KC : 0;
+#pragma unroll
+  for (int p = 0; p < ST - 1; ++p) {
+    if (p < nslab) issue(kbeg + p * KC, p);
+    else cp_async_commit();
+  }
+  cp_async_wait<ST - 2>();
+  __syncthreads();
+#pragma unroll 1
+  for (int s = 0; s < nslab; ++s) {
+    const int s2 = s + ST - 1;
+    if (s2 < nslab) issue(kbeg + s2 * KC, s2 % ST);
+    else cp_async_commit();
+    // the products of slab s - 1 run while slab s is split into the other
+    // buffer, whose products (slab s - 2) were waited for before the last
+    // barrier
+    if (s > 0) multiply((s - 1) & 1);
+    split(s % ST, s & 1);
+    onephase::wg_wait<0>();
+    cp_async_wait<ST - 2>();   // slab s + 1 has landed
+    __syncthreads();
+  }
+  if (nslab > 0) {
+    multiply((nslab - 1) & 1);
+    onephase::wg_wait<0>();
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // every plane read before the staging tile reuses them
+
+  // the pairs summed smallest first, staged in shared memory, then the
+  // tile and its mirror from there (straight-line code between the last
+  // product and the staging: stores to Q from the accumulators crashed
+  // ptxas)
+  float* Ts = reinterpret_cast<float*>(fq_smem);
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float v = acc[0][4 * j + r];
+#pragma unroll
+      for (int q = 1; q < PASSES; ++q) v = v + acc[q][4 * j + r];
+      const int lr = 64 * wg + 16 * w4 + (lane >> 2) + 8 * (r >> 1);
+      const int lc = 8 * j + 2 * (lane & 3) + (r & 1);
+      Ts[lr * G::LDT + lc] = v;
+    }
+  __syncthreads();
+  store_tile<BT, G::NT>(Ts, H ? H + (long long)b * h_bs : nullptr,
+                        bnd ? bnd + (long long)b * n : nullptr,
+                        Q + (long long)b * n * n, n, i0, j0, diag, tid);
+}
+
+template <int KIND, int PASSES>
+int launch_wg(const void* Jc, long long jc_bs, const void* w, const void* H,
+              long long h_bs, const void* bnd, void* Q, int B, int m, int n,
+              int lower, int vec, void* stream) {
+  using G = WgShape<KIND, PASSES>;
+  const auto kernel = fused_q_wg_kernel<KIND, PASSES>;
+  const long long nt = (n + G::BT - 1) / G::BT;
+  const long long tiles = nt * (nt + 1) / 2;
+  if (B > 65535 || tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((unsigned)tiles, B), G::NT, G::SMEM, (cudaStream_t)stream>>>(
+      (const float*)Jc, jc_bs, (const float*)w, (const float*)H, h_bs,
+      (const float*)bnd, (float*)Q, m, n, lower, vec);
+  return (int)cudaGetLastError();
+}
+
+template <int KIND, int PASSES>
+int launch_tc(const void* Jc, long long jc_bs, const void* w, const void* H,
+              long long h_bs, const void* bnd, void* Q, int B, int m, int n,
+              int lower, int vec, void* stream) {
+  using G = TcShape<KIND, PASSES>;
+  const auto kernel = fused_q_tc_kernel<KIND, PASSES>;
+  const long long nt = (n + G::BT - 1) / G::BT;
+  const long long tiles = nt * (nt + 1) / 2;
+  if (B > 65535 || tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((unsigned)tiles, B), G::NT, G::SMEM, (cudaStream_t)stream>>>(
+      (const float*)Jc, jc_bs, (const float*)w, (const float*)H, h_bs,
+      (const float*)bnd, (float*)Q, m, n, lower, vec);
   return (int)cudaGetLastError();
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+}
+
+// a mode's code (16 kind + passes) -> its instantiation
+int launch_moded(const void* Jc, long long jc_bs, const void* w,
+                 const void* H, long long h_bs, const void* bnd, void* Q,
+                 int B, int m, int n, int lower, int mode, void* stream) {
+  // 16-byte copies: whole 16-byte row segments, an aligned Jc
+  const int vec = n % 4 == 0 && aligned16(Jc);
+  switch (mode) {
+    case 0x11:
+      return launch_wg<1, 1>(Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower,
+                             vec, stream);
+    case 0x13:
+      return launch_wg<1, 3>(Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower,
+                             vec, stream);
+    case 0x21:
+      return launch_wg<2, 1>(Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower,
+                             vec, stream);
+    case 0x23:
+      return launch_wg<2, 3>(Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower,
+                             vec, stream);
+    case 0x26:
+      return launch_tc<2, 6>(Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower,
+                             vec, stream);
+    case 0x29:
+      return launch_tc<2, 9>(Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower,
+                             vec, stream);
+    case 0x31:
+      return launch_wg<3, 1>(Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower,
+                             vec, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The 16-byte route needs whole 16-byte row segments (n a multiple of
@@ -410,18 +955,16 @@ int launch_fused_q(const void* Jc, long long jc_bs, const void* w,
                    const void* H, long long h_bs, const void* bnd, void* Q,
                    int B, int m, int n, int lower, int mode, void* stream);
 
-// float32: a matmul mode (mode != 0) takes the one moded instantiation,
-// 64-tiles with element copies (any n, any alignment); IEEE the four below
+// float32: a matmul mode (mode != 0) takes its tensor-core instantiation
+// (any n, any alignment); IEEE the four below
 template <>
 int launch_fused_q<float>(const void* Jc, long long jc_bs, const void* w,
                           const void* H, long long h_bs, const void* bnd,
                           void* Q, int B, int m, int n, int lower, int mode,
                           void* stream) {
-  if (mode != 0) {
-    if (!onephase::mm_mode_valid(mode)) return (int)cudaErrorInvalidValue;
-    return launch_shape<float, 64, 4, 4, false, 1, true>(
-        Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower, stream, mode);
-  }
+  if (mode != 0)
+    return launch_moded(Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower, mode,
+                        stream);
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)

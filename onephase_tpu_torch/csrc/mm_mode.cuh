@@ -1,7 +1,10 @@
-// The float32 product arithmetic of a `matmul_precision` mode, shared by
-// the moded variants of K1 (fused_q.cu), K2 (chol.cu, chol_tile.cuh) and
-// K3 (tri_inv.cu).  The definition, and the plain twins that compute the
-// same values, are in onephase_tpu_torch/ops/precision.py:
+// The float32 product arithmetic of a `matmul_precision` mode on the FP32
+// cores, shared by the moded variants of K3's inverse (tri_inv.cu), K5 and
+// K7 (tridiag.cu) and the tile Cholesky of K2's and K7's diagonal blocks
+// (chol_tile.cuh); K1's products and K2's trailing update run on the
+// tensor cores (mm_tc.cuh), K2's panel on its own split-once routines
+// (chol.cu).  The definition, and the plain twins that compute the same
+// values, are in onephase_tpu_torch/ops/precision.py:
 //
 // - every product of two matrix entries is a product of operands rounded
 //   to the mode's input type: TF32 (round to nearest, ties away from zero:
@@ -16,9 +19,8 @@
 // A product of two rounded operands is exact in float32 (8 + 8 or 11 + 11
 // significand bits), so each FFMA below adds the exact part product to the
 // accumulator with one rounding, as a tensor-core product of that type
-// would up to the order of its sums.  This is the simple route: the split
-// modes cost their 3, 6 or 9 FMAs a product on the FP32 cores (the tensor
-// cores' TF32 and bf16 rates are the later work that makes the knob pay).
+// would up to the order of its sums.  The kernels that use these routines
+// pay the split modes' 3, 6 or 9 FMAs a product on the FP32 cores.
 //
 // The mode is a runtime value, read once outside the inner loops; a kernel
 // has one moded instantiation beside its IEEE ones, whose arithmetic does

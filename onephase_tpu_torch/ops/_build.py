@@ -3,11 +3,17 @@
 The sources are compiled with nvcc for Hopper (`sm_90a`), one nvcc process
 per source, all started together, and linked into one shared library with
 a plain C interface, loaded with `ctypes` (no PyTorch headers: a build
-takes seconds, not minutes).  The build runs at the first CUDA call, never
-at import, into `onephase_tpu_torch/build/`; the library's name carries a
-hash of the sources, so an edited source triggers a rebuild.  Processes
-that find no library at once (ranks of one job) build it once, in turn
-(`_build`).
+takes seconds, not minutes).  The build runs at the first CUDA call,
+never at import, into `onephase_tpu_torch/build/`; the library's name
+carries a hash of the sources, so an edited source triggers a rebuild.
+Processes that find no library at once (ranks of one job) build it once,
+in turn (`_build`).
+
+`clock_library` is a second, measurement-only library: `csrc/chol.cu`
+compiled with -DONEPHASE_CHOL_CLOCKS, whose one entry point,
+`op_chol_clocks_f32`, is K2 with clock64() stamps at its phase boundaries
+(`ops/cholesky.py:chol_phases`; no solver path calls it).  It is built
+apart, at its first use, so that it does not slow the kernels' build.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -30,6 +37,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIB = None
+_CLOCK_LIB = None
+_CLOCK_LOCK = threading.Lock()
 # wall seconds of the build step in this process (0-ish when the library
 # for these sources already existed) and the compiler's report (-Xptxas -v:
 # registers, shared memory and spills per kernel)
@@ -54,6 +63,9 @@ _SIGNATURES = {
     # Ci, Ek, b, x, B, K, nb, mode, stream
     "op_tridiag_solve": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
+# the clocked K2 (clock_library): Q, L, d, ok, B, n, mode, clk (int64
+# (B * 8, 8)), stream
+_CLOCK_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _P, _P]
 
 
 def _nvcc() -> str:
@@ -74,10 +86,11 @@ def _source_hash(files) -> str:
     return h.hexdigest()[:16]
 
 
-def _build(so: Path, srcs, nvcc: str) -> str:
+def _build(so: Path, srcs, nvcc: str, flags=()) -> str:
     """Compile `srcs` (one compiler process per source, all started
-    together) and link them into the shared library `so`; returns the
-    compiler's report, or "" when another process built `so` meanwhile.
+    together; `flags` added to each) and link them into the shared library
+    `so`; returns the compiler's report, or "" when another process built
+    `so` meanwhile.
 
     Processes that build one library at once (ranks of one job sharing the
     build directory) take turns on an advisory lock beside it, released
@@ -93,17 +106,31 @@ def _build(so: Path, srcs, nvcc: str) -> str:
         tag = f"{so.stem}.{os.getpid()}"
         objs = [so.with_name(f"{tag}.{src.stem}.o") for src in srcs]
         tmp = so.with_name(f"{tag}.so.tmp")
+        outs = [so.with_name(f"{tag}.{src.stem}.log") for src in srcs]
         try:
-            procs = [(src, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-                for src, obj in zip(srcs, objs)]
+            t0 = time.perf_counter()
+            procs = []
+            for src, obj, out in zip(srcs, objs, outs):
+                with open(out, "w") as fh:
+                    procs.append((
+                        f"{src.name}{' ' + ' '.join(flags) if flags else ''}",
+                        subprocess.Popen(
+                            [nvcc, *NVCC_FLAGS, *flags, "-c", "-o",
+                             str(obj), str(src)],
+                            stdout=fh, stderr=subprocess.STDOUT)))
+            # each compiler's wall seconds (the build waits for the longest)
+            seconds = {}
+            while len(seconds) < len(procs):
+                for name, proc in procs:
+                    if name not in seconds and proc.poll() is not None:
+                        seconds[name] = time.perf_counter() - t0
+                time.sleep(0.05)
             logs, failed = [], []
-            for src, proc in procs:
-                out = proc.communicate()[0]
-                logs.append(f"{src.name}:\n{out}")
+            for (name, proc), out in zip(procs, outs):
+                logs.append(f"{name} ({seconds[name]:.1f} s):\n"
+                            f"{out.read_text()}")
                 if proc.returncode != 0:
-                    failed.append(src.name)
+                    failed.append(name)
             log = "\n".join(logs)
             if failed:
                 raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
@@ -114,7 +141,7 @@ def _build(so: Path, srcs, nvcc: str) -> str:
                                    f"{proc.stdout}\n{proc.stderr}")
             os.replace(tmp, so)
         finally:
-            for f in (*objs, tmp):
+            for f in (*objs, *outs, tmp):
                 f.unlink(missing_ok=True)
     return log
 
@@ -138,6 +165,25 @@ def library():
             fn.restype = ctypes.c_int
     _LIB = lib
     return lib
+
+
+def clock_library():
+    """The measurement library (see the module docstring), built first if
+    needed; safe to call from several threads (chip_smoke.py builds it in
+    one while the card works)."""
+    global _CLOCK_LIB
+    with _CLOCK_LOCK:
+        if _CLOCK_LIB is None:
+            src = CSRC / "chol.cu"
+            tag = _source_hash([src, *sorted(CSRC.glob("*.cuh"))])
+            so = BUILD_DIR / f"libonephase_chol_clocks_{tag}.so"
+            if not so.exists():
+                _build(so, [src], _nvcc(), flags=["-DONEPHASE_CHOL_CLOCKS"])
+            lib = ctypes.CDLL(str(so))
+            lib.op_chol_clocks_f32.argtypes = _CLOCK_SIGNATURE
+            lib.op_chol_clocks_f32.restype = ctypes.c_int
+            _CLOCK_LIB = lib
+    return _CLOCK_LIB
 
 
 def entry(name: str, dtype):

@@ -125,6 +125,44 @@ def pallas_chol(Q, mode=None):
     return L, d, ok != 0
 
 
+# K2's phases, as the clocked copy of csrc/chol.cu stamps them
+CHOL_PHASES = ("other", "diag", "solve", "cross", "trail")
+
+
+def chol_phases(Q, mode=None):
+    """Where K2's time goes on float32 CUDA `Q` in matmul mode `mode`: one
+    launch of the clocked copy of csrc/chol.cu (`_build.clock_library`,
+    `op_chol_clocks_f32`, whose thread 0 of every block reads clock64()
+    at each phase boundary).  Returns {"share": {phase: cycles over the
+    block's total, mean over the blocks}, "cluster": blocks an instance,
+    "cycles": mean cycles a block}: the diagonal tiles, the row solves, the
+    panel's cross products, the trailing update, and the rest (the copy of
+    Q, the writes of the diagonal block, the cluster barriers).  A
+    measurement: the solver never calls it."""
+    _check_square(Q, "chol_phases")
+    if Q.device.type != "cuda" or Q.dtype != torch.float32:
+        raise ValueError("chol_phases: a float32 CUDA batch")
+    B, n = Q.shape[0], Q.shape[-1]
+    L = torch.empty_like(Q)
+    d = torch.empty(B, n, dtype=Q.dtype, device=Q.device)
+    ok = torch.empty(B, dtype=torch.int32, device=Q.device)
+    slots = len(CHOL_PHASES) + 2   # the phases, the total, the cluster size
+    clk = torch.zeros(B * 8, 8, dtype=torch.int64, device=Q.device)
+    with torch.cuda.device(Q.device):
+        err = _build.clock_library().op_chol_clocks_f32(
+            Q.data_ptr(), L.data_ptr(), d.data_ptr(), ok.data_ptr(), B, n,
+            precision.kernel_mode(Q, mode).code, clk.data_ptr(),
+            _build.stream_ptr(Q))
+    _build.check(err, "chol_clocks")
+    rows = clk[:, :slots]
+    rows = rows[rows[:, len(CHOL_PHASES)] > 0].double().cpu()
+    total = rows[:, len(CHOL_PHASES)]
+    share = (rows[:, :len(CHOL_PHASES)] / total[:, None]).mean(0)
+    return {"share": dict(zip(CHOL_PHASES, share.tolist())),
+            "cluster": int(rows[0, len(CHOL_PHASES) + 1]),
+            "cycles": float(total.mean())}
+
+
 def _moded_tri_inv(L, mode, block: int = 32):
     """L^-1 with every product L[r, k] X[k, c] in matmul mode `mode`,
     by blocked forward substitution on the identity (the recurrence of

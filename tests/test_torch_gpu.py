@@ -657,6 +657,81 @@ def test_chol_tri_inv_one_product_in_mode_is_its_twin(cuda, mode_name):
         assert not torch.equal(X, Xi)
 
 
+def _misaligned(t):
+    """A contiguous copy of `t` whose base lies 4 bytes off a 16-byte
+    boundary (the kernels' element-copy and scalar-store routes)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode_name", _mode_ids())
+@pytest.mark.parametrize("n, m, B, shared, h, aligned", [
+    (130, 70, 2, True, True, True), (130, 70, 1, False, False, True),
+    (77, 0, 2, True, True, True), (77, 1, 3, False, False, True),
+    (128, 33, 2, False, True, False), (200, 130, 1, True, False, False)])
+def test_fused_q_tensor_cores_at_the_edges(cuda, mode_name, n, m, B, shared,
+                                           h, aligned):
+    """K1's tensor-core instantiations and its `lower` mode at n and m off
+    the 8, 16 and 128 grids, m = 0 and 1, B = 1, shared and per-instance Jc,
+    H and H = None, aligned and 4-byte-offset operands: the lower triangle
+    within 1e-4 of the twin, the Gram product's within 1e-4 of its twin
+    and bit-symmetric."""
+    from onephase_tpu_torch.ops import precision
+    mode = next(x for x in precision.CARD_MODES if str(x) == mode_name)
+    Jc, w, H, bnd = _fq_inputs(np.random.default_rng(n + 7 * m + B), n, m,
+                               B, shared, torch.float32, cuda)
+    H = H if h else None
+    if not aligned:
+        Jc = _misaligned(Jc)
+        H = None if H is None else _misaligned(H)
+    ops.reset_launch_counts()
+    Q = schur.pallas_fused_q(Jc, w, H, bnd, mode=mode)
+    assert ops.launch_modes() == {"fused_q": {mode_name: 1}}
+    assert _rel_err(Q.tril(), schur.xla_fused_q(Jc, w, H, bnd,
+                                                mode=mode).tril()) <= 1e-4
+    if H is None:
+        # the rank-m part above the diagonal mirrors the entry below it
+        R = Q - torch.diag_embed(bnd)
+        assert torch.equal(R, R.mT)
+    S = _spd(np.random.default_rng(n), B, n, torch.float32, cuda)
+    L = ch.pallas_chol(S, mode=precision.IEEE)[0]
+    Li = torch.empty_like(L)
+    ch.launch_tri_inv(L, Li)
+    G = torch.empty_like(Li)
+    schur.launch_fused_q(Li, None, None, None, G, lower=True, mode=mode)
+    assert torch.equal(G, G.mT)
+    assert _rel_err(G.tril(), precision.matmul(Li.mT, Li, mode).tril()) \
+        <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode_name", _mode_ids())
+@pytest.mark.parametrize("B, n", [(2, 1), (2, 33), (2, 65), (3, 130),
+                                  (2, 1024), (256, 64), (64, 16), (64, 1),
+                                  (1, 1)])
+def test_chol_tensor_cores_in_mode(cuda, mode_name, B, n):
+    """K2's moded instantiation (the trailing update on the tensor cores,
+    the panel's rows and products from parts split once) against its twin
+    at n 1 to 1024 across the 32- and 64-column panels and at the scenario
+    shapes: L and d within chip_smoke.py's PREC_TOL (1e-4, one-pass bf16
+    5e-4), every pivot accepted, the launch tallied under the mode."""
+    from onephase_tpu_torch.ops import precision
+    mode = next(x for x in precision.CARD_MODES if str(x) == mode_name)
+    smoke = _smoke()
+    tol = smoke.PREC_TOL.get(mode_name, smoke.PREC_TOL_DEFAULT)
+    S = _spd(np.random.default_rng(B + n), B, n, torch.float32, cuda)
+    ops.reset_launch_counts()
+    L, d, ok = ch.pallas_chol(S, mode=mode)
+    assert ops.launch_modes() == {"chol": {mode_name: 1}}
+    Lt, dt_, okt = ch.blocked_chol(S, mode)
+    assert bool(ok.all()) and bool(okt.all())
+    assert torch.equal(L, L.tril())
+    assert _rel_err(L, Lt) <= tol and _rel_err(d, dt_) <= tol
+
+
 def _smoke():
     """chip_smoke.py, loaded as a module (its one-product operands)."""
     import importlib.util

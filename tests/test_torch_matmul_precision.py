@@ -222,6 +222,42 @@ def test_rounding_matches_model_on_edges(kind):
     assert np.array_equal(got[ok].view(np.uint32), want[ok].view(np.uint32))
 
 
+@pytest.mark.parametrize("mode", prec.CARD_MODES, ids=str)
+def test_split_parts_are_exact_in_the_mma_type(mode):
+    """The premise of the tensor-core kernels (csrc/mm_tc.cuh): every part
+    `precision.split` gives is exact in the mma's operand type (a bf16 or
+    fp16 part survives the round trip through torch.bfloat16 / float16, a
+    TF32 part has the 13 bits below its fraction zero), so a part product
+    is exact; and the parts sum back to x within the rounding of the last
+    part (half its quantum, or of the type's smallest quantum where it
+    underflows).  On random, subnormal and large float32 entries within the
+    type's finite range."""
+    bits, qmin, big = _FMT[mode.kind]
+    rng = np.random.default_rng(mode.code)
+    x = np.concatenate([
+        rng.normal(size=4000) * 10.0 ** rng.uniform(-3, 3, 4000),
+        rng.uniform(-1, 1, 1000) * 2.0 ** -126,            # f32 subnormal
+        rng.uniform(-1, 1, 1000) * 2.0 ** (qmin + bits),   # the type's
+        rng.uniform(0.5, 0.99, 1000) * big * rng.choice([-1, 1], 1000),
+        EDGES[np.isfinite(EDGES) & (np.abs(EDGES) <= big)]]).astype(
+            np.float32)
+    xt = torch.from_numpy(x)
+    parts = prec.split(xt, mode)
+    assert len(parts) == mode.parts
+    for p in parts:
+        assert p.dtype == torch.float32 and bool(torch.isfinite(p).all())
+        if mode.kind == "tf32":
+            assert not bool((p.view(torch.int32) & 0x1FFF).any())
+        else:
+            dt = torch.bfloat16 if mode.kind == "bf16" else torch.float16
+            assert torch.equal(p.to(dt).float(), p)
+    total = sum(p.double() for p in parts)
+    last = parts[-1].double().abs()
+    bound = torch.maximum(last * 2.0 ** -bits,
+                          torch.full_like(last, 2.0 ** (qmin - 1)))
+    assert bool(((xt.double() - total).abs() <= bound).all())
+
+
 @pytest.fixture(scope="module")
 def operands():
     rng = np.random.default_rng(11)

@@ -1,0 +1,252 @@
+#!/usr/bin/env python3
+"""Time K1, K1's Gram mode, K2 and K3 in every matmul mode on the card,
+split K2's time by phase, and time the library calls beside them.
+
+    python3 tools/mode_profile.py                   # this tree alone
+    python3 tools/mode_profile.py --parent _parent  # and another checkout's
+
+At chip_smoke.py's PREC_SHAPE (n 1024, m 512, B 64) and the bench QP's
+shape (256, 128, 16), on the operands of chip_smoke.py's precision phase
+(a shared Jc, w in 0.1 .. 10, H None; an SPD Q, its factor L and that
+factor's inverse Li), each kernel runs in IEEE and in each of
+`precision.CARD_MODES`.  With `--parent` both trees' wrappers run on the
+same operands, timed in turns (other, this, this, other: medians of
+CUDA-event times around each call); alone, this tree's median of REPS
+calls.
+
+K2's phase split comes from `ops/cholesky.py:chol_phases` (the library's
+clocked copy of `csrc/chol.cu`, built with -DONEPHASE_CHOL_CLOCKS): thread 0
+of every block stamps clock64() at each phase boundary, so a phase's share
+is its cycles over the block's total, averaged over the blocks: the
+diagonal tiles (chol_tile.cuh), the row solves, the panel's cross
+products, the trailing update, and the rest (the copy of Q, the writes of
+the diagonal block, the cluster barriers).  Each share times the kernel's
+own time (the uninstrumented launch) gives the phase's milliseconds.  A
+tree without the clocked entry point gets no split.
+
+The yardsticks, one PyTorch call each on the same operands: `baddbmm` in
+IEEE float32 and with cuBLAS's TF32 switch on, `baddbmm` on bf16 and fp16
+operands with a float32 result where the installed torch takes
+`out_dtype` (else null, with the reason), `linalg.cholesky_ex` and
+`cholesky_inverse`.
+
+Prints one line a kernel and shape, then one JSON object (also written to
+`--out`, when given).
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+SHAPES = ((1024, 512, 64), (256, 128, 16))
+REPS = 5
+
+
+def _load(root: Path, name: str):
+    """The package `root/onephase_tpu_torch`, imported as `name`."""
+    if name not in sys.modules:
+        pkg = root / "onephase_tpu_torch"
+        spec = importlib.util.spec_from_file_location(
+            name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return {m: importlib.import_module(f"{name}.ops.{m}")
+            for m in ("schur", "cholesky", "precision", "_build")}
+
+
+def _event_ms(fn) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _time(fns) -> list:
+    """Medians of REPS rounds over `fns` in turns (a, b, b, a for two)."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    order = list(range(len(fns)))
+    order = order + order[::-1]
+    ts = [[] for _ in fns]
+    for _ in range(REPS):
+        for i in order:
+            ts[i].append(_event_ms(fns[i]))
+    return [float(np.median(t)) for t in ts]
+
+
+def _spd(rng, B, n, dev):
+    A = torch.as_tensor(rng.normal(size=(B, n, n)), dtype=torch.float64,
+                        device=dev)
+    Q = A @ A.mT / n + torch.eye(n, dtype=torch.float64, device=dev)
+    return Q.float().contiguous()
+
+
+def _operands(n, m, B, dev, mods):
+    rng = np.random.default_rng(n + B)
+    Jc = torch.as_tensor(rng.normal(size=(m, n)) / np.sqrt(n),
+                         dtype=torch.float32, device=dev)
+    w = torch.as_tensor(rng.uniform(0.1, 10.0, size=(B, m)),
+                        dtype=torch.float32, device=dev)
+    bnd = torch.as_tensor(rng.uniform(0.0, 5.0, size=(B, n)),
+                          dtype=torch.float32, device=dev)
+    Q = _spd(rng, B, n, dev)
+    ch, prec = mods["cholesky"], mods["precision"]
+    L = ch.pallas_chol(Q, mode=prec.IEEE)[0]
+    Li = torch.empty_like(L)
+    ch.launch_tri_inv(L, Li)
+    return Jc, w, bnd, Q, L, Li
+
+
+def _kernels(mods, ops):
+    """{name: fn(mode)} of one tree's wrappers on the operands."""
+    Jc, w, bnd, Q, L, Li = ops
+    sc, ch = mods["schur"], mods["cholesky"]
+
+    def gram(md):
+        G = torch.empty_like(Li)
+        sc.launch_fused_q(Li, None, None, None, G, lower=True, mode=md)
+        return G
+
+    return {"fused_q": lambda md: sc.pallas_fused_q(Jc, w, None, bnd,
+                                                     mode=md),
+            "fused_q_lower": gram,
+            "chol": lambda md: ch.pallas_chol(Q, mode=md),
+            "tri_inv_gram": lambda md: ch.pallas_tri_inv_gram(L, mode=md)}
+
+
+def _modes(prec):
+    """This tree's IEEE and card modes, by name."""
+    return [prec.IEEE] + list(prec.CARD_MODES)
+
+
+def _phase_split(mods, Q, md) -> dict | None:
+    """K2's phase shares (ops/cholesky.py:chol_phases), or None for a tree
+    without the clocked entry point."""
+    fn = getattr(mods["cholesky"], "chol_phases", None)
+    return None if fn is None else fn(Q, md)
+
+
+def _yardsticks(ops, n, m, B) -> dict:
+    Jc, w, bnd, Q, L, _ = ops
+    Hb = torch.diag_embed(bnd)
+    A = (Jc.mT[None] * w[:, None, :]).contiguous()
+    Jb = Jc.expand(B, m, n).contiguous()
+    saved = torch.backends.cuda.matmul.allow_tf32
+    out = {}
+
+    def tf32():
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.baddbmm(Hb, A, Jb)
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+    out["baddbmm_ieee"], out["baddbmm_tf32"] = _time(
+        [lambda: torch.baddbmm(Hb, A, Jb), tf32])
+    for name, dt in (("bf16", torch.bfloat16), ("f16", torch.float16)):
+        a, b = A.to(dt), Jb.to(dt)
+        try:
+            torch.baddbmm(Hb, a, b, out_dtype=torch.float32)
+        except (TypeError, RuntimeError) as e:
+            out[f"baddbmm_{name}"] = None
+            out[f"baddbmm_{name}_reason"] = str(e).splitlines()[0][:160]
+            continue
+        out[f"baddbmm_{name}"] = _time(
+            [lambda: torch.baddbmm(Hb, a, b, out_dtype=torch.float32)])[0]
+    out["cholesky_ex"] = _time([lambda: torch.linalg.cholesky_ex(Q)])[0]
+    out["cholesky_inverse"] = _time([lambda: torch.cholesky_inverse(L)])[0]
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path,
+                    help="directory holding another checkout's "
+                         "onephase_tpu_torch/, timed in turns with this one")
+    ap.add_argument("--out", type=Path,
+                    help="also write the JSON report to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("mode_profile: no CUDA device; the kernels run only "
+                         "on the GPU")
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {card}", flush=True)
+    sys.path.insert(0, str(ROOT))
+    this = {m: importlib.import_module(f"onephase_tpu_torch.ops.{m}")
+            for m in ("schur", "cholesky", "precision", "_build")}
+    this["_build"].library()
+    other = None
+    if args.parent is not None:
+        other = _load(args.parent.resolve(), "parent_onephase_tpu_torch")
+        other["_build"].library()
+    report = {"card": card, "shapes": {}}
+    for n, m, B in SHAPES:
+        ops = _operands(n, m, B, dev, this)
+        key = f"{n}/{m}/{B}"
+        res = {"yardsticks": _yardsticks(ops, n, m, B)}
+        print(f"{key} yardsticks (ms): {json.dumps(res['yardsticks'])}",
+              flush=True)
+        mine = _kernels(this, ops)
+        theirs = _kernels(other, ops) if other else None
+        for kname, fn in mine.items():
+            row = {}
+            for md in _modes(this["precision"]):
+                if theirs:
+                    omd = other["precision"].Mode(md.kind, md.passes)
+                    t_other, t_this = _time([lambda: theirs[kname](omd),
+                                             lambda: fn(md)])
+                    row[str(md)] = {"ms": t_this, "parent_ms": t_other}
+                else:
+                    row[str(md)] = {"ms": _time([lambda: fn(md)])[0]}
+            res[kname] = row
+            print(f"{key} {kname} ms: " + "; ".join(
+                f"{k} {v['ms']:.4f}" + (f" (parent {v['parent_ms']:.4f})"
+                                        if "parent_ms" in v else "")
+                for k, v in row.items()), flush=True)
+        split = {}
+        for md in _modes(this["precision"]):
+            for tree, mods in (("this", this), ("parent", other)):
+                if mods is None:
+                    continue
+                omd = mods["precision"].Mode(md.kind, md.passes)
+                s = _phase_split(mods, ops[3], omd)
+                if s is None:
+                    continue
+                ms = res["chol"][str(md)]["ms" if tree == "this"
+                                          else "parent_ms"]
+                s["ms"] = {p: v * ms for p, v in s["share"].items()}
+                split.setdefault(tree, {})[str(md)] = s
+                print(f"{key} K2 phases {tree} {md}: " + ", ".join(
+                    f"{p} {v * 100:.1f}% {s['ms'][p]:.4f} ms"
+                    for p, v in s["share"].items())
+                    + f" (cluster {s['cluster']})", flush=True)
+        res["chol_phases"] = split
+        report["shapes"][key] = res
+        del ops
+        torch.cuda.empty_cache()
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(report, indent=1))
+    print(f"card: {card}", flush=True)
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
