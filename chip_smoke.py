@@ -714,9 +714,11 @@ CAMP_JAX_ANCHOR = {
 TOL ={"float32": 1e-4, "float64": 1e-10}   # max error / max |reference|
 REPS = 20
 # H100 SXM (NVIDIA's data sheet, dense, at 700 W): HBM3 bytes/s, and the
-# FLOP/s outside the tensor cores for each type
+# FLOP/s of each type: float32 outside the tensor cores, float64 on the
+# FP64 tensor cores, the rate cuBLAS's DGEMM reaches (the FP64 cores
+# alone give 34 TFLOP/s)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
 # the tensor cores' dense rates for a matmul mode's input type: a mode's
 # products are products of that type (K1's and K2's trailing update run
 # them on the tensor cores; K3's inverse, K5 and K7 on the FP32 cores)
@@ -921,6 +923,8 @@ def kernel_parity(dev):
                     record["fused_q"] = dict(
                         max_abs_err=ea, ms=ms, plain_ms=pms, library_ms=lms,
                         **_kv(bd1), **small["fused_q"])
+                if n == 1024 and dtype == torch.float64:
+                    record["fused_q"].update(_f64_keys(ms, pms, lms, bd1))
                 if n == 2048 and dtype == torch.float32:
                     record["fused_q"].update(
                         ms_n2048=ms, plain_ms_n2048=pms, library_ms_n2048=lms,
@@ -1013,6 +1017,9 @@ def kernel_parity(dev):
                         max_abs_err=e3a, ms=t3, plain_ms=p3, library_ms=l3,
                         **_kv(bd3), tri_inv_ms=ti3, gram_ms=tg3,
                         **small["tri_inv_gram"])
+                if n == 1024 and dtype == torch.float64:
+                    record["chol"].update(_f64_keys(t2, p2, l2, bd2))
+                    record["tri_inv_gram"].update(_f64_keys(t3, p3, l3, bd3))
             print(line, flush=True)
             if not (e2 <= tol and e3 <= tol and e4 <= tol):
                 raise RuntimeError(f"K2/K3/K4 disagree: {line}")
@@ -1156,6 +1163,10 @@ def fused_q_tri_parity(dev):
                     record = dict(
                         max_abs_err=ea, ms=ms, plain_ms=pms, library_ms=lms,
                         **_kv(_fused_q_bound(B, m, n, Jc.element_size())))
+                if n == 1024 and dtype == torch.float64:
+                    record.update(_f64_keys(
+                        ms, pms, lms,
+                        _fused_q_bound(B, m, n, Jc.element_size())))
             print(line, flush=True)
             if not (e <= tol and e1 <= tol and sym and tril_k1 and full_k1):
                 raise RuntimeError(f"K6 disagrees: {line}")
@@ -1165,6 +1176,13 @@ def fused_q_tri_parity(dev):
 
 def _kv(bound):
     return {"bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def _f64_keys(ms, plain_ms, library_ms, bound):
+    """A float32 record's float64 figures at the same shape (`*_f64`)."""
+    return {"ms_f64": ms, "plain_ms_f64": plain_ms,
+            "library_ms_f64": library_ms, "bound_ms_f64": bound[0],
+            "bound_by_f64": bound[1]}
 
 
 def _band(rng, B, K, nb, dtype, device):
@@ -1282,6 +1300,16 @@ def tridiag_parity(dev):
                         ms_banded=t5, plain_ms_banded=p5,
                         bound_ms_banded=bd5[0], device_ms_banded=d5,
                         dep_bound_ms_banded=dep5)
+                else:   # float64, no library call either
+                    key = "_f64" if nb == CHAIN_SHAPE["nx"] else \
+                        "_f64_banded"
+                    for name, t, pl, bd in (("tridiag_factor", t7, p7, bd7),
+                                            ("tridiag_solve", t5, p5, bd5)):
+                        record[name].update({
+                            f"ms{key}": t, f"plain_ms{key}": pl,
+                            f"library_ms{key}": None,
+                            f"bound_ms{key}": bd[0],
+                            f"bound_by{key}": bd[1]})
             print(line, flush=True)
             if not (e7 <= tol and e5 <= tol):
                 raise RuntimeError(f"K5/K7 disagree: {line}")
@@ -3529,7 +3557,7 @@ def main() -> int:
     for ln in _ptxas_report(_build.BUILD_LOG, (
             "fused_q_lower_kernel", "fused_q_wg_kernel", "fused_q_tc_kernel",
             "chol_kernel", "tri_inv_kernel", "tridiag_factor_kernel",
-            "tridiag_solve_kernel")):
+            "tridiag_factor_mode_kernel", "tridiag_solve_kernel")):
         print(f"  ptxas: {ln}", flush=True)
 
     record = kernel_parity(dev)

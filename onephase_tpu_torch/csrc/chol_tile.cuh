@@ -88,8 +88,15 @@ __device__ __forceinline__ void tile_owner(int (&own)[tile_entries<NB, NT>()],
 
 // One phase of chol_tile (see there) for column j, with j % 4 == CB: the
 // four column buffers and two row buffers are then fixed for the phase, so
-// every buffer access is a register offset plus a constant.
-template <typename T, int NB, int NT, bool INV, int CB, bool MODED>
+// every buffer access is a register offset plus a constant.  PASSES > 0
+// (MODED, INV: K7's moded tile): column j's scaled entries L[r, j] =
+// S[r, j] dinv and X's row j - 1 are split into their parts once, one
+// thread an entry, into part buffers after vec's six (column j's parts in
+// the buffer of j's parity, so column j - 1's stay for the inverse's step;
+// X's row in a third), with a barrier before the slots read them; each
+// slot's two products are then PASSES inline FMAs from +0 on those parts.
+template <typename T, int NB, int NT, bool INV, int CB, bool MODED,
+          int PASSES>
 __device__ __forceinline__ void tile_phase(
     int j, T* vec, T (&s)[tile_entries<NB, NT>()],
     T (&x)[tile_entries<NB, NT>()], const int (&rr)[tile_entries<NB, NT>()],
@@ -112,12 +119,30 @@ __device__ __forceinline__ void tile_phase(
   piv = __shfl_sync(0xffffffffu, piv, 0);
   dinv = __shfl_sync(0xffffffffu, dinv, 0);
   const T ljj = piv * dinv;   // L[j, j]
+  constexpr int PARTS = mode_parts(PASSES > 0 ? PASSES : 1);
+  [[maybe_unused]] T* pc = vec + 6 * NB + 2 + (CB & 1) * 3 * NB;
+  [[maybe_unused]] const T* pp = vec + 6 * NB + 2 + ((CB + 1) & 1) * 3 * NB;
+  [[maybe_unused]] T* px = vec + 12 * NB + 2;
+  if constexpr (PASSES > 0) {
+    static_assert(MODED && INV, "the split-once tile is K7's moded one");
+    T part[PARTS];
+    if (tid < NB) {
+      mm_split_n<PARTS>(cj[tid] * dinv, md.kind, part);
+#pragma unroll
+      for (int q = 0; q < PARTS; ++q) pc[q * NB + tid] = part[q];
+    } else if (tid < 2 * NB) {
+      mm_split_n<PARTS>(xp[tid - NB], md.kind, part);
+#pragma unroll
+      for (int q = 0; q < PARTS; ++q) px[q * NB + tid - NB] = part[q];
+    }
+    __syncthreads();
+  }
   // an unused slot has r = c = NB + 1, which matches no test below; a slot
   // whose rows are all finished is skipped
   T lr[ME], lc[ME], pr[ME], xq[ME];
 #pragma unroll
   for (int i = 0; i < ME; ++i) {
-    if (last[i] < j) continue;
+    if (PASSES > 0 || last[i] < j) continue;
     lr[i] = cj[rr[i]];
     lc[i] = cj[cc[i]];
     if (INV) {
@@ -130,9 +155,9 @@ __device__ __forceinline__ void tile_phase(
     if (last[i] < j) continue;
     const int r = rr[i], c = cc[i];
     T upd;
-    if constexpr (MODED && INV)   // the column update's product in the mode
-      upd = s[i] - mode_prod(lr[i] * dinv, lc[i] * dinv, md);
-    else if constexpr (MODED)     // (K2: inlined, one product a slot)
+    if constexpr (PASSES > 0)   // the column update's product in the mode
+      upd = s[i] - mm_prod_parts<PASSES>(pc + r, pc + c, NB);
+    else if constexpr (MODED)   // (K2: inlined, one product a slot)
       upd = s[i] - mode_fma(lr[i] * dinv, lc[i] * dinv, T(0), md);
     else
       upd = s[i] - (lr[i] * dinv) * (lc[i] * dinv);
@@ -140,8 +165,8 @@ __device__ __forceinline__ void tile_phase(
     s[i] = c == j ? scaled : (c > j ? upd : s[i]);
     if (INV) {
       T xupd;
-      if constexpr (MODED)   // the substitution's product in the mode
-        xupd = x[i] - mode_prod(pr[i] * dinv_prev, xq[i], md);
+      if constexpr (PASSES > 0)   // the substitution's product in the mode
+        xupd = x[i] - mm_prod_parts<PASSES>(pp + r, px + c, NB);
       else
         xupd = x[i] - (pr[i] * dinv_prev) * xq[i];
       x[i] = (r >= j && c < j) ? xupd : x[i];
@@ -166,17 +191,19 @@ __device__ __forceinline__ void tile_phase(
 // tile_ld<NB>(), NB a multiple of 4) in place: on return its lower
 // triangle holds L, with S = L L^T, and, if INV, the lower triangle of X
 // holds L^{-1}.  The upper triangles are not touched (X's must be zero on
-// entry for X to be L^{-1}).  `vec` is 6 NB + 2 elements of scratch.
-// Thread 0's `ok` is cleared on a bad pivot.  Every thread of the block
-// calls it; it starts and ends with a barrier.  MODED (float32): every
-// product of two entries, the trailing entries' L[r, j] L[c, j] and, with
-// INV, the inverse's L[r, q] X[q, c], is taken in the matmul mode `md`
-// (mm_mode.cuh): its part products summed from +0 in the mode's order, the
-// sum then subtracted, as the twins subtract a dot product (K2's diagonal
-// blocks, and K7's blocks with their inverses).  With INV both products
-// are calls (`mode_prod`): the two inlined into every slot of the unrolled
-// phases multiplied the build time; K2's one product a slot stays inline,
-// which the build takes and K2's moded time needs.
+// entry for X to be L^{-1}).  `vec` is 6 NB + 2 elements of scratch (15 NB
+// + 4 with PASSES > 0).  Thread 0's `ok` is cleared on a bad pivot.  Every
+// thread of the block calls it; it starts and ends with a barrier.  MODED
+// (float32): every product of two entries, the trailing entries' L[r, j]
+// L[c, j] and, with INV, the inverse's L[r, q] X[q, c], is taken in the
+// matmul mode `md` (mm_mode.cuh): its part products summed from +0 in the
+// mode's order, the sum then subtracted, as the twins subtract a dot
+// product (K2's diagonal blocks, and K7's blocks with their inverses).
+// K2's (INV false) splits both operands in each slot (mode_fma, inline);
+// K7's (INV, PASSES the mode's pass count, md.kind its kind) splits each
+// operand once a phase (tile_phase), so a slot's products depend on the
+// pass count alone.  Each product is one product of two entries, so both
+// give the values of a split in every slot.
 //
 // The arithmetic is that of the unblocked column loops it replaces, value
 // for value: column j is scaled by dinv_j = 1/sqrt(pivot) and the trailing
@@ -190,12 +217,15 @@ __device__ __forceinline__ void tile_phase(
 // what it needs from the buffers, then computes (branch-free: every entry
 // computes its candidates and selects), then publishes, so stores to the
 // buffers never wait on loads from them.
-template <typename T, int NB, int NT, bool INV, bool MODED = false>
+template <typename T, int NB, int NT, bool INV, bool MODED = false,
+          int PASSES = 0>
 __device__ void chol_tile(T* S, T* X, T* vec,
                           const int (&own)[tile_entries<NB, NT>()], int tid,
                           int& ok, MmMode md = MmMode{0, 1}) {
   static_assert(NB % 4 == 0, "the phases run in groups of four");
   static_assert(!MODED || sizeof(T) == 4, "modes: float32 only");
+  static_assert((PASSES > 0) == (MODED && INV),
+                "K7's moded tile splits once; K2's and the IEEE tiles do not");
   constexpr int LD = tile_ld<NB>();
   constexpr int ME = tile_entries<NB, NT>();
   T s[ME], x[ME];
@@ -219,14 +249,14 @@ __device__ void chol_tile(T* S, T* X, T* vec,
   T dinv_prev = T(0);
 #pragma unroll 1
   for (int j = 0; j < NB; j += 4) {
-    tile_phase<T, NB, NT, INV, 0, MODED>(j, vec, s, x, rr, cc, last,
-                                         dinv_prev, tid, ok, md);
-    tile_phase<T, NB, NT, INV, 1, MODED>(j + 1, vec, s, x, rr, cc, last,
-                                         dinv_prev, tid, ok, md);
-    tile_phase<T, NB, NT, INV, 2, MODED>(j + 2, vec, s, x, rr, cc, last,
-                                         dinv_prev, tid, ok, md);
-    tile_phase<T, NB, NT, INV, 3, MODED>(j + 3, vec, s, x, rr, cc, last,
-                                         dinv_prev, tid, ok, md);
+    tile_phase<T, NB, NT, INV, 0, MODED, PASSES>(j, vec, s, x, rr, cc, last,
+                                                 dinv_prev, tid, ok, md);
+    tile_phase<T, NB, NT, INV, 1, MODED, PASSES>(
+        j + 1, vec, s, x, rr, cc, last, dinv_prev, tid, ok, md);
+    tile_phase<T, NB, NT, INV, 2, MODED, PASSES>(
+        j + 2, vec, s, x, rr, cc, last, dinv_prev, tid, ok, md);
+    tile_phase<T, NB, NT, INV, 3, MODED, PASSES>(
+        j + 3, vec, s, x, rr, cc, last, dinv_prev, tid, ok, md);
   }
 #pragma unroll
   for (int i = 0; i < ME; ++i) {
@@ -235,6 +265,21 @@ __device__ void chol_tile(T* S, T* X, T* vec,
     if (INV) X[rr[i] * LD + cc[i]] = x[i];
   }
   __syncthreads();
+}
+
+// K7's moded tile (chol_tile with INV, MODED and the split once) for the
+// mode of pass count PASSES and kind `kind`: one call a stage, not inlined,
+// so the tile is built once a pass count and block edge (4 variants an
+// NB), not once a mode.  `ok`: thread 0's flag, cleared on a bad pivot.
+template <int NB, int NT, int PASSES>
+__device__ __noinline__ void chol_tile_split(float* S, float* X, float* vec,
+                                             int tid, int* ok, int kind) {
+  int own[tile_entries<NB, NT>()];
+  tile_owner<NB, NT>(own, tid);
+  int okl = *ok;
+  chol_tile<float, NB, NT, true, true, PASSES>(S, X, vec, own, tid, okl,
+                                               MmMode{kind, PASSES});
+  *ok = okl;
 }
 
 }  // namespace onephase

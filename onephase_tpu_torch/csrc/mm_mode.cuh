@@ -1,10 +1,10 @@
 // The float32 product arithmetic of a `matmul_precision` mode on the FP32
-// cores, shared by the moded variants of K3's inverse (tri_inv.cu), K5 and
-// K7 (tridiag.cu) and the tile Cholesky of K2's and K7's diagonal blocks
-// (chol_tile.cuh); K1's products and K2's trailing update run on the
-// tensor cores (mm_tc.cuh), K2's panel on its own split-once routines
-// (chol.cu).  The definition, and the plain twins that compute the same
-// values, are in onephase_tpu_torch/ops/precision.py:
+// cores, shared by the moded variants of K3's inverse (tri_inv.cu), K5's
+// chains (tridiag.cuh) and the tile Cholesky of K2's and K7's diagonal
+// blocks (chol_tile.cuh); K1's products, K2's trailing update and K7's
+// block products run on the tensor cores (mm_tc.cuh), K2's panel on its
+// own split-once routines (chol.cu).  The definition, and the plain twins
+// that compute the same values, are in onephase_tpu_torch/ops/precision.py:
 //
 // - every product of two matrix entries is a product of operands rounded
 //   to the mode's input type: TF32 (round to nearest, ties away from zero:
@@ -22,10 +22,12 @@
 // would up to the order of its sums.  The kernels that use these routines
 // pay the split modes' 3, 6 or 9 FMAs a product on the FP32 cores.
 //
-// The mode is a runtime value, read once outside the inner loops; a kernel
-// has one moded instantiation beside its IEEE ones, whose arithmetic does
-// not change.  The mode's code (ops/precision.py Mode.code): 16 * kind +
-// passes, kind 1 = tf32, 2 = bf16, 3 = f16; 0 is IEEE.
+// The mode is a runtime value (MmMode) for K2's tile and K3's inverse, read
+// once outside the inner loops; K5, K7 and K2's trailing update have one
+// instantiation a mode, the kind and the pass set template parameters.
+// The IEEE instantiations' arithmetic does not change.  The mode's code
+// (ops/precision.py Mode.code): 16 * kind + passes, kind 1 = tf32, 2 =
+// bf16, 3 = f16; 0 is IEEE.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -51,6 +53,22 @@ inline bool mm_mode_valid(int code) {
   return m.passes == 1 || m.passes == 3 || m.passes == 6 || m.passes == 9;
 }
 
+// the part pairs (i, j), smallest first
+// (2, 2), (2, 1), (1, 2), (2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0);
+// a pass set of P products takes the last P
+__host__ __device__ constexpr int pair_i(int q) {
+  return (q == 0 || q == 1 || q == 3) ? 2 : (q == 2 || q == 4 || q == 6) ? 1
+                                                                         : 0;
+}
+__host__ __device__ constexpr int pair_j(int q) {
+  return (q == 0 || q == 2 || q == 5) ? 2 : (q == 1 || q == 4 || q == 7) ? 1
+                                                                         : 0;
+}
+// parts of an operand in a pass set of `passes` products
+__host__ __device__ constexpr int mode_parts(int passes) {
+  return passes == 1 ? 1 : passes == 3 ? 2 : 3;
+}
+
 __device__ __forceinline__ float mm_round(float x, int kind) {
   if (kind == 1) {
     unsigned u;
@@ -74,6 +92,31 @@ __device__ __forceinline__ void mm_split(float x, MmMode m, float (&p)[3]) {
     p[1] = mm_round(r, m.kind);
     if (m.passes >= 6) p[2] = mm_round(r - p[1], m.kind);
   }
+}
+
+// The PARTS parts of x in kind's input type, as mm_split gives them (a
+// constant `kind` folds the rounding's branches).
+template <int PARTS>
+__device__ __forceinline__ void mm_split_n(float x, int kind,
+                                           float (&p)[PARTS]) {
+  float rest = x;
+#pragma unroll
+  for (int q = 0; q < PARTS; ++q) {
+    p[q] = mm_round(rest, kind);
+    rest = rest - p[q];
+  }
+}
+
+// sum over the last PASSES part pairs of a's part i times b's part j, from
+// +0, smallest first; part q of a at a[q * stride], of b at b[q * stride]
+template <int PASSES>
+__device__ __forceinline__ float mm_prod_parts(const float* a,
+                                               const float* b, int stride) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int q = 9 - PASSES; q < 9; ++q)
+    acc = fmaf(a[pair_i(q) * stride], b[pair_j(q) * stride], acc);
+  return acc;
 }
 
 // acc + a b over the mode's part products, smallest first, a and b split.
@@ -104,14 +147,6 @@ __device__ __forceinline__ float mode_fma(float a, float b, float acc,
   mm_split(a, m, pa);
   mm_split(b, m, pb);
   return mm_fma_parts(pa, pb, acc, m.passes);
-}
-
-// a b in mode m, its part products summed from +0: the product that K7's
-// tile Cholesky and inverse (chol_tile.cuh) subtract.  Not inlined: their
-// phases are unrolled over a thread's entries, and two inlined splits with
-// their branches on the mode at every entry multiply the build time.
-static __device__ __noinline__ float mode_prod(float a, float b, MmMode m) {
-  return mode_fma(a, b, 0.0f, m);
 }
 
 }  // namespace onephase

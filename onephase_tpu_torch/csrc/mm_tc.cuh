@@ -1,5 +1,6 @@
 // The tensor-core arithmetic of a `matmul_precision` mode, shared by the
-// moded variants of K1 (fused_q.cu) and of K2's trailing update (chol.cu).
+// moded variants of K1 (fused_q.cu), K2's trailing update (chol.cu) and
+// K7's block products (tridiag_factor_mode.cu).
 // The mode's definition (mm_mode.cuh, ops/precision.py): every product of
 // two entries takes operands rounded to the mode's input type, a split
 // mode expands each operand into parts hi, mid, lo and takes the part
@@ -13,7 +14,7 @@
 // accumulator a part pair, started at +0.  The
 // pairs are summed in float32 afterwards, smallest first in the order of
 // ops/precision.py Mode.pairs: a pass set of P products takes the last P
-// pairs of pair_i / pair_j.  A part is exact in the operand type, so a part
+// pairs of pair_i / pair_j (mm_mode.cuh).  A part is exact in the operand type, so a part
 // product is exact; only the order of the sums (and a tensor core's
 // internal additions, which need not round as a float32 add) differs from
 // the twins, and an entry that is one product is that exact product.
@@ -27,21 +28,6 @@
 #include "mm_mode.cuh"
 
 namespace onephase {
-
-// the part pairs (i, j), smallest first
-// (2, 2), (2, 1), (1, 2), (2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)
-__host__ __device__ constexpr int pair_i(int q) {
-  return (q == 0 || q == 1 || q == 3) ? 2 : (q == 2 || q == 4 || q == 6) ? 1
-                                                                         : 0;
-}
-__host__ __device__ constexpr int pair_j(int q) {
-  return (q == 0 || q == 2 || q == 5) ? 2 : (q == 1 || q == 4 || q == 7) ? 1
-                                                                         : 0;
-}
-// parts of an operand in a pass set of `passes` products
-__host__ __device__ constexpr int mode_parts(int passes) {
-  return passes == 1 ? 1 : passes == 3 ? 2 : 3;
-}
 
 // The mma of one kind: KIND 1 = TF32 (k 8), 2 = bf16, 3 = fp16 (k 16).
 // S is the plane's element type; an A fragment is 4 32-bit registers, a B

@@ -9,11 +9,15 @@ carries a hash of the sources, so an edited source triggers a rebuild.
 Processes that find no library at once (ranks of one job) build it once,
 in turn (`_build`).
 
-`clock_library` is a second, measurement-only library: `csrc/chol.cu`
-compiled with -DONEPHASE_CHOL_CLOCKS, whose one entry point,
-`op_chol_clocks_f32`, is K2 with clock64() stamps at its phase boundaries
-(`ops/cholesky.py:chol_phases`; no solver path calls it).  It is built
-apart, at its first use, so that it does not slow the kernels' build.
+`clock_library` builds the measurement-only libraries: "chol",
+`csrc/chol.cu` compiled with -DONEPHASE_CHOL_CLOCKS, whose one entry
+point, `op_chol_clocks_f32`, is K2 with clock64() stamps at its phase
+boundaries (`ops/cholesky.py:chol_phases`), and "tridiag", the sources of
+K7 and K5 compiled with -DONEPHASE_TRIDIAG_CLOCKS, whose entry points
+`op_tridiag_factor_clocks_f32` and `op_tridiag_solve_clocks_f32` stamp
+theirs (`ops/tridiag_pallas.py:tridiag_phases`).  No solver path calls
+them.  Each is built apart, at its first use, so that it does not slow
+the kernels' build.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIB = None
-_CLOCK_LIB = None
+_CLOCK_LIBS = {}
 _CLOCK_LOCK = threading.Lock()
 # wall seconds of the build step in this process (0-ish when the library
 # for these sources already existed) and the compiler's report (-Xptxas -v:
@@ -63,9 +67,21 @@ _SIGNATURES = {
     # Ci, Ek, b, x, B, K, nb, mode, stream
     "op_tridiag_solve": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
-# the clocked K2 (clock_library): Q, L, d, ok, B, n, mode, clk (int64
-# (B * 8, 8)), stream
-_CLOCK_SIGNATURE = [_P, _P, _P, _P, _I, _I, _I, _P, _P]
+# the clocked libraries (clock_library): name -> (sources, flag, {entry
+# point: argtypes}); each entry point is its kernel's with the clock buffer
+# (int64) before the stream
+_CLOCKED = {
+    # K2: Q, L, d, ok, B, n, mode, clk (B * 8, 8), stream
+    "chol": (("chol.cu",), "-DONEPHASE_CHOL_CLOCKS",
+             {"op_chol_clocks_f32": [_P, _P, _P, _P, _I, _I, _I, _P, _P]}),
+    # K7 and K5 (clk (B, 8)), their arguments as op_tridiag_*
+    "tridiag": (("tridiag.cu", "tridiag_factor_mode.cu",
+                 "tridiag_solve_mode.cu"), "-DONEPHASE_TRIDIAG_CLOCKS",
+                {"op_tridiag_factor_clocks_f32":
+                     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+                 "op_tridiag_solve_clocks_f32":
+                     [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P]}),
+}
 
 
 def _nvcc() -> str:
@@ -167,23 +183,26 @@ def library():
     return lib
 
 
-def clock_library():
-    """The measurement library (see the module docstring), built first if
-    needed; safe to call from several threads (chip_smoke.py builds it in
-    one while the card works)."""
-    global _CLOCK_LIB
+def clock_library(name: str = "chol"):
+    """The measurement library `name` ("chol" or "tridiag"; see the module
+    docstring), built first if needed; safe to call from several threads
+    (chip_smoke.py builds the "chol" one in a thread while the card
+    works)."""
+    files, flag, entries = _CLOCKED[name]
     with _CLOCK_LOCK:
-        if _CLOCK_LIB is None:
-            src = CSRC / "chol.cu"
-            tag = _source_hash([src, *sorted(CSRC.glob("*.cuh"))])
-            so = BUILD_DIR / f"libonephase_chol_clocks_{tag}.so"
+        if name not in _CLOCK_LIBS:
+            srcs = [CSRC / f for f in files]
+            tag = _source_hash([*srcs, *sorted(CSRC.glob("*.cuh"))])
+            so = BUILD_DIR / f"libonephase_{name}_clocks_{tag}.so"
             if not so.exists():
-                _build(so, [src], _nvcc(), flags=["-DONEPHASE_CHOL_CLOCKS"])
+                _build(so, srcs, _nvcc(), flags=[flag])
             lib = ctypes.CDLL(str(so))
-            lib.op_chol_clocks_f32.argtypes = _CLOCK_SIGNATURE
-            lib.op_chol_clocks_f32.restype = ctypes.c_int
-            _CLOCK_LIB = lib
-    return _CLOCK_LIB
+            for entry_name, argtypes in entries.items():
+                fn = getattr(lib, entry_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _CLOCK_LIBS[name] = lib
+    return _CLOCK_LIBS[name]
 
 
 def entry(name: str, dtype):

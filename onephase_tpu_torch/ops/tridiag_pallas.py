@@ -27,10 +27,14 @@ nb <= 32); the wrappers raise on larger blocks.
 Matmul modes (`Params.matmul_precision`, ops/precision.py): the JAX
 kernels' dots take no `precision`, so the knob reaches them.  The wrappers
 take `mode=` (default: the solve's scope) and launch the kernels' moded
-variants for a non-IEEE float32 mode, every product of two matrix entries
-in the mode: E E^T, the block Cholesky and inverse, and B_k Ci_k^T in K7,
-both matvec chains in K5.  Their twins in a mode (a non-IEEE Mode given to
-`xla_tridiag_factor_inv` or `xla_tridiag_solve_inv`) run the same
+instantiations for a non-IEEE float32 mode (one a card mode, chosen by
+the mode's code in csrc/tridiag_factor_mode.cu and
+csrc/tridiag_solve_mode.cu), every product of two matrix entries in the
+mode: E E^T and B_k Ci_k^T on the tensor cores and the block Cholesky and
+inverse in K7, both matvec chains in K5; a code without an instantiation
+is refused at launch (RuntimeError), never run as IEEE.  Their twins in a
+mode (a non-IEEE Mode given to `xla_tridiag_factor_inv` or
+`xla_tridiag_solve_inv`) run the same
 recursions from K2's and K3's moded twins (`cholesky.blocked_chol`,
 `cholesky._moded_tri_inv`) and `precision.matmul`, with E_k taken as the
 product B_k Ci_k^T, as the JAX kernel takes it; `moded_factor_stage` is
@@ -204,3 +208,66 @@ def pallas_tridiag_solve(Ci, Ek, b, mode=None):
         _build.check(err, "tridiag_solve")
         count_launch("tridiag_solve", mode)
     return x
+
+
+# K7's and K5's phases, as the clocked copy of their sources stamps them
+# (csrc/tridiag.cu TdPhase: the same six slots, named per kernel)
+TRIDIAG_PHASES = {
+    "factor": ("other", "wait", "eet", "tile", "bci", "store"),
+    "solve": ("other", "wait", "chain1", "sync", "chain2", "handoff")}
+
+
+def _clock_split(clk, names):
+    """{"share": {phase: cycles over the block's total, mean over the
+    blocks}, "cycles": mean cycles a block} from the clock rows."""
+    rows = clk[:, :len(names) + 1].double().cpu()
+    rows = rows[rows[:, len(names)] > 0]
+    total = rows[:, len(names)]
+    share = (rows[:, :len(names)] / total[:, None]).mean(0)
+    return {"share": dict(zip(names, share.tolist())),
+            "cycles": float(total.mean())}
+
+
+def tridiag_phases(Ad, Bs, delta, b, mode=None):
+    """Where K7's and K5's time goes on a float32 CUDA band in matmul mode
+    `mode`: one launch each of the clocked copies (`_build.clock_library(
+    "tridiag")`, whose thread 0 of every block reads clock64() at each
+    phase boundary), K5 on the clocked K7's own Ci and Ek with right-hand
+    side b (B, K, nb).  Returns {"factor": split, "solve": split}, each
+    {"share": {phase: cycles over the block's total, mean over the blocks},
+    "cycles": mean cycles a block}; the phases are TRIDIAG_PHASES': K7's
+    cp.async waits, E E^T, the tile Cholesky and inverse, B_k Ci_k^T and
+    the stores; K5's ring waits, its first chain (E v), the consumers'
+    middle sync, its second chain (Ci r) and the stage's handoff.  A
+    measurement: the solver never calls it."""
+    _check_band("tridiag_phases", Ad, Bs)
+    if Ad.device.type != "cuda" or Ad.dtype != torch.float32:
+        raise ValueError("tridiag_phases: a float32 CUDA band")
+    if tuple(b.shape) != tuple(Ad.shape[:3]) or b.dtype != Ad.dtype or \
+            b.device != Ad.device or not b.is_contiguous():
+        raise ValueError(f"tridiag_phases: b has shape {tuple(b.shape)}, "
+                         f"expected a contiguous {tuple(Ad.shape[:3])}")
+    code = precision.kernel_mode(Ad, mode).code
+    B, K, nb, _ = Ad.shape
+    lib = _build.clock_library("tridiag")
+    dvec = torch.as_tensor(delta, dtype=Ad.dtype, device=Ad.device)
+    dvec = dvec.expand(B).contiguous()
+    Ck, Ci, Ek = torch.empty_like(Ad), torch.empty_like(Ad), \
+        torch.empty_like(Bs)
+    ok = torch.ones(B, dtype=torch.int32, device=Ad.device)
+    x = torch.empty_like(b)
+    out = {}
+    for kernel, launch in (
+            ("factor", lambda clk: lib.op_tridiag_factor_clocks_f32(
+                Ad.data_ptr(), Bs.data_ptr(), dvec.data_ptr(),
+                Ck.data_ptr(), Ci.data_ptr(), Ek.data_ptr(), ok.data_ptr(),
+                B, K, nb, code, clk.data_ptr(), _build.stream_ptr(Ad))),
+            ("solve", lambda clk: lib.op_tridiag_solve_clocks_f32(
+                Ci.data_ptr(), Ek.data_ptr(), b.data_ptr(), x.data_ptr(),
+                B, K, nb, code, clk.data_ptr(), _build.stream_ptr(Ad)))):
+        clk = torch.zeros(B, 8, dtype=torch.int64, device=Ad.device)
+        with torch.cuda.device(Ad.device):
+            err = launch(clk)
+        _build.check(err, f"tridiag_{kernel}_clocks")
+        out[kernel] = _clock_split(clk, TRIDIAG_PHASES[kernel])
+    return out

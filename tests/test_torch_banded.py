@@ -79,19 +79,21 @@ class _Interpret:
 @pytest.fixture(scope="module")
 def jax_runs():
     """Per (lane, matrix_free): the JAX kernel, its initial state (numpy
-    leaves) and its solve, computed once."""
-    runs = {}
+    leaves) and, unless `solve` is False, its solve; each computed once."""
+    runs, pars = {}, {}
 
-    def get(lane, matrix_free):
+    def get(lane, matrix_free, solve=True):
         key = (lane, matrix_free)
         if key not in runs:
             with _Interpret(lane):
-                pars = JParams().with_overrides(_opts(lane))
-                jk = JBanded(jcanon(jchain(**SHAPE).to_nlpspec()), pars,
+                pars[key] = JParams().with_overrides(_opts(lane))
+                jk = JBanded(jcanon(jchain(**SHAPE).to_nlpspec()), pars[key],
                              matrix_free=matrix_free)
                 st0 = jax.tree_util.tree_map(np.asarray, jk.initial_state())
-                res = jsolve(None, pars, kernel=jk)
-            runs[key] = (jk, st0, res)
+            runs[key] = [jk, st0, None]
+        if solve and runs[key][2] is None:
+            with _Interpret(lane):
+                runs[key][2] = jsolve(None, pars[key], kernel=runs[key][0])
         return runs[key]
 
     return get
@@ -119,7 +121,7 @@ def _first_direction(k, st, delta, scalar):
 def test_routes_and_layout_match_jax(jax_runs):
     """Both packages order with the C++ RCM here and find the same
     permutation, bandwidth and block layout."""
-    jk, _, _ = jax_runs("xla", False)
+    jk, _, _ = jax_runs("xla", False, solve=False)
     tk = _tkernel("xla")
     assert tnative.route() == "native" and jnative.get_lib() is not None
     np.testing.assert_array_equal(tk.perm, jk.perm)
@@ -130,7 +132,7 @@ def test_routes_and_layout_match_jax(jax_runs):
 
 
 def test_initial_state_matches_jax(lane, matrix_free, jax_runs):
-    _, jst, _ = jax_runs(lane, matrix_free)
+    _, jst, _ = jax_runs(lane, matrix_free, solve=False)
     tst = state_to_numpy(_tkernel(lane, matrix_free).initial_state())
     _compare(tst, jst, 1e-10)
 
@@ -139,7 +141,7 @@ def test_first_direction_matches_jax_and_dense(lane, matrix_free, jax_runs):
     """tests/test_banded.py::test_banded_direction_matches_dense through
     both packages: schur_diag, the band blocks and the direction against
     the JAX BandedKernel, and against the port's own dense kernel."""
-    jk, jst, _ = jax_runs(lane, matrix_free)
+    jk, jst, _ = jax_runs(lane, matrix_free, solve=False)
     tk = _tkernel(lane, matrix_free)
     st = tk.initial_state()
     with _Interpret(lane):

@@ -50,21 +50,27 @@ def _tkernel(lane, shape=SHAPE, **extra):
 
 @pytest.fixture(scope="module")
 def jax_runs():
-    """Per lane: the JAX kernel, its initial state and its solve (numpy
-    leaves), computed once with the Pallas solve in interpret mode."""
-    runs = {}
+    """Per lane: the JAX kernel, its initial state (numpy leaves) and,
+    unless `solve` is False, its solve; each computed once, with the
+    Pallas solve in interpret mode."""
+    runs, pars = {}, {}
 
-    def get(lane):
+    def get(lane, solve=True):
         if lane not in runs:
             jops.INTERPRET = lane == "pallas"
             try:
-                pars = JParams().with_overrides(_opts(lane))
-                jk = JChain(jchain(**SHAPE), pars)
+                pars[lane] = JParams().with_overrides(_opts(lane))
+                jk = JChain(jchain(**SHAPE), pars[lane])
                 st0 = jax.tree_util.tree_map(np.asarray, jk.initial_state())
-                res = jsolve(None, pars, kernel=jk)
             finally:
                 jops.INTERPRET = False
-            runs[lane] = (jk, st0, res)
+            runs[lane] = [jk, st0, None]
+        if solve and runs[lane][2] is None:
+            jops.INTERPRET = lane == "pallas"
+            try:
+                runs[lane][2] = jsolve(None, pars[lane], kernel=runs[lane][0])
+            finally:
+                jops.INTERPRET = False
         return runs[lane]
 
     return get
@@ -76,13 +82,13 @@ def lane(request):
 
 
 def test_initial_state_matches_jax(lane, jax_runs):
-    _, jst, _ = jax_runs(lane)
+    _, jst, _ = jax_runs(lane, solve=False)
     tst = state_to_numpy(_tkernel(lane).initial_state())
     _compare(tst, jst, 1e-10)
 
 
 def test_first_direction_matches_jax(lane, jax_runs):
-    jk, jst, _ = jax_runs(lane)
+    jk, jst, _ = jax_runs(lane, solve=False)
     tk = _tkernel(lane)
     st = tk.initial_state()
     delta = 1e-8

@@ -91,31 +91,39 @@ def _mu_traces(st):
 
 @pytest.fixture(scope="module")
 def batch_runs():
-    """Both packages' batches of B instances (own A, c, t each) on the
-    pallas lane (the JAX package's under vmap: its XLA twins, R2)."""
+    """Per kind, both packages' batches of B instances (own A, c, t each)
+    on the pallas lane (the JAX package's under vmap: its XLA twins, R2),
+    computed once, when a test first asks for the kind."""
     out = {}
+
+    def get(kind):
+        if kind not in out:
+            out[kind] = _batch_run(kind)
+        return out[kind]
+
+    return get
+
+
+def _batch_run(kind):
+    """(JAX solver, its state, port solver, its state) of `kind`."""
     pd, x0 = _data()
-    for kind in ("linear_jac", "nonlinear"):
-        jspec, tspec = _spec_pair(kind)
-        opts = dict(OPTS, **{"kkt.linear_solver_type": "pallas"})
-        jops.INTERPRET = True
-        try:
-            js = JBatch(jnlp.canonicalize(jspec, dtype=jnp.float64),
-                        JParams().with_overrides(opts))
-            jst = js.solve(x0, pdata={k: jnp.asarray(v)
-                                      for k, v in pd.items()})
-        finally:
-            jops.INTERPRET = False
-        ts = TBatch(tnlp.canonicalize(tspec, device="cpu"),
-                    TParams().with_overrides(opts))
-        tst = ts.solve(x0, pdata=pd)
-        out[kind] = (js, jst, ts, tst)
-    return out
+    jspec, tspec = _spec_pair(kind)
+    opts = dict(OPTS, **{"kkt.linear_solver_type": "pallas"})
+    jops.INTERPRET = True
+    try:
+        js = JBatch(jnlp.canonicalize(jspec, dtype=jnp.float64),
+                    JParams().with_overrides(opts))
+        jst = js.solve(x0, pdata={k: jnp.asarray(v) for k, v in pd.items()})
+    finally:
+        jops.INTERPRET = False
+    ts = TBatch(tnlp.canonicalize(tspec, device="cpu"),
+                TParams().with_overrides(opts))
+    return js, jst, ts, ts.solve(x0, pdata=pd)
 
 
 @pytest.mark.parametrize("kind", ["linear_jac", "nonlinear"])
 def test_batch_matches_jax(kind, batch_runs):
-    js, jst, ts, tst = batch_runs[kind]
+    js, jst, ts, tst = batch_runs(kind)
     assert ts.statuses(tst) == js.statuses(jst)
     assert "Optimal" in js.statuses(jst)
     np.testing.assert_array_equal(tst.t.numpy(), np.asarray(jst.t))
@@ -131,7 +139,7 @@ def test_batch_matches_jax(kind, batch_runs):
 def test_batch_instances_equal_their_single_solves(batch_runs):
     """Each instance of the parametric batch equals a batch of one with
     that instance's data."""
-    _, _, ts, tst = batch_runs["nonlinear"]
+    _, _, ts, tst = batch_runs("nonlinear")
     pd, x0 = _data()
     for b in range(B):
         s1 = ts.solve(x0[b:b + 1], pdata={k: v[b:b + 1] for k, v in pd.items()})
@@ -146,7 +154,7 @@ def test_param_const_jac_branch(batch_runs):
     into the kernel but evaluated once per solve and carried per instance
     in Factor.Jc, (B, m, n), equal to each instance's A (the user oracle's
     matrix) and to the JAX package's carried Jc; H likewise."""
-    js, jst, ts, tst = batch_runs["linear_jac"]
+    js, jst, ts, tst = batch_runs("linear_jac")
     k = ts.kernel
     assert k._param_const_jac and k._param_const_hess
     assert k._Jc_const is None and k._H_const is None
@@ -159,7 +167,7 @@ def test_param_const_jac_branch(batch_runs):
     np.testing.assert_array_equal(tst.fact.H.numpy(),
                                   np.broadcast_to(np.eye(N), (B, N, N)))
     # the nonlinear problem declares nothing: no carried constant
-    kn = batch_runs["nonlinear"][2].kernel
+    kn = batch_runs("nonlinear")[2].kernel
     assert not (kn._param_const_jac or kn._param_const_hess)
 
 

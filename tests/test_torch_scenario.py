@@ -18,6 +18,8 @@ iterations and factorizations, x to 1e-8 and the per-iteration mu trace to
 package itself (ROADMAP R5) and is held step by step instead.
 """
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -64,7 +66,10 @@ def _tkernel(prob, lane, **extra):
     return TScen(_tspec(prob), pars, device=CPU)
 
 
+@functools.lru_cache(maxsize=None)
 def _jkernel(prob, **extra):
+    """The JAX ScenarioKernel of `prob` (one a process and set of options:
+    its compiled chunks are shared by the tests that step it)."""
     build, _, kw = PROBLEMS[prob]
     return JScen(build(**kw), JParams().with_overrides(
         dict(OPTS, **{"kkt.linear_solver_type": "xla"}, **extra)))

@@ -17,6 +17,8 @@ earlier values bit for bit.  On a machine with a CUDA card:
     python3 tools/kernel_equal.py --parent _parent --kernel fused_q_tri    # K6
     python3 tools/kernel_equal.py --parent _parent --kernel tridiag_solve  # K5
     python3 tools/kernel_equal.py --parent _parent --kernel tridiag_factor # K7
+    python3 tools/kernel_equal.py --parent _parent --kernel chol_modes
+    python3 tools/kernel_equal.py --parent _parent --kernel tridiag_factor_k1
 
 The other checkout's `onephase_tpu_torch` is imported under another name
 (its kernels build into its own `build/`).
@@ -58,6 +60,18 @@ instance delta: f32 and f64 at K5's (B, K, nb) cases, and a band with one
 non-PD block; `torch.equal` on Ck, Ci, Ek and ok (a failed instance's
 blocks are garbage and count only through ok).  Timed in turns, with
 device times, at the chain's and the banded path's shapes.
+
+`--kernel chol_modes`: both packages' `pallas_chol` in every card matmul
+mode (`precision.CARD_MODES`) on chip_smoke.py's precision-phase Q (the
+SPD Q of `_prec_kernels` at PREC_SHAPE, n 1024, B 64, and at the bench
+QP's 256/16) and on smaller edges (n 1, 33, 65, 130); `torch.equal` on L,
+d and ok.  For a change to the tile Cholesky that K2's moded panel shares
+(csrc/chol_tile.cuh).  No timings.
+
+`--kernel tridiag_factor_k1`: both packages' `pallas_tridiag_factor` at
+K = 1 (no block product: the tile Cholesky and inverse alone) in every
+card mode, B = 3, nb in {1, 5, 30, 32, 33, 63, 64}; `torch.equal` on Ck,
+Ci and ok.  No timings.
 
 Each case prints whether its check holds and how many entries differ.
 Then both are timed in turns (other, this, this, other; medians of
@@ -538,6 +552,67 @@ def check_tridiag_factor(parent: Path, dev):
     return results, timings, differing
 
 
+def _card_modes(old_prec):
+    """(this tree's Mode, the other tree's) for every card mode."""
+    from onephase_tpu_torch.ops import precision
+    return [(m, old_prec.Mode(m.kind, m.passes))
+            for m in precision.CARD_MODES]
+
+
+def check_chol_modes(parent: Path, dev):
+    """K2 of both trees in every card mode: (results, [], differing)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from onephase_tpu_torch.ops import cholesky as new
+    old = _load(parent, "parent_onephase_tpu_torch", "ops.cholesky")
+    old_prec = _load(parent, "parent_onephase_tpu_torch", "ops.precision")
+    differing, results = 0, []
+    for n, B in ((1024, 64), (256, 16), (1, 2), (33, 2), (65, 2), (130, 3)):
+        # chip_smoke.py's _prec_kernels draws: Jc, w, bnd, then Q
+        rng = np.random.default_rng(n + B)
+        rng.normal(size=(n // 2, n))
+        rng.uniform(0.1, 10.0, size=(B, n // 2))
+        rng.uniform(0.0, 5.0, size=(B, n))
+        Q = chip_smoke._spd(rng, B, n, torch.float32, dev)
+        for md_new, md_old in _card_modes(old_prec):
+            got, want = new.pallas_chol(Q, mode=md_new), old.pallas_chol(
+                Q, mode=md_old)
+            torch.cuda.synchronize()
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            n_diff = int((got[0] != want[0]).sum())
+            differing += not same
+            results.append(dict(n=n, B=B, mode=str(md_new), equal=same,
+                                differing_entries=n_diff))
+            print(f"K2 {md_new} n={n} B={B}: torch.equal on L, d, ok {same} "
+                  f"({n_diff} entries differ)", flush=True)
+    return results, [], differing
+
+
+def check_tridiag_factor_k1(parent: Path, dev):
+    """K7 of both trees at K = 1 in every card mode: (results, [],
+    differing)."""
+    from onephase_tpu_torch.ops import tridiag_pallas as new
+    old = _load(parent, "parent_onephase_tpu_torch", "ops.tridiag_pallas")
+    old_prec = _load(parent, "parent_onephase_tpu_torch", "ops.precision")
+    rng = np.random.default_rng(23)
+    differing, results = 0, []
+    for nb in (1, 5, 30, 32, 33, 63, 64):
+        Ad, Bs, delta = _band(rng, 3, 1, nb, torch.float32, dev)
+        for md_new, md_old in _card_modes(old_prec):
+            got = new.pallas_tridiag_factor(Ad, Bs, delta, mode=md_new)
+            want = old.pallas_tridiag_factor(Ad, Bs, delta, mode=md_old)
+            torch.cuda.synchronize()
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            n_diff = sum(int((g != w).sum()) for g, w in zip(got[:2],
+                                                             want[:2]))
+            differing += not same
+            results.append(dict(nb=nb, mode=str(md_new), equal=same,
+                                differing_entries=n_diff))
+            print(f"K7 K=1 {md_new} nb={nb}: torch.equal on Ck, Ci, ok "
+                  f"{same} ({n_diff} entries differ)", flush=True)
+    return results, [], differing
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, type=Path,
@@ -546,10 +621,13 @@ def main() -> int:
     ap.add_argument("--kernel", nargs="+", default=["tri_inv_gram"],
                     choices=("tri_inv_gram", "fused_q", "chol",
                              "fused_q_tri", "tridiag_solve",
-                             "tridiag_factor"),
+                             "tridiag_factor", "chol_modes",
+                             "tridiag_factor_k1"),
                     help="K3 (tri_inv_gram, the default), K1 (fused_q), K2 "
                          "(chol), K6 (fused_q_tri), K5 (tridiag_solve), K7 "
-                         "(tridiag_factor); several run in turn in one "
+                         "(tridiag_factor), K2 in every card mode "
+                         "(chol_modes), K7 at K = 1 in every card mode "
+                         "(tridiag_factor_k1); several run in turn in one "
                          "process")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -566,7 +644,9 @@ def main() -> int:
               "chol": check_chol,
               "fused_q_tri": check_fused_q_tri,
               "tridiag_solve": check_tridiag_solve,
-              "tridiag_factor": check_tridiag_factor}
+              "tridiag_factor": check_tridiag_factor,
+              "chol_modes": check_chol_modes,
+              "tridiag_factor_k1": check_tridiag_factor_k1}
     any_differ = False
     for kernel in args.kernel:
         results, timings, differing = checks[kernel](args.parent.resolve(),

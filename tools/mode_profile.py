@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Time K1, K1's Gram mode, K2 and K3 in every matmul mode on the card,
-split K2's time by phase, and time the library calls beside them.
+"""Time K1, K1's Gram mode, K2, K3, K7 and K5 in every matmul mode on the
+card, split K2's, K7's and K5's time by phase, and time the library calls
+beside them.
 
     python3 tools/mode_profile.py                   # this tree alone
     python3 tools/mode_profile.py --parent _parent  # and another checkout's
+    python3 tools/mode_profile.py --only tridiag    # K7 and K5 alone
 
 At chip_smoke.py's PREC_SHAPE (n 1024, m 512, B 64) and the bench QP's
 shape (256, 128, 16), on the operands of chip_smoke.py's precision phase
@@ -30,6 +32,17 @@ operands with a float32 result where the installed torch takes
 `out_dtype` (else null, with the reason), `linalg.cholesky_ex` and
 `cholesky_inverse`.
 
+K7 (`pallas_tridiag_factor`) and K5 (`pallas_tridiag_solve`) run at
+chip_smoke.py's TRIDIAG_MODE_SHAPES (K 400, nb 32: the chain path's; K
+204, nb 63: the banded path's), one instance of its kind of SPD band
+(A_k = G G^T + 3 I, B_k ~ 0.3 N(0, 1), delta 1e-4), K5 on the IEEE
+factor's Ci and Ek, in IEEE and every card mode, timed as above.  Their
+phase split comes from `ops/tridiag_pallas.py:tridiag_phases` (the clocked
+copy of their sources, -DONEPHASE_TRIDIAG_CLOCKS): K7's cp.async waits,
+E E^T, the tile Cholesky and inverse, B_k Ci_k^T and the stores; K5's ring
+waits, its first chain, the consumers' middle sync, its second chain and
+the stage's handoff.
+
 Prints one line a kernel and shape, then one JSON object (also written to
 `--out`, when given).
 """
@@ -49,6 +62,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 SHAPES = ((1024, 512, 64), (256, 128, 16))
+TRIDIAG_SHAPES = ((400, 32), (204, 63))
 REPS = 5
 
 
@@ -62,7 +76,8 @@ def _load(root: Path, name: str):
         sys.modules[name] = mod
         spec.loader.exec_module(mod)
     return {m: importlib.import_module(f"{name}.ops.{m}")
-            for m in ("schur", "cholesky", "precision", "_build")}
+            for m in ("schur", "cholesky", "precision", "_build",
+                      "tridiag_pallas")}
 
 
 def _event_ms(fn) -> float:
@@ -171,6 +186,104 @@ def _yardsticks(ops, n, m, B) -> dict:
     return out
 
 
+def _tridiag_operands(K, nb, dev, mods):
+    """One instance of chip_smoke.py's kind of SPD band, delta, a
+    right-hand side, and the IEEE factor's Ci and Ek."""
+    rng = np.random.default_rng(K + nb)
+    G = rng.normal(size=(1, K, nb, nb))
+    Ad = torch.as_tensor(G @ G.transpose(0, 1, 3, 2) + 3.0 * np.eye(nb),
+                         dtype=torch.float32, device=dev)
+    Bs = torch.as_tensor(rng.normal(size=(1, K - 1, nb, nb)) * 0.3,
+                         dtype=torch.float32, device=dev)
+    b = torch.as_tensor(rng.normal(size=(1, K, nb)), dtype=torch.float32,
+                        device=dev)
+    _, Ci, Ek, _ = mods["tridiag_pallas"].pallas_tridiag_factor(
+        Ad, Bs, 1e-4, mode=mods["precision"].IEEE)
+    return Ad, Bs, b, Ci, Ek
+
+
+def _tridiag_kernels(mods, ops):
+    Ad, Bs, b, Ci, Ek = ops
+    tp = mods["tridiag_pallas"]
+    return {"tridiag_factor":
+                lambda md: tp.pallas_tridiag_factor(Ad, Bs, 1e-4, mode=md),
+            "tridiag_solve":
+                lambda md: tp.pallas_tridiag_solve(Ci, Ek, b, mode=md)}
+
+
+def _tridiag_split(mods, ops, md) -> dict | None:
+    """K7's and K5's phase shares (tridiag_phases), or None for a tree
+    without the clocked entry points."""
+    fn = getattr(mods["tridiag_pallas"], "tridiag_phases", None)
+    Ad, Bs, b, _, _ = ops
+    return None if fn is None else fn(Ad, Bs, 1e-4, b, md)
+
+
+def _time_rows(mine, theirs, this, other) -> dict:
+    """{kernel: {mode: {"ms", "parent_ms"?}}} over IEEE and the card modes,
+    in turns with the other tree's wrappers where given."""
+    out = {}
+    for kname, fn in mine.items():
+        row = {}
+        for md in _modes(this["precision"]):
+            if theirs:
+                omd = other["precision"].Mode(md.kind, md.passes)
+                t_other, t_this = _time([lambda: theirs[kname](omd),
+                                         lambda: fn(md)])
+                row[str(md)] = {"ms": t_this, "parent_ms": t_other}
+            else:
+                row[str(md)] = {"ms": _time([lambda: fn(md)])[0]}
+        out[kname] = row
+    return out
+
+
+def _print_rows(key, rows):
+    for kname, row in rows.items():
+        print(f"{key} {kname} ms: " + "; ".join(
+            f"{k} {v['ms']:.4f}" + (f" (parent {v['parent_ms']:.4f})"
+                                    if "parent_ms" in v else "")
+            for k, v in row.items()), flush=True)
+
+
+def profile_tridiag(this, other, dev) -> dict:
+    """K7 and K5 at TRIDIAG_SHAPES: times in every mode (in turns with the
+    other tree's where given) and each tree's phase split, the shares
+    times the kernel's own time giving each phase's milliseconds."""
+    report = {}
+    for K, nb in TRIDIAG_SHAPES:
+        ops = _tridiag_operands(K, nb, dev, this)
+        key = f"K={K}/nb={nb}"
+        res = _time_rows(_tridiag_kernels(this, ops),
+                         _tridiag_kernels(other, ops) if other else None,
+                         this, other)
+        _print_rows(key, res)
+        split = {}
+        for md in _modes(this["precision"]):
+            for tree, mods in (("this", this), ("parent", other)):
+                if mods is None:
+                    continue
+                omd = mods["precision"].Mode(md.kind, md.passes)
+                s = _tridiag_split(mods, ops, omd)
+                if s is None:
+                    continue
+                for kernel, name in (("factor", "tridiag_factor"),
+                                     ("solve", "tridiag_solve")):
+                    ms = res[name][str(md)]["ms" if tree == "this"
+                                            else "parent_ms"]
+                    sk = s[kernel]
+                    sk["ms"] = {p: v * ms for p, v in sk["share"].items()}
+                    split.setdefault(tree, {}).setdefault(
+                        kernel, {})[str(md)] = sk
+                    print(f"{key} {'K7' if kernel == 'factor' else 'K5'} "
+                          f"phases {tree} {md}: " + ", ".join(
+                              f"{p} {v * 100:.1f}% {sk['ms'][p]:.4f} ms"
+                              for p, v in sk["share"].items())
+                          + f" ({sk['cycles']:.0f} cycles)", flush=True)
+        res["phases"] = split
+        report[key] = res
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path,
@@ -178,6 +291,8 @@ def main() -> int:
                          "onephase_tpu_torch/, timed in turns with this one")
     ap.add_argument("--out", type=Path,
                     help="also write the JSON report to this file")
+    ap.add_argument("--only", choices=("dense", "tridiag"),
+                    help="profile K1-K3 (dense) or K7/K5 (tridiag) alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("mode_profile: no CUDA device; the kernels run only "
@@ -189,36 +304,27 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     sys.path.insert(0, str(ROOT))
     this = {m: importlib.import_module(f"onephase_tpu_torch.ops.{m}")
-            for m in ("schur", "cholesky", "precision", "_build")}
+            for m in ("schur", "cholesky", "precision", "_build",
+                      "tridiag_pallas")}
     this["_build"].library()
     other = None
     if args.parent is not None:
         other = _load(args.parent.resolve(), "parent_onephase_tpu_torch")
         other["_build"].library()
     report = {"card": card, "shapes": {}}
-    for n, m, B in SHAPES:
+    if args.only != "dense":
+        report["tridiag"] = profile_tridiag(this, other, dev)
+    for n, m, B in SHAPES if args.only != "tridiag" else ():
         ops = _operands(n, m, B, dev, this)
         key = f"{n}/{m}/{B}"
         res = {"yardsticks": _yardsticks(ops, n, m, B)}
         print(f"{key} yardsticks (ms): {json.dumps(res['yardsticks'])}",
               flush=True)
-        mine = _kernels(this, ops)
-        theirs = _kernels(other, ops) if other else None
-        for kname, fn in mine.items():
-            row = {}
-            for md in _modes(this["precision"]):
-                if theirs:
-                    omd = other["precision"].Mode(md.kind, md.passes)
-                    t_other, t_this = _time([lambda: theirs[kname](omd),
-                                             lambda: fn(md)])
-                    row[str(md)] = {"ms": t_this, "parent_ms": t_other}
-                else:
-                    row[str(md)] = {"ms": _time([lambda: fn(md)])[0]}
-            res[kname] = row
-            print(f"{key} {kname} ms: " + "; ".join(
-                f"{k} {v['ms']:.4f}" + (f" (parent {v['parent_ms']:.4f})"
-                                        if "parent_ms" in v else "")
-                for k, v in row.items()), flush=True)
+        rows = _time_rows(_kernels(this, ops),
+                          _kernels(other, ops) if other else None,
+                          this, other)
+        _print_rows(key, rows)
+        res.update(rows)
         split = {}
         for md in _modes(this["precision"]):
             for tree, mods in (("this", this), ("parent", other)):
