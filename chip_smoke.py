@@ -138,7 +138,11 @@ version in turns with its time per stage at both band shapes, and K5 with
 its device time (`torch.profiler`) beside its byte bound and its
 dependence bound (2K stages of two chains of nb FMAs).  The build's
 `-Xptxas -v` lines (registers, spills) of the K1 (K6, K3's Gram), K2, K3,
-K5 and K7 kernels are printed first.  Float32 products run without TF32
+K5 and K7 kernels are printed first, and a spill anywhere in the build
+fails the script; after the kernel phase torch.profiler's kernel names
+show the float64 launches of K1, K6 and K3's Gram half on the FP64
+tensor cores (`fused_q_dmma_kernel`) and K3's moded inverse on its own
+instantiation (`tri_inv_mode_kernel`).  Float32 products run without TF32
 outside the precision phase.
 
 Every phase raises on failure, so the script exits nonzero and never prints
@@ -870,6 +874,78 @@ def _ptxas_report(log, kernels):
     return out
 
 
+# the kernels that must not spill a register: K1's and K3's (the dense
+# KKT path's Q formation and finalize); the build's other spills are
+# printed (chol_kernel<double, false> and tridiag_factor_kernel<double,
+# 64, 512> spill 52-104 bytes, ROADMAP)
+SPILL_FREE = ("fused_q_lower_kernel", "fused_q_dmma_kernel",
+              "fused_q_wg_kernel", "fused_q_tc_kernel", "tri_inv_kernel",
+              "tri_inv_mode_kernel")
+
+
+def _no_spills(log, kernels=SPILL_FREE):
+    """Raise if ptxas reports a spill in an instantiation of `kernels` in
+    the build log; print every other function that spills (mangled
+    names).  An empty log (the library was built before this process)
+    is said to be unchecked."""
+    if not log:
+        print("ptxas: spills not checked (the library was built before "
+              "this run, so there is no build log)", flush=True)
+        return
+    spills, current = [], None
+    for ln in log.splitlines():
+        head = re.search(r"Function properties for (\w+)", ln)
+        if head:
+            current = head.group(1)
+        elif re.search(r"[1-9]\d* bytes spill (stores|loads)", ln):
+            spills.append((current, ln.split(":", 1)[-1].strip()))
+    bad = [f"{f}: {v}" for f, v in spills
+           if any(f"{len(k)}{k}" in f for k in kernels)]
+    if bad:
+        raise RuntimeError("K1/K3 kernels spill registers: "
+                           + "; ".join(bad))
+    print("ptxas: no K1 or K3 kernel spills a register"
+          + ("" if not spills else "; others: " + "; ".join(
+              f"{f}: {v}" for f, v in spills)), flush=True)
+
+
+def kernel_routes(dev):
+    """The float64 launches of K1, K6 and K3's Gram half run the FP64
+    tensor-core instantiation (`fused_q_dmma_kernel`), and K3's moded
+    inverse its own (`tri_inv_mode_kernel`): torch.profiler's kernel names,
+    with each one's mean device time over REPS calls at 256/128/16 (raises
+    where the profiler sees no such kernel)."""
+    import torch
+    from onephase_tpu_torch.ops import cholesky as ch
+    from onephase_tpu_torch.ops import precision, schur
+    rng = np.random.default_rng(11)
+    n, m, B = 256, 128, 16
+    f64 = torch.float64
+    Jc = torch.as_tensor(rng.normal(size=(m, n)) / np.sqrt(n), dtype=f64,
+                         device=dev)
+    w = torch.as_tensor(rng.uniform(0.1, 10.0, size=(B, m)), dtype=f64,
+                        device=dev)
+    H = _spd(rng, 1, n, f64, dev)[0]
+    bnd = torch.as_tensor(rng.uniform(0.0, 5.0, size=(B, n)), dtype=f64,
+                          device=dev)
+    L64 = ch.pallas_chol(_spd(rng, B, n, f64, dev))[0]
+    L32 = ch.pallas_chol(_spd(rng, B, n, torch.float32, dev))[0]
+    parts = []
+    for label, fn, kernel in (
+            ("K1 f64", lambda: schur.pallas_fused_q(Jc, w, H, bnd),
+             "fused_q_dmma_kernel"),
+            ("K6 f64", lambda: schur.pallas_fused_q_tri(Jc, w, H, bnd),
+             "fused_q_dmma_kernel"),
+            ("K3 f64 (its Gram half)", lambda: ch.pallas_tri_inv_gram(L64),
+             "fused_q_dmma_kernel"),
+            ("K3 bf16_x6 (its inverse)",
+             lambda: ch.pallas_tri_inv_gram(L32, mode=precision.Mode(
+                 "bf16", 6)), "tri_inv_mode_kernel")):
+        parts.append(f"{label}: {kernel} {_device_ms(fn, kernel):.4f} ms")
+    print(f"kernel routes (torch.profiler, n={n} m={m} B={B}): "
+          + "; ".join(parts), flush=True)
+
+
 def kernel_parity(dev):
     """K1-K4 against their plain versions, f32 and f64, at the main path's
     shapes, a ragged n, m = 0, n = 2048 and a non-PD Q.  Returns, per
@@ -1167,6 +1243,10 @@ def fused_q_tri_parity(dev):
                     record.update(_f64_keys(
                         ms, pms, lms,
                         _fused_q_bound(B, m, n, Jc.element_size())))
+                if n == 256 and dtype == torch.float32:
+                    record.update(
+                        ms_n256=ms, plain_ms_n256=pms, library_ms_n256=lms,
+                        bound_ms_n256=_fused_q_bound(B, m, n, 4)[0])
             print(line, flush=True)
             if not (e <= tol and e1 <= tol and sym and tril_k1 and full_k1):
                 raise RuntimeError(f"K6 disagrees: {line}")
@@ -1609,8 +1689,10 @@ def _operand_dtypes():
 def mixed_kernel_times(dev):
     """K1, K2 and K3 at the mixed phase's shape (n=1024, m=512, B=16), on
     the QP's own Jc and H, in float64 and on the same operands cast to
-    float32 (the factor_precision="f32" route), each pair in turns, with
-    the casts the route adds timed apart.  Returns {kernel: record}."""
+    float32 (the factor_precision="f32" route), each pair in turns with
+    the casts the route adds and each kernel's library call in both
+    types (`baddbmm`, `cholesky_ex`, `cholesky_inverse`).  Returns
+    {kernel: record}."""
     import torch
     from onephase_tpu_torch.models.qp import make_qp
     from onephase_tpu_torch.nlp import canonicalize
@@ -1634,26 +1716,36 @@ def mixed_kernel_times(dev):
     Q32 = Q.to(torch.float32)
     L = ch.pallas_chol(Q)[0]
     L32 = ch.pallas_chol(Q32)[0]
+    bad64 = _baddbmm_operands(Jc, w, H, B)
+    bad32 = _baddbmm_operands(*f32[:3], B)
     rec = {}
-    for name, f64_fn, f32_fn, cast_fn, flops in (
+    for name, f64_fn, f32_fn, cast_fn, lib64, lib32, flops in (
             ("fused_q", lambda: schur.pallas_fused_q(Jc, w, H, bnd),
              lambda: schur.pallas_fused_q(*f32),
              lambda: [t.to(torch.float32) for t in (Jc, w, H, bnd)],
+             lambda: torch.baddbmm(*bad64), lambda: torch.baddbmm(*bad32),
              B * m * n * (n + 1)),
             ("chol", lambda: ch.pallas_chol(Q), lambda: ch.pallas_chol(Q32),
-             lambda: Q.to(torch.float32), B * n ** 3 / 3),
+             lambda: Q.to(torch.float32),
+             lambda: torch.linalg.cholesky_ex(Q),
+             lambda: torch.linalg.cholesky_ex(Q32), B * n ** 3 / 3),
             ("tri_inv_gram", lambda: ch.pallas_tri_inv_gram(L),
              lambda: ch.pallas_tri_inv_gram(L32),
-             lambda: L.to(torch.float32), 2 * B * n ** 3 / 3)):
-        ms64, ms32, cast_ms = _time_turns(f64_fn, f32_fn, cast_fn)
+             lambda: L.to(torch.float32),
+             lambda: torch.cholesky_inverse(L),
+             lambda: torch.cholesky_inverse(L32), 2 * B * n ** 3 / 3)):
+        ms64, ms32, cast_ms, l64, l32 = _time_turns(f64_fn, f32_fn, cast_fn,
+                                                    lib64, lib32)
         b64 = _bound(0, flops, "float64")[0]
         b32 = _bound(0, flops, "float32")[0]
         print(f"mixed {name} n={n} m={m} B={B}: float64 {ms64:.4f} ms, "
               f"float32 {ms32:.4f} ms (in turns; {ms32 / ms64:.2f}x), cast "
-              f"to float32 {cast_ms:.4f} ms; operation bounds {b64:.4f} and "
-              f"{b32:.4f} ms", flush=True)
+              f"to float32 {cast_ms:.4f} ms; library {l64:.4f} and "
+              f"{l32:.4f} ms; operation bounds {b64:.4f} and {b32:.4f} ms",
+              flush=True)
         rec[name] = {"ms_mixed_f64": ms64, "ms_mixed_f32": ms32,
-                     "cast_ms_mixed": cast_ms}
+                     "cast_ms_mixed": cast_ms, "library_ms_mixed_f64": l64,
+                     "library_ms_mixed_f32": l32}
     return rec
 
 
@@ -1803,6 +1895,19 @@ def _moded_f64(a, b, md):
     return sum(pa[i] @ pb[j] for i, j in md.pairs)
 
 
+def inverse_residual(L, X, md):
+    """max |delta_rc - sum_{k<r} m(L[r, k], X[k, c]) - X[r, c] L[r, r]|
+    over the lower triangle, every product m in mode `md` exact and the sum
+    taken in float64 (`_moded_f64`): how far an inverse X of lower
+    triangular L is from the recurrence of that mode (K3's inverse, and its
+    twin)."""
+    import torch
+    s = _moded_f64(torch.tril(L, -1), X, md)
+    d = torch.diagonal(L, dim1=-2, dim2=-1).double()
+    eye = torch.eye(L.shape[-1], dtype=torch.float64, device=L.device)
+    return float((eye - s - X.double() * d[:, :, None]).tril().abs().max())
+
+
 def _prec_kernels(dev, n, m, B):
     """({name: (kernel(mode), twin(mode), operations, (input(mode) or
     None, residual(out, mode)))}, (Jc, w, H)) at one shape.  K1 on the kernel phase's Jc, w and
@@ -1834,7 +1939,6 @@ def _prec_kernels(dev, n, m, B):
     L = ch.pallas_chol(Q, mode=precision.IEEE)[0]
     Li = torch.empty_like(L)
     ch.launch_tri_inv(L, Li)
-    eye = torch.eye(n, dtype=torch.float64, device=dev)
 
     def gram(md):
         G = torch.empty_like(Li)
@@ -1865,12 +1969,6 @@ def _prec_kernels(dev, n, m, B):
         ch.launch_tri_inv(L, X, md)
         return X
 
-    def res_inv(X, md):
-        s = _moded_f64(torch.tril(L, -1), X, md)
-        d = torch.diagonal(L, dim1=-2, dim2=-1).double()
-        r = eye - s - X.double() * d[:, :, None]
-        return float(r.tril().abs().max())
-
     # name: kernel, twin, operations, (what the residual reads, residual)
     return {
         "K1": (lambda md: schur.pallas_fused_q(Jc, w, H, bnd, mode=md),
@@ -1883,7 +1981,7 @@ def _prec_kernels(dev, n, m, B):
                (None, res_chol)),
         "K3": (lambda md: ch.pallas_tri_inv_gram(L, mode=md),
                lambda md: ch.xla_chol_inv_from_L(L, md), 2 * B * n ** 3 / 3,
-               (inverse, res_inv)),
+               (inverse, lambda X, md: inverse_residual(L, X, md))),
     }, (Jc, w, H, Q, L)
 
 
@@ -3555,12 +3653,15 @@ def main() -> int:
     # meanwhile on the host
     threading.Thread(target=_build.clock_library, daemon=True).start()
     for ln in _ptxas_report(_build.BUILD_LOG, (
-            "fused_q_lower_kernel", "fused_q_wg_kernel", "fused_q_tc_kernel",
-            "chol_kernel", "tri_inv_kernel", "tridiag_factor_kernel",
+            "fused_q_lower_kernel", "fused_q_dmma_kernel",
+            "fused_q_wg_kernel", "fused_q_tc_kernel", "chol_kernel",
+            "tri_inv_kernel", "tri_inv_mode_kernel", "tridiag_factor_kernel",
             "tridiag_factor_mode_kernel", "tridiag_solve_kernel")):
         print(f"  ptxas: {ln}", flush=True)
+    _no_spills(_build.BUILD_LOG)
 
     record = kernel_parity(dev)
+    kernel_routes(dev)
     k1_per_instance = fused_q_per_instance(dev)
     record["fused_q_tri"] = fused_q_tri_parity(dev)
     record.update(tridiag_parity(dev))
@@ -3671,6 +3772,8 @@ def main() -> int:
     # on K1's kernel
     record["tri_inv_gram"]["gram_source"] = \
         "onephase_tpu_torch/csrc/fused_q.cu"
+    record["tri_inv_gram"]["mode_source"] = \
+        "onephase_tpu_torch/csrc/tri_inv_mode.cuh"
     sources = {
         "fused_q": ("onephase_tpu_torch/csrc/fused_q.cu",
                     "onephase_tpu/ops/schur.py:51"),

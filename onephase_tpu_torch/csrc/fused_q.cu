@@ -18,8 +18,9 @@
 //   row i0, the first row of its larger index: the rows above hold exact
 //   zeros of Li.
 //
-// What bounds it on the H100: plain FP32/FP64 FMA rate (no tensor cores:
-// the reference multiplies at full precision, so no TF32).  Q - H is
+// What bounds it on the H100: the FP32 FMA rate in IEEE float32 (no
+// tensor cores: the reference multiplies at full precision, so no TF32),
+// the FP64 tensor cores' in float64 (DMMA, below).  Q - H is
 // symmetric, so its n (n + 1) / 2 distinct entries of length m are all the
 // work, B m n (n + 1) operations on B n m + B n^2 elements (the Gram
 // product: B n^3 / 3): far above the memory roofline at the main path's
@@ -32,10 +33,10 @@
 //   (i >= j) of edge BT, the flat tile index decoded in integers: half the
 //   full grid's work.  f32 takes BT = 128 where the lower tiles of all
 //   instances give every SM two blocks, else BT = 64 (more, smaller blocks
-//   for a card that one wave of 128-tiles would leave half idle); f64 takes
-//   BT = 64.
+//   for a card that one wave of 128-tiles would leave half idle); f64
+//   chooses the same way.
 // - Each thread keeps an RM x RN block of the tile in registers (f32 8 x 8
-//   at BT = 128, 4 x 4 at BT = 64; f64 4 x 8), its rows and its columns as
+//   at BT = 128, 4 x 4 at BT = 64), its rows and its columns as
 //   groups of 4 read with 16-byte shared loads: at 8 x 8, four loads feed
 //   64 FMAs.  A warp's loads of a k row broadcast on the i side and read
 //   consecutive 16-byte words on the j side.
@@ -58,8 +59,12 @@
 // +0, and the pairs are summed smallest first.  What bounds them on the
 // H100 is the split and the staging around the products, not the tensor
 // cores (operations x products over 495 TFLOP/s TF32, 989 bf16 / fp16:
-// 0.07 ms a pass at n = 1024, m = 512, B = 64).  The IEEE instantiations
-// are unchanged.
+// 0.07 ms a pass at n = 1024, m = 512, B = 64).  The IEEE float32
+// instantiations are unchanged.
+//
+// Float64 runs on the FP64 tensor cores (fused_q_dmma_kernel below: the
+// same grid, slabs, scaling and epilogue, the products by DMMA), its
+// values those of the FP64-core loop it replaced.
 //
 // Value for value: every entry on or below the diagonal is what the earlier
 // full-grid kernel computed there, bit for bit: acc = 0; for k = kbeg ..
@@ -89,24 +94,14 @@ namespace {
 __device__ __forceinline__ float fq_fma(float a, float b, float c) {
   return fmaf(a, b, c);
 }
-__device__ __forceinline__ double fq_fma(double a, double b, double c) {
-  return fma(a, b, c);
-}
 
-// 16 bytes: 4 floats or 2 doubles
+// 16 bytes: 4 floats
 __device__ __forceinline__ void ld16(const float* p, float* v) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
-__device__ __forceinline__ void ld16(const double* p, double* v) {
-  const double2 q = *reinterpret_cast<const double2*>(p);
-  v[0] = q.x; v[1] = q.y;
-}
 __device__ __forceinline__ void st16(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void st16(double* p, const double* v) {
-  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
 }
 
 // Four consecutive elements at a 16-byte aligned address.
@@ -482,18 +477,17 @@ __device__ __forceinline__ void copy_slab(float* raw, const float* J,
 // diagonal: above the diagonal of a diagonal tile the mirror of the entry
 // below it; off the diagonal also the mirror tile (tj, ti), whose rows
 // j0 + lr are < n (tj < ti).  Every thread of the block, NT of them.
-template <int BT, int NT>
-__device__ __forceinline__ void store_tile(const float* Ts, const float* Hb,
-                                           const float* bb, float* Qb, int n,
-                                           int i0, int j0, bool diag,
-                                           int tid) {
+template <int BT, int NT, typename T>
+__device__ __forceinline__ void store_tile(const T* Ts, const T* Hb,
+                                           const T* bb, T* Qb, int n, int i0,
+                                           int j0, bool diag, int tid) {
   constexpr int LDT = BT + 1;
 #pragma unroll 4
   for (int e = tid; e < BT * BT; e += NT) {
     const int lr = e / BT, lc = e % BT;
     const int row = i0 + lr, col = j0 + lc;
     if (row < n && col < n) {
-      float v = (diag && lr < lc) ? Ts[lc * LDT + lr] : Ts[lr * LDT + lc];
+      T v = (diag && lr < lc) ? Ts[lc * LDT + lr] : Ts[lr * LDT + lc];
       const long long o = (long long)row * n + col;
       if (Hb) v = Hb[o] + v;
       if (bb && row == col) v += bb[row];
@@ -501,7 +495,7 @@ __device__ __forceinline__ void store_tile(const float* Ts, const float* Hb,
     }
     if (!diag && i0 + lc < n) {
       const long long o = (long long)(j0 + lr) * n + i0 + lc;
-      float v = Ts[lc * LDT + lr];
+      T v = Ts[lc * LDT + lr];
       if (Hb) v = Hb[o] + v;
       Qb[o] = v;
     }
@@ -905,8 +899,228 @@ int launch_tc(const void* Jc, long long jc_bs, const void* w, const void* H,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// float64 on the FP64 tensor cores (DMMA), the one float64 route:
+// mma.sync.aligned.m16n8k8.row.col.f64 (Hopper's f64 shape; 2 x 16 x 8 x 8
+// operations an instruction), on the IEEE route's grid, tile decode,
+// `lower` mode, cp.async ring of KC-row slabs with the i side scaled by
+// w[k] in place before the slab's barrier, and staged epilogue
+// (store_tile: the mirror, H from its own place, bnd on the diagonal).
+// What is new:
+// - a slab row is padded to BT + 4 doubles, so that the fragment loads,
+//   8-byte loads at (k row t + 4 i, column g) over g = lane / 4 and
+//   t = lane % 4, fall on distinct banks in each half-warp (4 t + g is
+//   distinct mod 16); ldmatrix serves no 8-byte elements;
+// - warps tile the output: 128-tiles (where B x tiles fills the card, as
+//   the float32 route decides) take 16 warps, 64-tiles 4, each warp a
+//   32 x 32 block of m16n8 accumulators (4 doubles a lane each) updated
+//   by one mma per k8 step and tile;
+// - a slab row's copies are one thread's (KC rows, NT / KC threads a
+//   row), so each thread scales by one w[k] a slab, held in a register
+//   from its copy's issue.
+// Value for value: each accumulator starts at +0, and on the H100 an
+// f64 mma's result is the FP64 cores' fma chain over its k, ascending
+// (tools/dmma_probe.py), so every entry is the earlier FP64-core kernel's
+// chain acc = fma(J[k, row] w[k], J[k, col], acc) bit for bit
+// (tools/kernel_equal.py against that kernel: 0 differing cases).  Past m
+// and past n the slabs are zero filled (fma(0, 0, acc) could only turn a
+// -0 sum into +0).
+struct Dmma {
+  static constexpr int K = 8;
+  // d += a b: a_i at (row g + 8 (i % 2), k t + 4 (i / 2)), b_i at (k t +
+  // 4 i, column g), d_i at (row g + 8 (i / 2), column 2 t + i % 2)
+  static __device__ __forceinline__ void mma(double (&d)[4],
+                                             const double (&a)[4],
+                                             const double (&b)[2]) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+  }
+};
+
+template <int BT, int WGM, int WGN, bool VEC>
+struct DmShape {
+  static constexpr int NT = 32 * WGM * WGN;        // threads
+  static constexpr int WM = BT / WGM, WN = BT / WGN;   // a warp's block
+  static constexpr int MT = WM / 16, NT8 = WN / 8;     // its m16, n8 tiles
+  static constexpr int LDS = BT + 4;               // a slab row (doubles)
+  static constexpr int SLAB = KC * LDS;            // one side's slab
+  static constexpr int E = VEC ? 2 : 1;            // doubles a copy
+  static constexpr int TPR = NT / KC;              // threads a slab row
+  static constexpr int CPT = BT / E / TPR;         // copies a thread, a side
+  static constexpr int LDT = BT + 1;               // the staging tile's row
+  static constexpr int SMEM =
+      (2 * ST * SLAB > BT * LDT ? 2 * ST * SLAB : BT * LDT) * 8;
+  static_assert(NT % KC == 0 && BT / E % TPR == 0, "whole copies a row");
+  static_assert(KC % Dmma::K == 0 && WM % 16 == 0 && WN % 8 == 0, "tiles");
+};
+
+template <int BT, int WGM, int WGN, bool VEC, int MINB>
+__global__ void __launch_bounds__(32 * WGM * WGN, MINB)
+fused_q_dmma_kernel(const double* __restrict__ Jc, long long jc_bs,
+                    const double* __restrict__ w,
+                    const double* __restrict__ H, long long h_bs,
+                    const double* __restrict__ bnd, double* __restrict__ Q,
+                    int m, int n, int lower) {
+  using G = DmShape<BT, WGM, WGN, VEC>;
+  constexpr int LDS = G::LDS;
+  extern __shared__ __align__(16) unsigned char fq_smem[];
+  double* sm = reinterpret_cast<double*>(fq_smem);
+
+  const int b = blockIdx.y;
+  const int t = blockIdx.x;
+  int ti = 0;                       // t = ti (ti + 1) / 2 + tj, tj <= ti
+  while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
+  const int tj = t - ti * (ti + 1) / 2;
+  const int i0 = ti * BT, j0 = tj * BT;
+  const bool diag = ti == tj;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / WGN, wn = warp % WGN;
+  const int g = lane >> 2, t4 = lane & 3;
+  const double* J = Jc + (long long)b * jc_bs;
+  const double* wb = w ? w + (long long)b * m : nullptr;
+  const int kbeg = lower ? i0 : 0;
+
+  // This thread's copies q of a slab: row kk, columns c = (tid % TPR +
+  // TPR q) E (a row's TPR threads read consecutive 8- or 16-byte words);
+  // wk = w[k0 + kk] (1 past m or without w)
+  const int kk = tid / G::TPR, cq = tid % G::TPR;
+  double wr[ST - 1];
+  auto issue = [&](int k0, int buf, double& wk) {
+    double* As = sm + buf * 2 * G::SLAB + kk * LDS;
+    double* Bs = As + G::SLAB;
+    const int k = k0 + kk;
+    const bool kin = k < m;
+    const double* row = J + (long long)k * n;
+#pragma unroll
+    for (int q = 0; q < G::CPT; ++q) {
+      const int c = (cq + G::TPR * q) * G::E;
+      const bool iin = kin && i0 + c < n, jin = kin && j0 + c < n;
+      cp_async<G::E * 8>(As + c, iin ? row + i0 + c : J, iin);
+      cp_async<G::E * 8>(Bs + c, jin ? row + j0 + c : J, jin);
+    }
+    wk = (wb && kin) ? __ldg(wb + k) : 1.0;
+    cp_async_commit();
+  };
+  // the i-side elements this thread copied, times w[k], rounded; its
+  // copies have landed
+  auto scale = [&](int buf, double wk) {
+    if (!wb) return;
+    double* As = sm + buf * 2 * G::SLAB + kk * LDS;
+#pragma unroll
+    for (int q = 0; q < G::CPT; ++q)
+#pragma unroll
+      for (int u = 0; u < G::E; ++u) As[(cq + G::TPR * q) * G::E + u] *= wk;
+  };
+
+  double acc[G::MT][G::NT8][4];
+#pragma unroll
+  for (int a = 0; a < G::MT; ++a)
+#pragma unroll
+    for (int c = 0; c < G::NT8; ++c)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[a][c][r] = 0.0;
+  // the slab: this warp's rows wm WM .., columns wn WN ..
+  auto multiply = [&](const double* As, const double* Bs) {
+    const double* Aw = As + wm * G::WM + g;
+    const double* Bw = Bs + wn * G::WN + g;
+#pragma unroll
+    for (int ks = 0; ks < KC; ks += Dmma::K) {
+      double af[G::MT][4], bf[G::NT8][2];
+#pragma unroll
+      for (int a = 0; a < G::MT; ++a)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          af[a][i] = Aw[(ks + t4 + 4 * (i / 2)) * LDS + 16 * a + 8 * (i % 2)];
+#pragma unroll
+      for (int c = 0; c < G::NT8; ++c)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          bf[c][i] = Bw[(ks + t4 + 4 * i) * LDS + 8 * c];
+#pragma unroll
+      for (int a = 0; a < G::MT; ++a)
+#pragma unroll
+        for (int c = 0; c < G::NT8; ++c) Dmma::mma(acc[a][c], af[a], bf[c]);
+    }
+  };
+
+  // every iteration commits one copy group (empty past the last slab), so
+  // the wait counts groups
+  const int nslab = m > kbeg ? (m - kbeg + KC - 1) / KC : 0;
+#pragma unroll
+  for (int p = 0; p < ST - 1; ++p) {
+    if (p < nslab) issue(kbeg + p * KC, p, wr[p]);
+    else cp_async_commit();
+  }
+  for (int s = 0; s < nslab; ++s) {
+    const int buf = s % ST;
+    cp_async_wait<ST - 2>();
+    scale(buf, wr[0]);
+    // slab s is in place for every thread, and every thread is done with
+    // slab s - 1, whose buffer the next copies overwrite
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j + 1 < ST - 1; ++j) wr[j] = wr[j + 1];
+    const int s2 = s + ST - 1;
+    if (s2 < nslab) issue(kbeg + s2 * KC, s2 % ST, wr[ST - 2]);
+    else cp_async_commit();
+    const double* As = sm + buf * 2 * G::SLAB;
+    multiply(As, As + G::SLAB);
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the last slab read before the staging tile reuses it
+
+  double* Ts = sm;
+#pragma unroll
+  for (int a = 0; a < G::MT; ++a)
+#pragma unroll
+    for (int c = 0; c < G::NT8; ++c)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int lr = wm * G::WM + 16 * a + g + 8 * (r >> 1);
+        const int lc = wn * G::WN + 8 * c + 2 * t4 + (r & 1);
+        Ts[lr * G::LDT + lc] = acc[a][c][r];
+      }
+  __syncthreads();
+  store_tile<BT, G::NT>(Ts, H ? H + (long long)b * h_bs : nullptr,
+                        bnd ? bnd + (long long)b * n : nullptr,
+                        Q + (long long)b * n * n, n, i0, j0, diag, tid);
+}
+
+template <int BT, int WGM, int WGN, bool VEC, int MINB>
+int launch_dmma(const void* Jc, long long jc_bs, const void* w,
+                const void* H, long long h_bs, const void* bnd, void* Q,
+                int B, int m, int n, int lower, void* stream) {
+  using G = DmShape<BT, WGM, WGN, VEC>;
+  const auto kernel = fused_q_dmma_kernel<BT, WGM, WGN, VEC, MINB>;
+  const long long nt = (n + BT - 1) / BT;
+  const long long tiles = nt * (nt + 1) / 2;
+  if (B > 65535 || tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((unsigned)tiles, B), G::NT, G::SMEM, (cudaStream_t)stream>>>(
+      (const double*)Jc, jc_bs, (const double*)w, (const double*)H, h_bs,
+      (const double*)bnd, (double*)Q, m, n, lower);
+  return (int)cudaGetLastError();
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+}
+
+// 128-tiles where the lower tile pairs of all instances give every SM
+// `per_sm` blocks, else 64-tiles
+bool big_tiles(int B, int n, int per_sm, int* err) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *err = (int)e;
+  const long long nt = (n + 127) / 128;
+  return (long long)B * (nt * (nt + 1) / 2) >= (long long)per_sm * sms;
 }
 
 // a mode's code (16 kind + passes) -> its instantiation
@@ -965,14 +1179,9 @@ int launch_fused_q<float>(const void* Jc, long long jc_bs, const void* w,
   if (mode != 0)
     return launch_moded(Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower, mode,
                         stream);
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  // 128-tiles where they give every SM two blocks, else 64-tiles
-  const long long nt = (n + 127) / 128;
-  const bool big = (long long)B * (nt * (nt + 1) / 2) >= 2LL * sms;
+  int err = 0;
+  const bool big = big_tiles(B, n, 2, &err);
+  if (err != 0) return err;
   const bool vec = vec_route<float>(Jc, H, Q, n);
   if (big && vec)
     return launch_shape<float, 128, 8, 8, true, 2>(
@@ -987,18 +1196,31 @@ int launch_fused_q<float>(const void* Jc, long long jc_bs, const void* w,
       Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower, stream);
 }
 
-// float64: IEEE only (the knob touches float32 products)
+// float64: IEEE only (the knob touches float32 products), on the FP64
+// tensor cores: 128-tiles (512 threads, one block an SM) where they give
+// every SM two blocks, else 64-tiles (128 threads, three an SM); 16-byte
+// copies where rows and Jc allow
 template <>
 int launch_fused_q<double>(const void* Jc, long long jc_bs, const void* w,
                            const void* H, long long h_bs, const void* bnd,
                            void* Q, int B, int m, int n, int lower, int mode,
                            void* stream) {
   if (mode != 0) return (int)cudaErrorInvalidValue;
-  if (vec_route<double>(Jc, H, Q, n))
-    return launch_shape<double, 64, 4, 8, true, 1>(
-        Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower, stream);
-  return launch_shape<double, 64, 4, 8, false, 1>(
-      Jc, jc_bs, w, H, h_bs, bnd, Q, B, m, n, lower, stream);
+  int err = 0;
+  const bool big = big_tiles(B, n, 2, &err);
+  if (err != 0) return err;
+  const bool vec = n % 2 == 0 && aligned16(Jc);
+  if (big && vec)
+    return launch_dmma<128, 4, 4, true, 1>(Jc, jc_bs, w, H, h_bs, bnd, Q, B,
+                                           m, n, lower, stream);
+  if (big)
+    return launch_dmma<128, 4, 4, false, 1>(Jc, jc_bs, w, H, h_bs, bnd, Q,
+                                            B, m, n, lower, stream);
+  if (vec)
+    return launch_dmma<64, 2, 2, true, 3>(Jc, jc_bs, w, H, h_bs, bnd, Q, B,
+                                          m, n, lower, stream);
+  return launch_dmma<64, 2, 2, false, 3>(Jc, jc_bs, w, H, h_bs, bnd, Q, B,
+                                         m, n, lower, stream);
 }
 
 }  // namespace

@@ -1,9 +1,9 @@
 // The float32 product arithmetic of a `matmul_precision` mode on the FP32
-// cores, shared by the moded variants of K3's inverse (tri_inv.cu), K5's
-// chains (tridiag.cuh) and the tile Cholesky of K2's and K7's diagonal
-// blocks (chol_tile.cuh); K1's products, K2's trailing update and K7's
-// block products run on the tensor cores (mm_tc.cuh), K2's panel on its
-// own split-once routines (chol.cu).  The definition, and the plain twins
+// cores, shared by the moded variants of K3's substitution
+// (tri_inv_mode.cuh), K5's chains (tridiag.cuh) and the tile Cholesky of
+// K2's and K7's diagonal blocks (chol_tile.cuh); K1's products, K2's
+// trailing update, K3's update and K7's block products run on the tensor
+// cores (mm_tc.cuh), K2's panel on its own split-once routines (chol.cu).  The definition, and the plain twins
 // that compute the same values, are in onephase_tpu_torch/ops/precision.py:
 //
 // - every product of two matrix entries is a product of operands rounded
@@ -22,8 +22,8 @@
 // would up to the order of its sums.  The kernels that use these routines
 // pay the split modes' 3, 6 or 9 FMAs a product on the FP32 cores.
 //
-// The mode is a runtime value (MmMode) for K2's tile and K3's inverse, read
-// once outside the inner loops; K5, K7 and K2's trailing update have one
+// The mode is a runtime value (MmMode) for K2's tile, read once outside the
+// inner loops; K3's inverse, K5, K7 and K2's trailing update have one
 // instantiation a mode, the kind and the pass set template parameters.
 // The IEEE instantiations' arithmetic does not change.  The mode's code
 // (ops/precision.py Mode.code): 16 * kind + passes, kind 1 = tf32, 2 =

@@ -1,6 +1,7 @@
 // The tensor-core arithmetic of a `matmul_precision` mode, shared by the
-// moded variants of K1 (fused_q.cu), K2's trailing update (chol.cu) and
-// K7's block products (tridiag_factor_mode.cu).
+// moded variants of K1 (fused_q.cu), K2's trailing update (chol.cu), K3's
+// update (tri_inv_mode.cuh) and K7's block products
+// (tridiag_factor_mode.cu).
 // The mode's definition (mm_mode.cuh, ops/precision.py): every product of
 // two entries takes operands rounded to the mode's input type, a split
 // mode expands each operand into parts hi, mid, lo and takes the part

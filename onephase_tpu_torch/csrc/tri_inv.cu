@@ -45,23 +45,22 @@
 // those terms multiply exact zeros of Li (k < c) and leave acc at +0.
 // The ragged edge is masked, nothing is padded.
 //
-// A `matmul_precision` mode (mm_mode.cuh; float32 only) runs in the one
-// moded instantiation, tri_inv_kernel<float, true>: every product
-// L[r, k] Li[k, c], in the update and in the substitution, takes its
-// operands rounded and split; divisions stay float32.  The wrapper's Gram
-// product then runs K1's moded instantiation.
+// A `matmul_precision` mode (float32 only) runs in tri_inv_mode.cuh, one
+// instantiation a mode, with the update on the tensor cores; the
+// wrapper's Gram product then runs K1's moded instantiation.
 #include <cuda_runtime.h>
 
-#include "mm_mode.cuh"
+#include "tri_inv.cuh"
+#include "tri_inv_mode.cuh"
 
 namespace {
 
-using onephase::MmMode;
+using onephase::ld_cg;
 
-constexpr int TC = 64;         // columns per block
-constexpr int RC = 32;         // rows per chunk = k rows per staged slab
+constexpr int TC = onephase::TI_TC;         // columns per block
+constexpr int RC = onephase::TI_RC;         // rows per chunk = slab depth
 constexpr int LDX = TC + 4;    // padded row of Xs, a multiple of 4
-constexpr int THREADS = 256;   // 16 x 16 threads, a 4 x 4 block each
+constexpr int THREADS = onephase::TI_THREADS;   // 16 x 16, a 4 x 4 block each
 
 __device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
   const float4 q = *reinterpret_cast<const float4*>(p);
@@ -78,19 +77,6 @@ __device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
 __device__ __forceinline__ void st4(double* p, const double (&v)[4]) {
   reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
   reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
-}
-
-// Li's solved rows, read back through L2.  Volatile with a memory clobber,
-// so the load stays after the barrier that orders this block's stores.
-__device__ __forceinline__ float ld_cg(const float* p) {
-  float v;
-  asm volatile("ld.global.cg.f32 %0, [%1];" : "=f"(v) : "l"(p) : "memory");
-  return v;
-}
-__device__ __forceinline__ double ld_cg(const double* p) {
-  double v;
-  asm volatile("ld.global.cg.f64 %0, [%1];" : "=d"(v) : "l"(p) : "memory");
-  return v;
 }
 
 // Place of L-slab entry (k row p, tile row r) in its row of Ls: the rows
@@ -147,37 +133,19 @@ __device__ __forceinline__ void store_x(T (*Xs)[LDX], const T (&v)[8]) {
 }
 
 // acc[a][j] += sum over p of L-slab(ty + 16 a, p) * Xs[p][4 tx + j], p
-// ascending, for a >= A0 (A0 = 2: chunk B's rows only); MODED: each entry
-// split once a step, the products in `md`.
-template <int A0, bool MODED, typename T>
+// ascending, for a >= A0 (A0 = 2: chunk B's rows only).
+template <int A0, typename T>
 __device__ __forceinline__ void update(T (*Ls)[TC], T (*Xs)[LDX],
-                                       int tx, int ty, T (&acc)[4][4],
-                                       MmMode md) {
-  // (MODED: one k row at a time, so that the moded products are not
-  // copied by the unrolling)
-#pragma unroll(MODED ? 1 : RC)
+                                       int tx, int ty, T (&acc)[4][4]) {
+#pragma unroll
   for (int p = 0; p < RC; ++p) {
     T lv[4], xv[4];
     ld4(&Ls[p][4 * (ty ^ (p & 7))], lv);
     ld4(&Xs[p][4 * tx], xv);
-    if constexpr (MODED) {
-      float lp[4][3], xp[4][3];
 #pragma unroll
-      for (int a = A0; a < 4; ++a) onephase::mm_split(lv[a], md, lp[a]);
+    for (int a = A0; a < 4; ++a)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) onephase::mm_split(xv[j], md, xp[j]);
-#pragma unroll
-      for (int a = A0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[a][j] = onephase::mm_fma_parts(lp[a], xp[j], acc[a][j],
-                                             md.passes);
-    } else {
-#pragma unroll
-      for (int a = A0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[a][j] += lv[a] * xv[j];
-    }
+      for (int j = 0; j < 4; ++j) acc[a][j] += lv[a] * xv[j];
   }
 }
 
@@ -205,12 +173,11 @@ __device__ __forceinline__ void put_rhs(T (*Xs)[LDX], const T (&acc)[4][4],
 // other, so the dependent chain is one division and one FMA a step.  Every
 // thread of the two warps reads the same L entry (a broadcast).  The
 // solution goes back to Xs and to Li (row Rc + i at Xrow + i n).  The other
-// warps wait at the caller's barrier.  MODED: x_p split once a step, each
-// product in `md`.
-template <bool MODED, typename T>
+// warps wait at the caller's barrier.
+template <typename T>
 __device__ __forceinline__ void solve_chunk(T (*Ls)[TC], T (*Xs)[LDX],
                                             int h, int rb, T* Xrow, int n,
-                                            int tc, MmMode md) {
+                                            int tc, TiClock& clk) {
   const int c = threadIdx.x;
   if (c >= TC) return;
   // tile row 32 h + i of k row p: lslot(p, i) + 2 h (i < 32)
@@ -218,30 +185,15 @@ __device__ __forceinline__ void solve_chunk(T (*Ls)[TC], T (*Xs)[LDX],
   T s[RC];
 #pragma unroll
   for (int i = 0; i < RC; ++i) s[i] = Xs[i][c];
-  if constexpr (MODED) {
-    // not unrolled: s lives in local memory, one moded product a step
-#pragma unroll 1
-    for (int p = 0; p < rb; ++p) {
-      s[p] = s[p] / Lh[p * TC + lslot(p, p)];
-      float xp[3];
-      onephase::mm_split(-s[p], md, xp);
-#pragma unroll 1
-      for (int i = p + 1; i < RC; ++i) {
-        float lp[3];
-        onephase::mm_split(Lh[p * TC + lslot(p, i)], md, lp);
-        s[i] = onephase::mm_fma_parts(lp, xp, s[i], md.passes);
-      }
-    }
-  } else {
 #pragma unroll
-    for (int p = 0; p < RC; ++p) {
-      if (p >= rb) break;
-      s[p] = s[p] / Lh[p * TC + lslot(p, p)];
+  for (int p = 0; p < RC; ++p) {
+    if (p >= rb) break;
+    s[p] = s[p] / Lh[p * TC + lslot(p, p)];
 #pragma unroll
-      for (int i = p + 1; i < RC; ++i)
-        s[i] -= Lh[p * TC + lslot(p, i)] * s[p];
-    }
+    for (int i = p + 1; i < RC; ++i)
+      s[i] -= Lh[p * TC + lslot(p, i)] * s[p];
   }
+  clk.mark(onephase::TI_STORE);
 #pragma unroll
   for (int i = 0; i < RC; ++i) {
     Xs[i][c] = s[i];
@@ -249,14 +201,9 @@ __device__ __forceinline__ void solve_chunk(T (*Ls)[TC], T (*Xs)[LDX],
   }
 }
 
-// MODED (float32 only): every product L[r, k] Li[k, c] in the matmul mode
-// `mode` (mm_mode.cuh); the IEEE instantiations ignore it.
-template <typename T, bool MODED>
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-tri_inv_kernel(const T* __restrict__ L, T* __restrict__ Li, int n,
-               int mode) {
-  static_assert(!MODED || sizeof(T) == 4, "modes are float32 only");
-  const MmMode md = onephase::mm_mode(mode);
+tri_inv_kernel(const T* __restrict__ L, T* __restrict__ Li, int n) {
   __shared__ __align__(16) T Ls[RC][TC];    // L slab, rows permuted
   __shared__ __align__(16) T Xs[RC][LDX];   // Li slab; a chunk's rhs/solution
 
@@ -268,6 +215,9 @@ tri_inv_kernel(const T* __restrict__ L, T* __restrict__ Li, int n,
   T* X = Li + (long long)b * nn;
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int tx = (lane & 7) + 8 * (w & 1), ty = (lane >> 3) + 4 * (w >> 1);
+  TiClock clk;
+  clk.start();
+  clk.mark(onephase::TI_STORE);
 
   // rows above the diagonal block are zero
   for (long long e = tid; e < (long long)c0 * TC; e += THREADS) {
@@ -277,6 +227,7 @@ tri_inv_kernel(const T* __restrict__ L, T* __restrict__ Li, int n,
   }
 
   T lreg[8], xreg[8];
+  clk.mark(onephase::TI_LOAD);
   for (int R0 = c0; R0 < n; R0 += 2 * RC) {
     T acc[4][4];
 #pragma unroll
@@ -296,56 +247,79 @@ tri_inv_kernel(const T* __restrict__ L, T* __restrict__ Li, int n,
         load_l(Lb, n, R0, k0 + RC, lreg);
         load_x(X, n, k0 + RC, c0, tc, xreg);
       }
-      update<0, MODED>(Ls, Xs, tx, ty, acc, md);
+      clk.mark(onephase::TI_UPDATE);
+      update<0>(Ls, Xs, tx, ty, acc);
+      clk.mark(onephase::TI_LOAD);
       __syncthreads();
     }
     // chunk A: rows R0 .. R0 + 31; Ls = L[R0 + r, R0 + p] holds its
     // diagonal block (r < 32) and chunk B's last 32 terms (r >= 32)
     load_l(Lb, n, R0, R0, lreg);
     store_l(Ls, lreg);
+    clk.mark(onephase::TI_SOLVE);
     put_rhs<0>(Xs, acc, R0, c0, tx, ty);
+    clk.mark(onephase::TI_LOAD);
     __syncthreads();
-    solve_chunk<MODED>(Ls, Xs, 0, min(RC, n - R0),
-                       X + (long long)R0 * n + c0, n, tc, md);
+    clk.mark(onephase::TI_SOLVE);
+    solve_chunk(Ls, Xs, 0, min(RC, n - R0),
+                       X + (long long)R0 * n + c0, n, tc, clk);
+    clk.mark(onephase::TI_LOAD);
     __syncthreads();
     if (R0 + RC >= n) break;
     // chunk B: rows R0 + 32 .. R0 + 63
-    update<2, MODED>(Ls, Xs, tx, ty, acc, md);
+    clk.mark(onephase::TI_UPDATE);
+    update<2>(Ls, Xs, tx, ty, acc);
+    clk.mark(onephase::TI_LOAD);
     __syncthreads();
     load_l(Lb, n, R0, R0 + RC, lreg);
     store_l(Ls, lreg);
+    clk.mark(onephase::TI_SOLVE);
     put_rhs<2>(Xs, acc, R0 + RC, c0, tx, ty);
+    clk.mark(onephase::TI_LOAD);
     __syncthreads();
-    solve_chunk<MODED>(Ls, Xs, 1, min(RC, n - R0 - RC),
-                       X + (long long)(R0 + RC) * n + c0, n, tc, md);
+    clk.mark(onephase::TI_SOLVE);
+    solve_chunk(Ls, Xs, 1, min(RC, n - R0 - RC),
+                       X + (long long)(R0 + RC) * n + c0, n, tc, clk);
+    clk.mark(onephase::TI_LOAD);
     __syncthreads();
   }
+  clk.write();
 }
 
-template <typename T, bool MODED>
-int launch_tri_inv(const void* L, void* Li, int B, int n, int mode,
-                   void* stream) {
+template <typename T>
+int launch_tri_inv(const void* L, void* Li, int B, int n, void* stream) {
   const int nct = (n + TC - 1) / TC;
   if (nct > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid(B, nct);
-  tri_inv_kernel<T, MODED><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)L, (T*)Li, n, mode);
+  tri_inv_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)L, (T*)Li, n);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// `mode`: a matmul mode's code (mm_mode.cuh), 0 = IEEE; float64 takes 0
-// only
+#ifdef ONEPHASE_TRI_INV_CLOCKS
+// op_tri_inv_f32 with the phase clocks written to `clk` (int64, (B
+// ceil(n / 64), TI_CLK_SLOTS), zeroed by the caller)
+extern "C" int op_tri_inv_clocks_f32(const void* L, void* Li, int B, int n,
+                                     int mode, void* clk, void* stream) {
+  const int err = set_tri_inv_clocks(clk, stream);
+  if (err != 0) return err;
+  if (mode != 0) return tri_inv_mode_launch(L, Li, B, n, mode, stream);
+  return launch_tri_inv<float>(L, Li, B, n, stream);
+}
+#else
+// `mode`: a matmul mode's code (mm_mode.cuh; tri_inv_mode.cuh), 0 = IEEE;
+// float64 takes 0 only
 extern "C" int op_tri_inv_f32(const void* L, void* Li, int B, int n,
                               int mode, void* stream) {
-  if (mode == 0) return launch_tri_inv<float, false>(L, Li, B, n, 0, stream);
-  if (!onephase::mm_mode_valid(mode)) return (int)cudaErrorInvalidValue;
-  return launch_tri_inv<float, true>(L, Li, B, n, mode, stream);
+  if (mode == 0) return launch_tri_inv<float>(L, Li, B, n, stream);
+  return tri_inv_mode_launch(L, Li, B, n, mode, stream);
 }
 
 extern "C" int op_tri_inv_f64(const void* L, void* Li, int B, int n,
                               int mode, void* stream) {
   if (mode != 0) return (int)cudaErrorInvalidValue;
-  return launch_tri_inv<double, false>(L, Li, B, n, 0, stream);
+  return launch_tri_inv<double>(L, Li, B, n, stream);
 }
+#endif

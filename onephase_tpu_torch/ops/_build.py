@@ -15,9 +15,12 @@ point, `op_chol_clocks_f32`, is K2 with clock64() stamps at its phase
 boundaries (`ops/cholesky.py:chol_phases`), and "tridiag", the sources of
 K7 and K5 compiled with -DONEPHASE_TRIDIAG_CLOCKS, whose entry points
 `op_tridiag_factor_clocks_f32` and `op_tridiag_solve_clocks_f32` stamp
-theirs (`ops/tridiag_pallas.py:tridiag_phases`).  No solver path calls
-them.  Each is built apart, at its first use, so that it does not slow
-the kernels' build.
+theirs (`ops/tridiag_pallas.py:tridiag_phases`), and "tri_inv", K3's
+inverse (`csrc/tri_inv.cu` with `tri_inv_mode.cuh`) compiled with
+-DONEPHASE_TRI_INV_CLOCKS, whose entry point `op_tri_inv_clocks_f32`
+stamps its phases (`ops/cholesky.py:tri_inv_phases`).  No solver path
+calls them.  Each is built apart, at its first use, so that it does not
+slow the kernels' build.
 """
 
 from __future__ import annotations
@@ -81,6 +84,9 @@ _CLOCKED = {
                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
                  "op_tridiag_solve_clocks_f32":
                      [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P]}),
+    # K3's inverse: L, Li, B, n, mode, clk (B * ceil(n / 64), 8), stream
+    "tri_inv": (("tri_inv.cu",), "-DONEPHASE_TRI_INV_CLOCKS",
+                {"op_tri_inv_clocks_f32": [_P, _P, _I, _I, _I, _P, _P]}),
 }
 
 
@@ -184,7 +190,8 @@ def library():
 
 
 def clock_library(name: str = "chol"):
-    """The measurement library `name` ("chol" or "tridiag"; see the module
+    """The measurement library `name` ("chol", "tridiag" or "tri_inv"; see
+    the module
     docstring), built first if needed; safe to call from several threads
     (chip_smoke.py builds the "chol" one in a thread while the card
     works)."""

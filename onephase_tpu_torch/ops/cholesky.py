@@ -263,6 +263,41 @@ def launch_tri_inv(L, Li, mode=None):
     _build.check(err, "tri_inv")
 
 
+# K3's inverse's phases, as the clocked copy of csrc/tri_inv.cu stamps them
+TRI_INV_PHASES = ("other", "load", "update", "solve", "store")
+
+
+def tri_inv_phases(L, mode=None):
+    """Where the time of K3's inverse goes on float32 CUDA `L` in matmul
+    mode `mode`: one launch of the clocked copy of its kernels
+    (`_build.clock_library("tri_inv")`, `op_tri_inv_clocks_f32`, whose
+    thread 0 of every block, one of the substitution's threads, reads
+    clock64() at each phase boundary).  Returns {"share": {phase: cycles
+    over the block's total, mean over the blocks}, "cycles": mean cycles a
+    block}: the slab loads, their stores to shared memory (a moded kernel:
+    and their split) and the barriers; the update product; a chunk's
+    right-hand side and its substitution; the stores of Li; the rest.  A
+    measurement: the solver never calls it."""
+    _check_square(L, "tri_inv_phases")
+    if L.device.type != "cuda" or L.dtype != torch.float32:
+        raise ValueError("tri_inv_phases: a float32 CUDA batch")
+    B, n = L.shape[0], L.shape[-1]
+    Li = torch.empty_like(L)
+    k = len(TRI_INV_PHASES)
+    clk = torch.zeros(B * -(-n // 64), 8, dtype=torch.int64, device=L.device)
+    with torch.cuda.device(L.device):
+        err = _build.clock_library("tri_inv").op_tri_inv_clocks_f32(
+            L.data_ptr(), Li.data_ptr(), B, n,
+            precision.kernel_mode(L, mode).code, clk.data_ptr(),
+            _build.stream_ptr(L))
+    _build.check(err, "tri_inv_clocks")
+    rows = clk[:, :k + 1].double().cpu()
+    rows = rows[rows[:, k] > 0]
+    share = (rows[:, :k] / rows[:, k:]).mean(0)
+    return {"share": dict(zip(TRI_INV_PHASES, share.tolist())),
+            "cycles": float(rows[:, k].mean())}
+
+
 def pallas_tri_inv_gram(L, mode=None):
     """M = (L L^T)^-1 = L^-T L^-1 for a batch of lower-triangular L (the
     strict upper triangle must be zero, as `pallas_chol` leaves it), in

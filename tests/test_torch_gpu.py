@@ -858,3 +858,147 @@ def test_modes_refused_where_not_built(cuda):
                                     "matmul_precision": "BF16_BF16_F32"})
     ChainKernel(chain_ocp(K=4, nx=2, mc=1, device=cuda), pars,
                 dtype=torch.float32, device=cuda)
+
+
+# ---------------------------------------------------------------------
+# K1 in float64 on the FP64 tensor cores (fused_q_dmma_kernel, mma.sync
+# m16n8k8 f64): n off the 64 and 128 tiles and n = 2048, m = 0 and m off
+# the mma's depth of 8, shared and per-instance Jc, H = None, w over
+# 1e-8 .. 1e8, the 64- and the 128-edge grids, one-element copies (odd n)
+# ---------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, m, B, shared, h, spread", [
+    (130, 70, 3, True, True, False), (200, 37, 2, False, True, False),
+    (2048, 1024, 16, True, True, False), (1030, 70, 16, True, False, True),
+    (256, 0, 16, True, True, False), (77, 13, 1, False, False, True),
+    (255, 9, 96, False, True, False), (1024, 517, 64, True, True, True)])
+def test_fused_q_float64_dmma_edges(cuda, n, m, B, shared, h, spread):
+    """K1 within 1e-10 of its plain version, its rank-m part bit-symmetric,
+    K6's full Q equal to K1's bit for bit, one launch tallied."""
+    dt = torch.float64
+    Jc, w, H, bnd = _fq_inputs(np.random.default_rng(n + 5 * m + B), n, m,
+                               B, shared, dt, cuda)
+    H = H if h else None
+    if spread:
+        w = torch.as_tensor(10.0 ** np.random.default_rng(m).uniform(
+            -8.0, 8.0, size=(B, m)), dtype=dt, device=cuda)
+    ops.reset_launch_counts()
+    Q = schur.pallas_fused_q(Jc, w, H, bnd)
+    assert ops.launch_modes() == {"fused_q": {"ieee": 1}}
+    assert _rel_err(Q, schur.xla_fused_q(Jc, w, H, bnd)) <= TOL[dt]
+    R = schur.pallas_fused_q(Jc, w, None, torch.zeros_like(bnd))
+    assert torch.equal(R, R.mT)
+    assert torch.equal(Q, schur.pallas_fused_q_tri(Jc, w, H, bnd))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n, B", [(65, 3), (130, 3), (1030, 16), (256, 16)])
+def test_fused_q_float64_lower_mode_on_an_inverse(cuda, n, B):
+    """K1's `lower` mode in float64 (K3's Gram half) on an L^-1: M = Li^T
+    Li within 1e-10 of the plain product, bit-symmetric, and K3's M."""
+    dt = torch.float64
+    L = ch.pallas_chol(_spd(np.random.default_rng(n), B, n, dt, cuda))[0]
+    Li = torch.empty_like(L)
+    ch.launch_tri_inv(L, Li)
+    G = torch.empty_like(Li)
+    schur.launch_fused_q(Li, None, None, None, G, lower=True)
+    assert torch.equal(G, G.mT)
+    assert _rel_err(G, Li.mT @ Li) <= TOL[dt]
+    assert torch.equal(G, ch.pallas_tri_inv_gram(L))
+
+
+# ---------------------------------------------------------------------
+# K3's inverse in the matmul modes (csrc/tri_inv_mode.cuh): the update on
+# the tensor cores, the substitution split once
+# ---------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode_name", _mode_ids())
+@pytest.mark.parametrize("n", [1, 31, 33, 63, 65, 130])
+def test_tri_inv_in_mode_at_the_chunk_edges(cuda, mode_name, n):
+    """The moded inverse at n on both sides of its 32-row chunks and
+    64-column tiles: lower triangular, within chip_smoke.py's PREC_TOL of
+    its twin (the same 32-row recurrence), and as close to its mode's
+    recurrence as the IEEE kernel is to IEEE's (float32 sums: at most 4x,
+    or 1e-7); the whole of K3 tallied under the mode."""
+    from onephase_tpu_torch.ops import precision
+    mode = next(x for x in precision.CARD_MODES if str(x) == mode_name)
+    smoke = _smoke()
+    tol = smoke.PREC_TOL.get(mode_name, smoke.PREC_TOL_DEFAULT)
+    B = 3
+    L = ch.pallas_chol(_spd(np.random.default_rng(n + 1), B, n,
+                            torch.float32, cuda), mode=precision.IEEE)[0]
+    X, Xi = torch.empty_like(L), torch.empty_like(L)
+    ch.launch_tri_inv(L, X, mode)
+    ch.launch_tri_inv(L, Xi, precision.IEEE)
+    assert bool(torch.isfinite(X).all())
+    assert torch.equal(X, X.tril())
+    assert _rel_err(X, ch.blocked_tri_inv(L, mode=mode)) <= tol
+    assert smoke.inverse_residual(L, X, mode) <= max(
+        4.0 * smoke.inverse_residual(L, Xi, precision.IEEE), 1e-7)
+    ops.reset_launch_counts()
+    M = ch.pallas_tri_inv_gram(L, mode=mode)
+    assert ops.launch_modes() == {"tri_inv_gram": {mode_name: 1}}
+    assert torch.equal(M, M.mT)
+
+
+@pytest.mark.gpu
+def test_mode_codes_through_the_library(cuda):
+    """Through the built library: K3's float32 inverse launches code 0
+    (IEEE) and every card mode's code and refuses every other code of the
+    kinds 0-3 and pass counts 0-15 (nothing runs as IEEE in its place);
+    K3's float64 inverse and K1's float64 route take code 0 alone."""
+    from onephase_tpu_torch.ops import _build, precision
+    card = {m.code for m in precision.CARD_MODES}
+    L = ch.pallas_chol(_spd(np.random.default_rng(5), 2, 40, torch.float32,
+                            cuda))[0]
+
+    def inverse(L, code):
+        X = torch.empty_like(L)
+        with torch.cuda.device(cuda):
+            return _build.entry("op_tri_inv", L.dtype)(
+                L.data_ptr(), X.data_ptr(), L.shape[0], L.shape[-1], code,
+                _build.stream_ptr(L))
+
+    for code in range(0x40):
+        assert (inverse(L, code) == 0) == (code == 0 or code in card), \
+            hex(code)
+    assert inverse(L.double(), 0) == 0
+    assert all(inverse(L.double(), code) != 0 for code in card)
+    Jc, w, H, bnd = _fq_inputs(np.random.default_rng(6), 40, 8, 2, True,
+                               torch.float64, cuda)
+    Q = torch.empty(2, 40, 40, dtype=torch.float64, device=cuda)
+
+    def fused_q(code):   # Jc and H shared: batch strides 0
+        with torch.cuda.device(cuda):
+            return _build.entry("op_fused_q", torch.float64)(
+                Jc.data_ptr(), 0, w.data_ptr(), H.data_ptr(), 0,
+                bnd.data_ptr(), Q.data_ptr(), 2, 8, 40, 0, code,
+                _build.stream_ptr(Q))
+
+    assert fused_q(0) == 0
+    assert all(fused_q(code) != 0 for code in card)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode_name", ["ieee", "tf32", "bf16_x9", "f16"])
+@pytest.mark.parametrize("n, B", [(130, 3), (256, 4)])
+def test_tri_inv_phases_on_the_card(cuda, mode_name, n, B):
+    """The clocked copy of K3's inverse (`tri_inv_phases`) runs in IEEE
+    and in the modes: every share in [0, 1], the shares summing to 1, a
+    positive cycle count, no share for a phase the kernel lacks; refused
+    on float64."""
+    from onephase_tpu_torch.ops import precision
+    mode = next((x for x in precision.CARD_MODES if str(x) == mode_name),
+                precision.IEEE)
+    L = ch.pallas_chol(_spd(np.random.default_rng(n), B, n, torch.float32,
+                            cuda), mode=precision.IEEE)[0]
+    out = ch.tri_inv_phases(L, mode)
+    share = out["share"]
+    assert list(share) == list(ch.TRI_INV_PHASES)
+    assert all(0.0 <= v <= 1.0 for v in share.values())
+    assert abs(sum(share.values()) - 1.0) < 1e-6
+    assert out["cycles"] > 0
+    assert share["update"] > 0 and share["solve"] > 0
+    with pytest.raises(ValueError):
+        ch.tri_inv_phases(L.double())

@@ -19,6 +19,7 @@ earlier values bit for bit.  On a machine with a CUDA card:
     python3 tools/kernel_equal.py --parent _parent --kernel tridiag_factor # K7
     python3 tools/kernel_equal.py --parent _parent --kernel chol_modes
     python3 tools/kernel_equal.py --parent _parent --kernel tridiag_factor_k1
+    python3 tools/kernel_equal.py --parent _parent --kernel tri_inv_modes
 
 The other checkout's `onephase_tpu_torch` is imported under another name
 (its kernels build into its own `build/`).
@@ -73,6 +74,23 @@ K = 1 (no block product: the tile Cholesky and inverse alone) in every
 card mode, B = 3, nb in {1, 5, 30, 32, 33, 63, 64}; `torch.equal` on Ck,
 Ci and ok.  No timings.
 
+`--kernel tri_inv_modes`: both packages' K3 inverse (`launch_tri_inv`) in
+every card mode on the factor of chip_smoke.py's precision-phase Q (n
+1024, B 64; the bench QP's 256/16) and at the chunk edges (n 1, 31, 33,
+63, 65, 130), and on chip_smoke.py's one-product operands (n 256, B 4).
+A redesign of the moded inverse may move its values (the order of its
+sums): each case prints the entries that differ and the largest
+difference relative to the largest entry, and holds each tree's inverse
+to the recurrence of its mode, in float64 (chip_smoke.py's
+`inverse_residual`: X[r, c] L[r, r] = delta_rc - sum_{k<r} m(L[r, k],
+X[k, c])).  A case holds where this
+tree's residual is at most 4x the other's (or 1e-7) and, on the
+one-product operands, where the two trees agree bit for bit.  The whole
+K3 (inverse and Gram) is timed in turns at n 1024 in every mode.  Unlike
+the bit-for-bit checks, this one passes with values that moved: each mode
+ends on a line with its differing entries over all cases and the largest
+ratio of this tree's residual to the other's.
+
 Each case prints whether its check holds and how many entries differ.
 Then both are timed in turns (other, this, this, other; medians of
 CUDA-event times around each call) at the paths' shapes, and each
@@ -123,9 +141,10 @@ FQ_CASES = [
     (1024, 1024, 4, False, True, False), (1030, 70, 16, False, True, False),
     (2048, 1024, 16, True, True, False), (256, 128, 16, True, True, True),
     (1024, 512, 64, True, True, True)]
-# the dense path's three shapes (n, m, B) and its f64 check at n=1024
+# the dense path's three shapes (n, m, B), in f32 and f64
 FQ_TIMED = (("float32", 256, 128, 16), ("float32", 1024, 512, 64),
-            ("float32", 2048, 1024, 16), ("float64", 1024, 512, 64))
+            ("float32", 2048, 1024, 16), ("float64", 256, 128, 16),
+            ("float64", 1024, 512, 64), ("float64", 2048, 1024, 16))
 # K6: (n, m, B, Jc and H shared, H: "sym", "unsym" or None), each in f32
 # and f64: the dense shapes, ragged n on both tile edges, both grids
 FQT_CASES = [
@@ -613,6 +632,80 @@ def check_tridiag_factor_k1(parent: Path, dev):
     return results, [], differing
 
 
+def check_tri_inv_modes(parent: Path, dev):
+    """K3's inverse of both trees in every card mode: (results, timings,
+    differing)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from onephase_tpu_torch.ops import cholesky as new
+    from onephase_tpu_torch.ops import precision
+    old = _load(parent, "parent_onephase_tpu_torch", "ops.cholesky")
+    old_prec = _load(parent, "parent_onephase_tpu_torch", "ops.precision")
+
+    def inverse(mod, L, md):
+        X = torch.empty_like(L)
+        mod.launch_tri_inv(L, X, md)
+        torch.cuda.synchronize()
+        return X
+
+    cases = []
+    for n, B in ((1024, 64), (256, 16), (1, 2), (31, 2), (33, 2), (63, 2),
+                 (65, 2), (130, 3)):
+        # chip_smoke.py's _prec_kernels draws: Jc, w, bnd, then Q
+        rng = np.random.default_rng(n + B)
+        rng.normal(size=(n // 2, n))
+        rng.uniform(0.1, 10.0, size=(B, n // 2))
+        rng.uniform(0.0, 5.0, size=(B, n))
+        Q = chip_smoke._spd(rng, B, n, torch.float32, dev)
+        cases.append((f"n={n} B={B}",
+                      new.pallas_chol(Q, mode=precision.IEEE)[0], False))
+    cases.append(("one-product n=256 B=4",
+                  chip_smoke.one_product_operands(4, 256, 5, dev)[1], True))
+    differing, results = 0, []
+    for label, L, exact in cases:
+        for md_new, md_old in _card_modes(old_prec):
+            X_new, X_old = inverse(new, L, md_new), inverse(old, L, md_old)
+            n_diff = int((X_new != X_old).sum())
+            rel = float((X_new.double() - X_old.double()).abs().max()
+                        / X_old.double().abs().max())
+            r_new = chip_smoke.inverse_residual(L, X_new, md_new)
+            r_old = chip_smoke.inverse_residual(L, X_old, md_new)
+            finite = bool(torch.isfinite(X_new).all())
+            ok = finite and (n_diff == 0 if exact else
+                             r_new <= max(4.0 * r_old, 1e-7))
+            differing += not ok
+            results.append(dict(case=label, mode=str(md_new), holds=ok,
+                                differing_entries=n_diff, rel_diff=rel,
+                                residual=r_new, other_residual=r_old,
+                                finite=finite))
+            print(f"K3 inverse {md_new} {label}: holds {ok} ({n_diff} "
+                  f"entries differ, max {rel:.2e} of the largest; residual "
+                  f"{r_new:.2e}, other checkout's {r_old:.2e})", flush=True)
+            del X_new, X_old
+    for md_new, _ in _card_modes(old_prec):
+        rows = [r for r in results if r["mode"] == str(md_new)]
+        ratio = max((r["residual"] / r["other_residual"]
+                     if r["other_residual"] > 0 else
+                     (1.0 if r["residual"] == 0 else float("inf")))
+                    for r in rows)
+        print(f"K3 inverse {md_new}: "
+              f"{sum(r['differing_entries'] for r in rows)} entries differ "
+              f"in {sum(r['differing_entries'] > 0 for r in rows)} of "
+              f"{len(rows)} cases; residual at most {ratio:.3f}x the other "
+              f"checkout's", flush=True)
+    timings = []
+    L = cases[0][1]
+    for md_new, md_old in _card_modes(old_prec):
+        t_old, t_new = _time_abba(
+            lambda: old.pallas_tri_inv_gram(L, mode=md_old),
+            lambda: new.pallas_tri_inv_gram(L, mode=md_new))
+        timings.append(dict(mode=str(md_new), n=1024, B=64, other_ms=t_old,
+                            this_ms=t_new))
+        print(f"K3 {md_new} n=1024 B=64: other checkout {t_old:.4f} ms, "
+              f"this tree {t_new:.4f} ms ({t_new / t_old:.3f}x)", flush=True)
+    return results, timings, differing
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, type=Path,
@@ -622,12 +715,13 @@ def main() -> int:
                     choices=("tri_inv_gram", "fused_q", "chol",
                              "fused_q_tri", "tridiag_solve",
                              "tridiag_factor", "chol_modes",
-                             "tridiag_factor_k1"),
+                             "tridiag_factor_k1", "tri_inv_modes"),
                     help="K3 (tri_inv_gram, the default), K1 (fused_q), K2 "
                          "(chol), K6 (fused_q_tri), K5 (tridiag_solve), K7 "
                          "(tridiag_factor), K2 in every card mode "
                          "(chol_modes), K7 at K = 1 in every card mode "
-                         "(tridiag_factor_k1); several run in turn in one "
+                         "(tridiag_factor_k1), K3's inverse in every card "
+                         "mode (tri_inv_modes); several run in turn in one "
                          "process")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -646,7 +740,8 @@ def main() -> int:
               "tridiag_solve": check_tridiag_solve,
               "tridiag_factor": check_tridiag_factor,
               "chol_modes": check_chol_modes,
-              "tridiag_factor_k1": check_tridiag_factor_k1}
+              "tridiag_factor_k1": check_tridiag_factor_k1,
+              "tri_inv_modes": check_tri_inv_modes}
     any_differ = False
     for kernel in args.kernel:
         results, timings, differing = checks[kernel](args.parent.resolve(),

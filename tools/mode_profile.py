@@ -6,6 +6,7 @@ beside them.
     python3 tools/mode_profile.py                   # this tree alone
     python3 tools/mode_profile.py --parent _parent  # and another checkout's
     python3 tools/mode_profile.py --only tridiag    # K7 and K5 alone
+    python3 tools/mode_profile.py --only tri_inv    # K3's two halves alone
 
 At chip_smoke.py's PREC_SHAPE (n 1024, m 512, B 64) and the bench QP's
 shape (256, 128, 16), on the operands of chip_smoke.py's precision phase
@@ -42,6 +43,15 @@ copy of their sources, -DONEPHASE_TRIDIAG_CLOCKS): K7's cp.async waits,
 E E^T, the tile Cholesky and inverse, B_k Ci_k^T and the stores; K5's ring
 waits, its first chain, the consumers' middle sync, its second chain and
 the stage's handoff.
+
+K3 alone (`--only tri_inv`) runs at PREC_SHAPE: its inverse
+(`launch_tri_inv`), its Gram half (K1's `lower` mode) and the whole
+(`pallas_tri_inv_gram`) in IEEE and every card mode, timed as above,
+beside `cholesky_inverse`, and its inverse's phase split from
+`ops/cholesky.py:tri_inv_phases` (the clocked copy of its sources,
+-DONEPHASE_TRI_INV_CLOCKS): the slab loads, their stores to shared memory
+(and, in a mode, their split) and the barriers; the update product; a
+chunk's right-hand side and substitution; Li's stores; the rest.
 
 Prints one line a kernel and shape, then one JSON object (also written to
 `--out`, when given).
@@ -284,6 +294,54 @@ def profile_tridiag(this, other, dev) -> dict:
     return report
 
 
+def _tri_inv_kernels(mods, ops):
+    """K3's inverse, its Gram half and the whole, as {name: fn(mode)}."""
+    _, _, _, _, L, Li = ops
+    sc, ch = mods["schur"], mods["cholesky"]
+    X, G = torch.empty_like(L), torch.empty_like(L)
+    return {"tri_inv": lambda md: ch.launch_tri_inv(L, X, md),
+            "gram": lambda md: sc.launch_fused_q(Li, None, None, None, G,
+                                                 lower=True, mode=md),
+            "tri_inv_gram": lambda md: ch.pallas_tri_inv_gram(L, mode=md)}
+
+
+def profile_tri_inv(this, other, dev) -> dict:
+    """K3 at SHAPES[0]: its halves and the whole in every mode (in turns
+    with the other tree's where given), `cholesky_inverse`, and each
+    tree's phase split of the inverse, the shares times the inverse's own
+    time giving each phase's milliseconds."""
+    n, m, B = SHAPES[0]
+    ops = _operands(n, m, B, dev, this)
+    key = f"{n}/{B}"
+    L = ops[4]
+    res = {"cholesky_inverse":
+           _time([lambda: torch.cholesky_inverse(L)])[0]}
+    print(f"{key} cholesky_inverse {res['cholesky_inverse']:.4f} ms",
+          flush=True)
+    res.update(_time_rows(_tri_inv_kernels(this, ops),
+                          _tri_inv_kernels(other, ops) if other else None,
+                          this, other))
+    _print_rows(key, {k: v for k, v in res.items() if isinstance(v, dict)})
+    split = {}
+    for md in _modes(this["precision"]):
+        for tree, mods in (("this", this), ("parent", other)):
+            fn = getattr(mods["cholesky"], "tri_inv_phases", None) \
+                if mods is not None else None
+            if fn is None:
+                continue
+            s = fn(L, mods["precision"].Mode(md.kind, md.passes))
+            ms = res["tri_inv"][str(md)]["ms" if tree == "this"
+                                         else "parent_ms"]
+            s["ms"] = {p: v * ms for p, v in s["share"].items()}
+            split.setdefault(tree, {})[str(md)] = s
+            print(f"{key} K3 inverse phases {tree} {md}: " + ", ".join(
+                f"{p} {v * 100:.1f}% {s['ms'][p]:.4f} ms"
+                for p, v in s["share"].items())
+                + f" ({s['cycles']:.0f} cycles a block)", flush=True)
+    res["phases"] = split
+    return {key: res}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path,
@@ -291,8 +349,9 @@ def main() -> int:
                          "onephase_tpu_torch/, timed in turns with this one")
     ap.add_argument("--out", type=Path,
                     help="also write the JSON report to this file")
-    ap.add_argument("--only", choices=("dense", "tridiag"),
-                    help="profile K1-K3 (dense) or K7/K5 (tridiag) alone")
+    ap.add_argument("--only", choices=("dense", "tridiag", "tri_inv"),
+                    help="profile K1-K3 (dense), K7/K5 (tridiag) or K3's "
+                         "halves with its inverse's phases (tri_inv) alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("mode_profile: no CUDA device; the kernels run only "
@@ -312,9 +371,11 @@ def main() -> int:
         other = _load(args.parent.resolve(), "parent_onephase_tpu_torch")
         other["_build"].library()
     report = {"card": card, "shapes": {}}
-    if args.only != "dense":
+    if args.only == "tri_inv":
+        report["tri_inv"] = profile_tri_inv(this, other, dev)
+    if args.only in (None, "tridiag"):
         report["tridiag"] = profile_tridiag(this, other, dev)
-    for n, m, B in SHAPES if args.only != "tridiag" else ():
+    for n, m, B in SHAPES if args.only in (None, "dense") else ():
         ops = _operands(n, m, B, dev, this)
         key = f"{n}/{m}/{B}"
         res = {"yardsticks": _yardsticks(ops, n, m, B)}
