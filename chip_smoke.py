@@ -774,25 +774,68 @@ def _sm_max_hz() -> float:
     return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
-def _device_ms(fn, kernel) -> float:
-    """Mean device time of the CUDA kernel whose name holds `kernel`, over
-    REPS calls of `fn` traced by torch.profiler."""
+def _device_ms(fn, name) -> float:
+    """Mean device time of what `name` names, over REPS calls of `fn`
+    traced by torch.profiler: a CUDA kernel whose name holds `name` (a
+    launch's mean), or an aten operator ("aten::baddbmm": every kernel it
+    launched, a call's mean, the host traced too so that each kernel is
+    tied to the operator that launched it and no kernel of earlier work
+    counts).  A trace can miss the card's activity altogether: then it is
+    traced again, the host too, and where three traces saw none of it a
+    call's device time is read from CUDA events instead (`_queued_ms`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    op = name.startswith("aten::")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for attempt in range(3):
+        acts = [ProfilerActivity.CUDA]
+        if op or attempt:
+            acts.append(ProfilerActivity.CPU)
+        with profile(activities=acts) as prof:
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+        total, count, seen = 0.0, 0, set()
+        for ev in prof.key_averages():
+            if not getattr(ev, "device_time_total", 0):
+                continue
+            seen.add(ev.key[:80])
+            if (ev.key == name) if op else (name in ev.key):
+                total += ev.device_time_total
+                count += ev.count
+        if count and total:
+            return total / count / 1e3
+    ms = _queued_ms(fn)
+    print(f"torch.profiler saw no {name} in 3 traces (the last saw "
+          f"{sorted(seen)}): {ms:.4f} ms a call from CUDA events "
+          "(`_queued_ms`)", flush=True)
+    return ms
+
+
+def _queued_ms(fn) -> float:
+    """Device milliseconds a call of `fn` from CUDA events: REPS calls
+    queued behind a spin kernel (torch.cuda._sleep), so that the card runs
+    them back to back and no host work between them shows; the spin is
+    lengthened up to about half a second.  A call that waits for the card
+    itself (cholesky_ex may) never queues: then the median of REPS calls,
+    each between two events (`_time_ms`)."""
+    import torch
+    cycles = 1 << 24
+    for _ in range(4):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        t0.record()
         for _ in range(REPS):
             fn()
+        t1.record()
+        queued = not t0.query()
         torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if kernel in ev.key and getattr(ev, "device_time_total", 0):
-            total += ev.device_time_total
-            count += ev.count
-    if not count:
-        raise RuntimeError(f"torch.profiler saw no {kernel} on the card")
-    return total / count / 1e3
+        if queued:
+            return t0.elapsed_time(t1) / REPS
+        cycles *= 4
+    return _time_ms(fn)
 
 
 def _card_line() -> str:
@@ -874,13 +917,13 @@ def _ptxas_report(log, kernels):
     return out
 
 
-# the kernels that must not spill a register: K1's and K3's (the dense
-# KKT path's Q formation and finalize); the build's other spills are
-# printed (chol_kernel<double, false> and tridiag_factor_kernel<double,
-# 64, 512> spill 52-104 bytes, ROADMAP)
+# the kernels that must not spill a register: K1's, K2's and K3's (the
+# dense KKT path's Q formation, factorization and finalize); the build's
+# other spills are printed (tridiag_factor_kernel<double, 64, 512> spills
+# 52 bytes, ROADMAP)
 SPILL_FREE = ("fused_q_lower_kernel", "fused_q_dmma_kernel",
-              "fused_q_wg_kernel", "fused_q_tc_kernel", "tri_inv_kernel",
-              "tri_inv_mode_kernel")
+              "fused_q_wg_kernel", "fused_q_tc_kernel", "chol_kernel",
+              "tri_inv_kernel", "tri_inv_mode_kernel")
 
 
 def _no_spills(log, kernels=SPILL_FREE):
@@ -902,9 +945,9 @@ def _no_spills(log, kernels=SPILL_FREE):
     bad = [f"{f}: {v}" for f, v in spills
            if any(f"{len(k)}{k}" in f for k in kernels)]
     if bad:
-        raise RuntimeError("K1/K3 kernels spill registers: "
+        raise RuntimeError("K1/K2/K3 kernels spill registers: "
                            + "; ".join(bad))
-    print("ptxas: no K1 or K3 kernel spills a register"
+    print("ptxas: no K1, K2 or K3 kernel spills a register"
           + ("" if not spills else "; others: " + "; ".join(
               f"{f}: {v}" for f, v in spills)), flush=True)
 
@@ -944,6 +987,93 @@ def kernel_routes(dev):
         parts.append(f"{label}: {kernel} {_device_ms(fn, kernel):.4f} ms")
     print(f"kernel routes (torch.profiler, n={n} m={m} B={B}): "
           + "; ".join(parts), flush=True)
+
+
+# the launch path: calls a round, back to back, ended by one synchronize
+LAUNCH_CALLS = 200
+
+
+def host_call_ms(*fns, calls=LAUNCH_CALLS, rounds=REPS) -> list:
+    """Medians over `rounds` of the wall milliseconds a call of each
+    function takes, `calls` calls back to back ended by one synchronize,
+    the functions in turns (a, b, ..., b, a): what a caller that does not
+    wait pays a call, the host's work where it exceeds the device's."""
+    import torch
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    order = list(range(len(fns)))
+    order += order[::-1]
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for i in order:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fns[i]()
+            torch.cuda.synchronize()
+            times[i].append((time.perf_counter() - t0) / calls * 1e3)
+    return [float(np.median(ts)) for ts in times]
+
+
+def launch_path_cases(dev, trees):
+    """The launch path's cases: K1 at the bench QP's 256/128/16 (a shared
+    Jc and H) in float32 and float64 beside `baddbmm`, K2 at 256/16 and at
+    the scenario shapes (SCEN_CHOL_SHAPES) in both beside `cholesky_ex`.
+    `trees` maps a label to a tree's (ops.schur, ops.cholesky); returns
+    [(case, {label: fn}, library fn, the kernel's name for the profiler,
+    the library call's aten operator)] on one set of operands a case."""
+    import torch
+    rng = np.random.default_rng(13)
+    n, m, B = PREC_BENCH_SHAPE
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        Jc = torch.as_tensor(rng.normal(size=(m, n)) / np.sqrt(n),
+                             dtype=dtype, device=dev)
+        w = torch.as_tensor(rng.uniform(0.1, 10.0, size=(B, m)), dtype=dtype,
+                            device=dev)
+        H = _spd(rng, 1, n, dtype, dev)[0]
+        bnd = torch.as_tensor(rng.uniform(0.0, 5.0, size=(B, n)),
+                              dtype=dtype, device=dev)
+        Hb, A, Jb = _baddbmm_operands(Jc, w, H, B)
+        ops = (Jc, w, H, bnd)
+        cases.append((
+            f"K1 {dname} {n}/{m}/{B}",
+            {k: (lambda sc=sc, ops=ops: sc.pallas_fused_q(*ops))
+             for k, (sc, _) in trees.items()},
+            lambda Hb=Hb, A=A, Jb=Jb: torch.baddbmm(Hb, A, Jb),
+            "fused_q_dmma_kernel" if dtype == torch.float64
+            else "fused_q_lower_kernel", "aten::baddbmm"))
+        for Bk, nk in ((B, n),) + SCEN_CHOL_SHAPES:
+            Q = _spd(rng, Bk, nk, dtype, dev)
+            cases.append((
+                f"K2 {dname} B={Bk} n={nk}",
+                {k: (lambda ch=ch, Q=Q: ch.pallas_chol(Q))
+                 for k, (_, ch) in trees.items()},
+                lambda Q=Q: torch.linalg.cholesky_ex(Q), "chol_kernel",
+                "aten::linalg_cholesky_ex"))
+    return cases
+
+
+def launch_path(dev):
+    """K1's and K2's launch path at the main path's shapes: the wall time
+    a call of each wrapper and of its library call, in turns
+    (`host_call_ms`), beside the kernel's device time (torch.profiler).
+    Returns {case: {"host_ms", "library_host_ms", "device_ms"}}."""
+    from onephase_tpu_torch.ops import cholesky as ch
+    from onephase_tpu_torch.ops import schur
+    out = {}
+    for case, fns, lib, kname, lib_op in launch_path_cases(
+            dev, {"": (schur, ch)}):
+        host, lib_host = host_call_ms(fns[""], lib)
+        dev_ms, lib_dev = _device_ms(fns[""], kname), _device_ms(lib, lib_op)
+        out[case] = {"host_ms": host, "library_host_ms": lib_host,
+                     "device_ms": dev_ms, "library_device_ms": lib_dev}
+        print(f"launch path {case}: {host:.4f} ms a call (device "
+              f"{dev_ms:.4f}), library {lib_host:.4f} ms a call (device "
+              f"{lib_dev:.4f}; {host / lib_host:.2f}x; {LAUNCH_CALLS} calls "
+              "back to back, in turns)", flush=True)
+    return out
 
 
 def kernel_parity(dev):
@@ -2150,7 +2280,7 @@ def precision_kernel_checks(dev):
         print(f"precision {name} n={n} m={m} B={B}: " + "; ".join(parts),
               flush=True)
     _prec_library(kernels["K1"][0], (Jc, w, H, Q, L), rec)
-    _prec_chol_phases(Q)
+    _prec_chol_phases(Q, rec)
     return rec
 
 
@@ -2204,10 +2334,14 @@ def _prec_library(k1, operands, rec):
     print(f"precision library (in turns): {'; '.join(parts)}", flush=True)
 
 
-def _prec_chol_phases(Q):
+def _prec_chol_phases(Q, rec):
     """K2's time by phase in IEEE and every card mode at PREC_SHAPE
-    (`ops/cholesky.py:chol_phases`, the clocked copy of csrc/chol.cu), and
-    the moded kernels' registers and spills from the build log."""
+    (`ops/cholesky.py:chol_phases`, the clocked copy of csrc/chol.cu), each
+    split mode's time beside `cholesky_ex` (`rec`, the precision records),
+    K2 in float64 on the same Q against `cholesky_ex` in turns with its
+    bound and phase split, and the moded kernels' registers and spills
+    from the build log."""
+    import torch
     from onephase_tpu_torch.ops import _build
     from onephase_tpu_torch.ops import cholesky as ch
     from onephase_tpu_torch.ops import precision
@@ -2217,6 +2351,23 @@ def _prec_chol_phases(Q):
             f"{p} {v * 100:.1f}%" for p, v in ph["share"].items())
             + f" ({ph['cycles']:.0f} cycles a block, cluster "
             f"{ph['cluster']})", flush=True)
+    split = [(str(md), rec["chol"][str(md)]) for md in precision.CARD_MODES
+             if md.passes > 1]
+    print("precision K2 split modes beside cholesky_ex: " + "; ".join(
+        f"{md} {r['ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x "
+        f"{r['library_ms']:.4f})" for md, r in split), flush=True)
+    B, n = Q.shape[0], Q.shape[-1]
+    Q64 = Q.double()
+    ms, lms = _time_turns(lambda: ch.pallas_chol(Q64),
+                          lambda: torch.linalg.cholesky_ex(Q64))
+    bd = _bound(8 * (2 * B * n * n + B * n) + B, B * n ** 3 / 3, "float64")
+    ph = ch.chol_phases(Q64)
+    print(f"precision K2 float64 n={n} B={B}: {ms:.4f} ms, cholesky_ex "
+          f"{lms:.4f} ms ({ms / lms:.2f}x, in turns), bound {bd[0]:.4f} ms "
+          f"({bd[1]}); phases " + ", ".join(
+              f"{p} {v * 100:.1f}% {v * ms:.4f} ms"
+              for p, v in ph["share"].items())
+          + f" (cluster {ph['cluster']})", flush=True)
     rep = _ptxas_report(_build.BUILD_LOG, ("fused_q_wg_kernel",
                                             "fused_q_tc_kernel",
                                             "chol_kernel"))
@@ -3662,6 +3813,10 @@ def main() -> int:
 
     record = kernel_parity(dev)
     kernel_routes(dev)
+    calls = launch_path(dev)
+    for name, key in (("fused_q", "K1"), ("chol", "K2")):
+        record[name]["launch_path"] = {
+            c: v for c, v in calls.items() if c.startswith(key)}
     k1_per_instance = fused_q_per_instance(dev)
     record["fused_q_tri"] = fused_q_tri_parity(dev)
     record.update(tridiag_parity(dev))

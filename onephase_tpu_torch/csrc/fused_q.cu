@@ -87,9 +87,12 @@
 
 #include <cstdint>
 
+#include "launch.cuh"
 #include "mm_tc.cuh"
 
 namespace {
+
+using onephase::Dmma;
 
 __device__ __forceinline__ float fq_fma(float a, float b, float c) {
   return fmaf(a, b, c);
@@ -363,8 +366,8 @@ int launch_shape(const void* Jc, long long jc_bs, const void* w,
   const long long nt = (n + BT - 1) / BT;
   const long long tiles = nt * (nt + 1) / 2;
   if (B > 65535 || tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  static std::atomic<unsigned long long> smem_set{0};
+  const cudaError_t err = onephase::smem_once(kernel, S::SMEM, smem_set);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3((unsigned)tiles, B), S::NT, S::SMEM, (cudaStream_t)stream>>>(
       (const T*)Jc, jc_bs, (const T*)w, (const T*)H, h_bs, (const T*)bnd,
@@ -872,8 +875,8 @@ int launch_wg(const void* Jc, long long jc_bs, const void* w, const void* H,
   const long long nt = (n + G::BT - 1) / G::BT;
   const long long tiles = nt * (nt + 1) / 2;
   if (B > 65535 || tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  static std::atomic<unsigned long long> smem_set{0};
+  const cudaError_t err = onephase::smem_once(kernel, G::SMEM, smem_set);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3((unsigned)tiles, B), G::NT, G::SMEM, (cudaStream_t)stream>>>(
       (const float*)Jc, jc_bs, (const float*)w, (const float*)H, h_bs,
@@ -890,8 +893,8 @@ int launch_tc(const void* Jc, long long jc_bs, const void* w, const void* H,
   const long long nt = (n + G::BT - 1) / G::BT;
   const long long tiles = nt * (nt + 1) / 2;
   if (B > 65535 || tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  static std::atomic<unsigned long long> smem_set{0};
+  const cudaError_t err = onephase::smem_once(kernel, G::SMEM, smem_set);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3((unsigned)tiles, B), G::NT, G::SMEM, (cudaStream_t)stream>>>(
       (const float*)Jc, jc_bs, (const float*)w, (const float*)H, h_bs,
@@ -924,22 +927,8 @@ int launch_tc(const void* Jc, long long jc_bs, const void* w, const void* H,
 // chain acc = fma(J[k, row] w[k], J[k, col], acc) bit for bit
 // (tools/kernel_equal.py against that kernel: 0 differing cases).  Past m
 // and past n the slabs are zero filled (fma(0, 0, acc) could only turn a
-// -0 sum into +0).
-struct Dmma {
-  static constexpr int K = 8;
-  // d += a b: a_i at (row g + 8 (i % 2), k t + 4 (i / 2)), b_i at (k t +
-  // 4 i, column g), d_i at (row g + 8 (i / 2), column 2 t + i % 2)
-  static __device__ __forceinline__ void mma(double (&d)[4],
-                                             const double (&a)[4],
-                                             const double (&b)[2]) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
-  }
-};
-
+// -0 sum into +0).  The mma is mm_tc.cuh's Dmma, shared with K2's float64
+// trailing update (chol.cu).
 template <int BT, int WGM, int WGN, bool VEC>
 struct DmShape {
   static constexpr int NT = 32 * WGM * WGN;        // threads
@@ -1098,8 +1087,8 @@ int launch_dmma(const void* Jc, long long jc_bs, const void* w,
   const long long nt = (n + BT - 1) / BT;
   const long long tiles = nt * (nt + 1) / 2;
   if (B > 65535 || tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  static std::atomic<unsigned long long> smem_set{0};
+  const cudaError_t err = onephase::smem_once(kernel, G::SMEM, smem_set);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3((unsigned)tiles, B), G::NT, G::SMEM, (cudaStream_t)stream>>>(
       (const double*)Jc, jc_bs, (const double*)w, (const double*)H, h_bs,
@@ -1112,13 +1101,10 @@ bool aligned16(const void* p) {
 }
 
 // 128-tiles where the lower tile pairs of all instances give every SM
-// `per_sm` blocks, else 64-tiles
+// `per_sm` blocks, else 64-tiles (the SM count read once a device)
 bool big_tiles(int B, int n, int per_sm, int* err) {
   int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  *err = (int)e;
+  *err = (int)onephase::device_sms(dev, sms);
   const long long nt = (n + 127) / 128;
   return (long long)B * (nt * (nt + 1) / 2) >= (long long)per_sm * sms;
 }

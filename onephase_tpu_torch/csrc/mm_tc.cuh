@@ -1,7 +1,8 @@
 // The tensor-core arithmetic of a `matmul_precision` mode, shared by the
 // moded variants of K1 (fused_q.cu), K2's trailing update (chol.cu), K3's
 // update (tri_inv_mode.cuh) and K7's block products
-// (tridiag_factor_mode.cu).
+// (tridiag_factor_mode.cu); and the FP64 tensor cores' mma (Dmma), shared
+// by K1's and K2's float64 routes.
 // The mode's definition (mm_mode.cuh, ops/precision.py): every product of
 // two entries takes operands rounded to the mode's input type, a split
 // mode expands each operand into parts hi, mid, lo and takes the part
@@ -93,6 +94,29 @@ template <> struct Tc<3> {
         "{%0, %1, %2, %3};\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+};
+
+// The FP64 tensor cores' mma.sync.aligned.m16n8k8.row.col.f64 (Hopper's
+// f64 shape; 2 x 16 x 8 x 8 operations an instruction), shared by K1's
+// float64 route (fused_q.cu) and K2's float64 trailing update (chol.cu).
+// On the H100 its D is the FP64 cores' fma chain over its k, ascending,
+// from C, bit for bit (tools/dmma_probe.py), so an accumulator started at
+// +0 and carried from one mma to the next is the chain acc = fma(a_k, b_k,
+// acc) over every k in order.
+struct Dmma {
+  static constexpr int K = 8;
+  // d += a b: a_i at (row g + 8 (i % 2), k t + 4 (i / 2)), b_i at (k t +
+  // 4 i, column g), d_i at (row g + 8 (i / 2), column 2 t + i % 2), with
+  // g = lane / 4, t = lane % 4
+  static __device__ __forceinline__ void mma(double (&d)[4],
+                                             const double (&a)[4],
+                                             const double (&b)[2]) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
   }
 };
 

@@ -10,10 +10,11 @@ Processes that find no library at once (ranks of one job) build it once,
 in turn (`_build`).
 
 `clock_library` builds the measurement-only libraries: "chol",
-`csrc/chol.cu` compiled with -DONEPHASE_CHOL_CLOCKS, whose one entry
-point, `op_chol_clocks_f32`, is K2 with clock64() stamps at its phase
-boundaries (`ops/cholesky.py:chol_phases`), and "tridiag", the sources of
-K7 and K5 compiled with -DONEPHASE_TRIDIAG_CLOCKS, whose entry points
+`csrc/chol.cu` compiled with -DONEPHASE_CHOL_CLOCKS, whose entry points,
+`op_chol_clocks_f32` and `op_chol_clocks_f64`, are K2 with clock64()
+stamps at its phase boundaries (`ops/cholesky.py:chol_phases`), and
+"tridiag", the sources of K7 and K5 compiled with
+-DONEPHASE_TRIDIAG_CLOCKS, whose entry points
 `op_tridiag_factor_clocks_f32` and `op_tridiag_solve_clocks_f32` stamp
 theirs (`ops/tridiag_pallas.py:tridiag_phases`), and "tri_inv", K3's
 inverse (`csrc/tri_inv.cu` with `tri_inv_mode.cuh`) compiled with
@@ -76,7 +77,8 @@ _SIGNATURES = {
 _CLOCKED = {
     # K2: Q, L, d, ok, B, n, mode, clk (B * 8, 8), stream
     "chol": (("chol.cu",), "-DONEPHASE_CHOL_CLOCKS",
-             {"op_chol_clocks_f32": [_P, _P, _P, _P, _I, _I, _I, _P, _P]}),
+             {"op_chol_clocks_f32": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+              "op_chol_clocks_f64": [_P, _P, _P, _P, _I, _I, _I, _P, _P]}),
     # K7 and K5 (clk (B, 8)), their arguments as op_tridiag_*
     "tridiag": (("tridiag.cu", "tridiag_factor_mode.cu",
                  "tridiag_solve_mode.cu"), "-DONEPHASE_TRIDIAG_CLOCKS",
@@ -221,14 +223,33 @@ def entry(name: str, dtype):
     return getattr(library(), name + suffix)
 
 
+def launch(name: str, t, *args) -> int:
+    """Call the entry point `name` for the dtype of the CUDA tensor `t` with
+    `args` and the current stream of t's device; t's device is made
+    current for the call only where it is not already.  Returns the
+    entry point's error code."""
+    fn = entry(name, t.dtype)
+    idx = t.get_device()
+    if idx == torch.cuda.current_device():
+        return fn(*args, _raw_stream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, _raw_stream(idx))
+
+
 def check(err: int, name: str):
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
 
 
+def _raw_stream(idx: int) -> int:
+    """The current stream of CUDA device `idx` as an address (torch's raw
+    stream query: no Stream object a call)."""
+    return torch._C._cuda_getCurrentRawStream(idx)
+
+
 def stream_ptr(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return _raw_stream(t.get_device())
 
 
 def ptr(t):

@@ -56,9 +56,10 @@ def _check_square(t, name):
                          f"{tuple(t.shape)}")
     if t.dtype not in _FLOATS:
         raise TypeError(f"{name}: dtype {t.dtype} is not float32/float64")
-    if t.device.type == "cuda" and not t.is_contiguous():
-        raise ValueError(f"{name}: a CUDA input must be contiguous")
-    if t.device.type not in ("cpu", "cuda"):
+    if t.is_cuda:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: a CUDA input must be contiguous")
+    elif not t.is_cpu:
         raise ValueError(f"{name}: no kernel for device {t.device}")
 
 
@@ -107,22 +108,21 @@ def pallas_chol(Q, mode=None):
     (default: the current scope's; float32 only)."""
     _check_square(Q, "chol")
     mode = precision.kernel_mode(Q, mode)
-    if Q.device.type == "cpu":
+    if Q.is_cpu:
         return xla_chol(Q) if mode.ieee else blocked_chol(Q, mode)
     B, n = Q.shape[0], Q.shape[-1]
     L = torch.empty_like(Q)
-    d = torch.empty(B, n, dtype=Q.dtype, device=Q.device)
-    ok = torch.empty(B, dtype=torch.int32, device=Q.device)
+    d = Q.new_empty((B, n))
+    # the kernel writes ok as one byte an instance, torch.bool's layout
+    ok = Q.new_empty((B,), dtype=torch.bool)
     if B > 0 and n > 0:
-        with torch.cuda.device(Q.device):
-            err = _build.entry("op_chol", Q.dtype)(
-                Q.data_ptr(), L.data_ptr(), d.data_ptr(), ok.data_ptr(),
-                B, n, mode.code, _build.stream_ptr(Q))
+        err = _build.launch("op_chol", Q, Q.data_ptr(), L.data_ptr(),
+                            d.data_ptr(), ok.data_ptr(), B, n, mode.code)
         _build.check(err, "chol")
         count_launch("chol", mode)
     else:
-        ok.fill_(1)
-    return L, d, ok != 0
+        ok.fill_(True)
+    return L, d, ok
 
 
 # K2's phases, as the clocked copy of csrc/chol.cu stamps them
@@ -130,29 +130,31 @@ CHOL_PHASES = ("other", "diag", "solve", "cross", "trail")
 
 
 def chol_phases(Q, mode=None):
-    """Where K2's time goes on float32 CUDA `Q` in matmul mode `mode`: one
-    launch of the clocked copy of csrc/chol.cu (`_build.clock_library`,
-    `op_chol_clocks_f32`, whose thread 0 of every block reads clock64()
-    at each phase boundary).  Returns {"share": {phase: cycles over the
-    block's total, mean over the blocks}, "cluster": blocks an instance,
-    "cycles": mean cycles a block}: the diagonal tiles, the row solves, the
-    panel's cross products, the trailing update, and the rest (the copy of
-    Q, the writes of the diagonal block, the cluster barriers).  A
-    measurement: the solver never calls it."""
+    """Where K2's time goes on CUDA `Q` (float32 in matmul mode `mode`, or
+    float64): one launch of the clocked copy of csrc/chol.cu
+    (`_build.clock_library`, `op_chol_clocks_f32` / `op_chol_clocks_f64`,
+    whose thread 0 of every block reads clock64() at each phase boundary).
+    Returns {"share": {phase: cycles over the block's total, mean over the
+    blocks}, "cluster": blocks an instance, "cycles": mean cycles a block}:
+    the diagonal tiles, the row solves, the panel's cross products, the
+    trailing update, and the rest (the copy of Q, the writes of the
+    diagonal block, the cluster barriers).  A measurement: the solver never
+    calls it."""
     _check_square(Q, "chol_phases")
-    if Q.device.type != "cuda" or Q.dtype != torch.float32:
-        raise ValueError("chol_phases: a float32 CUDA batch")
+    if Q.device.type != "cuda":
+        raise ValueError("chol_phases: a CUDA batch")
     B, n = Q.shape[0], Q.shape[-1]
     L = torch.empty_like(Q)
     d = torch.empty(B, n, dtype=Q.dtype, device=Q.device)
-    ok = torch.empty(B, dtype=torch.int32, device=Q.device)
+    ok = torch.empty(B, dtype=torch.bool, device=Q.device)
     slots = len(CHOL_PHASES) + 2   # the phases, the total, the cluster size
     clk = torch.zeros(B * 8, 8, dtype=torch.int64, device=Q.device)
+    fn = getattr(_build.clock_library(), "op_chol_clocks_" + (
+        "f32" if Q.dtype == torch.float32 else "f64"))
     with torch.cuda.device(Q.device):
-        err = _build.clock_library().op_chol_clocks_f32(
-            Q.data_ptr(), L.data_ptr(), d.data_ptr(), ok.data_ptr(), B, n,
-            precision.kernel_mode(Q, mode).code, clk.data_ptr(),
-            _build.stream_ptr(Q))
+        err = fn(Q.data_ptr(), L.data_ptr(), d.data_ptr(), ok.data_ptr(), B,
+                 n, precision.kernel_mode(Q, mode).code, clk.data_ptr(),
+                 _build.stream_ptr(Q))
     _build.check(err, "chol_clocks")
     rows = clk[:, :slots]
     rows = rows[rows[:, len(CHOL_PHASES)] > 0].double().cpu()
@@ -256,10 +258,9 @@ def launch_tri_inv(L, Li, mode=None):
     """Launch `csrc/tri_inv.cu`: Li = L^-1 for validated CUDA tensors, in
     matmul mode `mode` (None: the current scope's; float32; float64 runs
     IEEE)."""
-    with torch.cuda.device(L.device):
-        err = _build.entry("op_tri_inv", L.dtype)(
-            L.data_ptr(), Li.data_ptr(), L.shape[0], L.shape[-1],
-            precision.kernel_mode(L, mode).code, _build.stream_ptr(L))
+    err = _build.launch("op_tri_inv", L, L.data_ptr(), Li.data_ptr(),
+                        L.shape[0], L.shape[-1],
+                        precision.kernel_mode(L, mode).code)
     _build.check(err, "tri_inv")
 
 

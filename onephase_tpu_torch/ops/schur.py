@@ -75,11 +75,14 @@ def xla_fused_q(Jc, w, H, bnd, mxu_dtype=None, mode=None):
     return Q + torch.diag_embed(bnd)
 
 
-def _check_operand(t, name, shapes, dtype, device):
-    if t.dtype != dtype or t.device != device:
+def _check_operand(t, name, shapes, dtype, idx):
+    """t has `dtype`, lies on CUDA device `idx`, has one of `shapes` and is
+    contiguous (the kernel reads it as a dense array); else a ValueError
+    naming what differs.  The message is formatted only on failure."""
+    if t.dtype is not dtype or t.get_device() != idx:
         raise ValueError(f"fused_q: {name} is {t.dtype} on {t.device}, "
-                         f"expected {dtype} on {device}")
-    if tuple(t.shape) not in shapes:
+                         f"expected {dtype} on cuda:{idx}")
+    if t.shape not in shapes:
         raise ValueError(f"fused_q: {name} has shape {tuple(t.shape)}, "
                          f"expected one of {shapes}")
     if not t.is_contiguous():
@@ -88,29 +91,30 @@ def _check_operand(t, name, shapes, dtype, device):
 
 def _cuda_operands(Jc, w, H, bnd):
     """Validate the operands of a fused-Q kernel on the card; (B, m, n)."""
-    if bnd.device.type != "cuda":
+    if not bnd.is_cuda:
         raise ValueError(f"fused_q: no kernel for device {bnd.device}")
     B, n = bnd.shape
     m = Jc.shape[-2]
-    dt, dev = bnd.dtype, bnd.device
+    dt, idx = bnd.dtype, bnd.get_device()
     if dt not in _FLOATS:
         raise TypeError(f"fused_q: dtype {dt} is not float32/float64")
-    _check_operand(bnd, "bnd", [(B, n)], dt, dev)
-    _check_operand(Jc, "Jc", [(m, n), (B, m, n)], dt, dev)
-    _check_operand(w, "w", [(B, m)], dt, dev)
+    _check_operand(bnd, "bnd", [(B, n)], dt, idx)
+    _check_operand(Jc, "Jc", [(m, n), (B, m, n)], dt, idx)
+    _check_operand(w, "w", [(B, m)], dt, idx)
     if H is not None:
-        _check_operand(H, "H", [(n, n), (B, n, n)], dt, dev)
+        _check_operand(H, "H", [(n, n), (B, n, n)], dt, idx)
     return B, m, n
 
 
 def _launch_counted(Jc, w, H, bnd, counter, mode):
     """Q from the kernel of `csrc/fused_q.cu` for CUDA tensors, counted in
-    LAUNCHES[counter] (and by mode); the plain version for CPU tensors."""
+    LAUNCHES[counter] (and by mode); the plain version for CPU tensors.
+    The mode is resolved once, here."""
     mode = precision.kernel_mode(bnd, mode)
-    if bnd.device.type == "cpu":
+    if bnd.is_cpu:
         return xla_fused_q(Jc, w, H, bnd, mode=mode)
     B, m, n = _cuda_operands(Jc, w, H, bnd)
-    Q = torch.empty(B, n, n, dtype=bnd.dtype, device=bnd.device)
+    Q = bnd.new_empty((B, n, n))
     if B == 0 or n == 0:
         return Q
     launch_fused_q(Jc, w, H, bnd, Q, mode=mode)
@@ -148,12 +152,10 @@ def launch_fused_q(Jc, w, H, bnd, Q, lower: bool = False, mode=None):
     inverse (ops/cholesky.py).  `mode`: the matmul mode of a float32 Q (the
     moded instantiation; None: the current scope's); float64 runs IEEE."""
     B, n = Q.shape[0], Q.shape[-1]
-    with torch.cuda.device(Q.device):
-        err = _build.entry("op_fused_q", Q.dtype)(
-            _build.ptr(Jc), _batch_stride(Jc), _build.ptr(w), _build.ptr(H),
-            _batch_stride(H), _build.ptr(bnd), _build.ptr(Q), B,
-            Jc.shape[-2], n, int(lower), precision.kernel_mode(Q, mode).code,
-            _build.stream_ptr(Q))
+    err = _build.launch(
+        "op_fused_q", Q, _build.ptr(Jc), _batch_stride(Jc), _build.ptr(w),
+        _build.ptr(H), _batch_stride(H), _build.ptr(bnd), Q.data_ptr(), B,
+        Jc.shape[-2], n, int(lower), precision.kernel_mode(Q, mode).code)
     _build.check(err, "fused_q")
 
 

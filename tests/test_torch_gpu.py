@@ -1002,3 +1002,100 @@ def test_tri_inv_phases_on_the_card(cuda, mode_name, n, B):
     assert share["update"] > 0 and share["solve"] > 0
     with pytest.raises(ValueError):
         ch.tri_inv_phases(L.double())
+
+
+# ---------------------------------------------------------------------
+# K2 in float64 (its trailing update on the FP64 tensor cores), the split
+# modes' panel on the tensor cores, at the panel and tile edges; the lean
+# launch path's errors
+_F64_EDGES = [(B, n) for n in (1, 33, 64, 65, 127, 129, 130, 1024)
+              for B in (1, 2, 3)] + [(256, 64), (64, 16), (64, 1), (1, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B, n", _F64_EDGES)
+def test_chol_float64_at_the_edges(cuda, B, n):
+    """K2 in float64 against cholesky_ex: L and d within 1e-12 of it
+    (relative to the largest entry; summation order alone), ok equal, L
+    lower triangular, ok a bool."""
+    Q = _spd(np.random.default_rng(3 * n + B), B, n, torch.float64, cuda)
+    L, d, ok = ch.pallas_chol(Q)
+    Lr, info = torch.linalg.cholesky_ex(Q)
+    assert ok.dtype == torch.bool
+    assert ok.tolist() == (info == 0).tolist() == [True] * B
+    assert torch.equal(L, L.tril())
+    assert _rel_err(L, Lr) <= 1e-12
+    assert _rel_err(d, torch.diagonal(Lr, dim1=-2, dim2=-1)) <= 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [33, 65, 130, 1024])
+def test_chol_float64_flags_the_non_pd_instance_alone(cuda, n):
+    """A non-PD instance between two SPD ones: ok False there alone, as
+    cholesky_ex's info says, and the SPD instances' factors unchanged."""
+    Q = _spd(np.random.default_rng(n), 3, n, torch.float64, cuda)
+    Q[1] -= 2e3 * n * torch.eye(n, dtype=torch.float64, device=cuda)
+    L, d, ok = ch.pallas_chol(Q)
+    _, info = torch.linalg.cholesky_ex(Q)
+    assert ok.tolist() == (info == 0).tolist() == [True, False, True]
+    Lr = torch.linalg.cholesky_ex(Q[::2])[0]
+    assert _rel_err(L[::2], Lr) <= 1e-12
+
+
+def _split_modes():
+    from onephase_tpu_torch.ops import precision
+    return [str(m) for m in precision.CARD_MODES if m.passes > 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode_name", _split_modes())
+@pytest.mark.parametrize("B, n", [(2, 1), (1, 33), (3, 64), (2, 65),
+                                  (1, 127), (3, 129), (1, 130), (3, 1024),
+                                  (256, 64), (64, 16), (64, 1), (1, 1)])
+def test_chol_split_modes_at_the_edges(cuda, mode_name, B, n):
+    """The split modes' panel on the tensor cores (16-row warp blocks,
+    sub-blocks of the mma depth) across the inner and outer panel edges,
+    a ragged last chunk of rows and the scenario's shapes: L and d within
+    chip_smoke.py's PREC_TOL of blocked_chol, every pivot accepted, L lower
+    triangular."""
+    from onephase_tpu_torch.ops import precision
+    mode = next(x for x in precision.CARD_MODES if str(x) == mode_name)
+    tol = _smoke().PREC_TOL.get(mode_name, _smoke().PREC_TOL_DEFAULT)
+    S = _spd(np.random.default_rng(5 * n + B), B, n, torch.float32, cuda)
+    L, d, ok = ch.pallas_chol(S, mode=mode)
+    Lt, dt_, okt = ch.blocked_chol(S, mode)
+    assert bool(ok.all()) and bool(okt.all())
+    assert torch.equal(L, L.tril())
+    assert _rel_err(L, Lt) <= tol and _rel_err(d, dt_) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_lean_wrappers_raise_as_before(cuda, dt):
+    """K1's and K2's wrappers on the card refuse a wrong dtype, shape,
+    device or layout with the errors of their detailed checks, and launch
+    nothing."""
+    Jc, w, H, bnd = _fq_inputs(np.random.default_rng(8), 40, 8, 2, True, dt,
+                               cuda)
+    other = torch.float32 if dt == torch.float64 else torch.float64
+    ops.reset_launch_counts()
+    bad = [
+        ((Jc, w.to(other), H, bnd), "w is"),
+        ((Jc, w.cpu(), H, bnd), "w is"),
+        ((Jc[:, :-1].contiguous(), w, H, bnd), "Jc has shape"),
+        ((Jc, w, torch.empty(80, 40, dtype=dt, device=cuda)[::2], bnd),
+         "H must be contiguous"),
+    ]
+    for args, msg in bad:
+        with pytest.raises(ValueError, match=msg):
+            schur.pallas_fused_q(*args)
+    with pytest.raises(TypeError):
+        schur.pallas_fused_q(Jc.int(), w.int(), None, bnd.int())
+    Q = _spd(np.random.default_rng(9), 2, 40, dt, cuda)
+    with pytest.raises(ValueError, match="must be contiguous"):
+        ch.pallas_chol(Q.mT)
+    with pytest.raises(ValueError, match="expected a"):
+        ch.pallas_chol(Q[0])
+    with pytest.raises(TypeError):
+        ch.pallas_chol(Q.half())
+    assert ops.launch_counts() == dict.fromkeys(ops.LAUNCHES, 0)

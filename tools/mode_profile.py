@@ -7,6 +7,8 @@ beside them.
     python3 tools/mode_profile.py --parent _parent  # and another checkout's
     python3 tools/mode_profile.py --only tridiag    # K7 and K5 alone
     python3 tools/mode_profile.py --only tri_inv    # K3's two halves alone
+    python3 tools/mode_profile.py --only chol       # K2 alone, f32 and f64
+    python3 tools/mode_profile.py --only launch     # K1's, K2's launch path
 
 At chip_smoke.py's PREC_SHAPE (n 1024, m 512, B 64) and the bench QP's
 shape (256, 128, 16), on the operands of chip_smoke.py's precision phase
@@ -52,6 +54,18 @@ beside `cholesky_inverse`, and its inverse's phase split from
 -DONEPHASE_TRI_INV_CLOCKS): the slab loads, their stores to shared memory
 (and, in a mode, their split) and the barriers; the update product; a
 chunk's right-hand side and substitution; Li's stores; the rest.
+
+K2 in float64 (with `--only chol`, K2 alone: IEEE float32, every card
+mode and float64) runs at both dense shapes beside `cholesky_ex` in
+float64, with its phase split from the same clocked copy
+(`op_chol_clocks_f64`).
+
+The launch path (`--only launch`, chip_smoke.py's `launch_path_cases`):
+K1 at 256/128/16 and K2 at 256/16 and the scenario shapes, float32 and
+float64, each tree's wrapper and the library call (`baddbmm`,
+`cholesky_ex`) in turns, the wall time a call of 200 calls back to back
+ended by one synchronize (chip_smoke.py's `host_call_ms`), beside the
+kernel's device time from torch.profiler.
 
 Prints one line a kernel and shape, then one JSON object (also written to
 `--out`, when given).
@@ -135,6 +149,66 @@ def _operands(n, m, B, dev, mods):
     Li = torch.empty_like(L)
     ch.launch_tri_inv(L, Li)
     return Jc, w, bnd, Q, L, Li
+
+
+def profile_chol_f64(this, other, Q32) -> dict:
+    """K2 in float64 on Q32 in float64: this tree's (and the other's, in
+    turns) beside `cholesky_ex`, and each tree's phase split, the shares
+    times the kernel's own time giving each phase's milliseconds."""
+    Q = Q32.double()
+    fns = [lambda: this["cholesky"].pallas_chol(Q)]
+    if other is not None:
+        fns = [lambda: other["cholesky"].pallas_chol(Q)] + fns
+    fns.append(lambda: torch.linalg.cholesky_ex(Q))
+    ts = _time(fns)
+    res = {"ms": ts[-2], "cholesky_ex": ts[-1]}
+    if other is not None:
+        res["parent_ms"] = ts[0]
+    n = Q.shape[-1]
+    print(f"{Q.shape[0]}/{n} K2 float64 ms: {res['ms']:.4f}"
+          + (f" (parent {res['parent_ms']:.4f})" if other else "")
+          + f"; cholesky_ex {res['cholesky_ex']:.4f}", flush=True)
+    for tree, mods in (("this", this), ("parent", other)):
+        if mods is None:
+            continue
+        try:
+            s = _phase_split(mods, Q, None)
+        except ValueError:   # a tree whose split takes float32 alone
+            s = None
+        if s is None:
+            continue
+        ms = res["ms" if tree == "this" else "parent_ms"]
+        s["ms"] = {p: v * ms for p, v in s["share"].items()}
+        res.setdefault("phases", {})[tree] = s
+        print(f"{Q.shape[0]}/{n} K2 float64 phases {tree}: " + ", ".join(
+            f"{p} {v * 100:.1f}% {s['ms'][p]:.4f} ms"
+            for p, v in s["share"].items())
+            + f" (cluster {s['cluster']})", flush=True)
+    return res
+
+
+def profile_launch(this, other, dev) -> dict:
+    """The launch path (chip_smoke.py's launch_path_cases): the wall time
+    a call of each tree's wrapper and of the library call, in turns, and
+    this tree's kernel's device time (torch.profiler)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    trees = {"this": (this["schur"], this["cholesky"])}
+    if other is not None:
+        trees["parent"] = (other["schur"], other["cholesky"])
+    out = {}
+    for case, fns, lib, kname, lib_op in chip_smoke.launch_path_cases(
+            dev, trees):
+        labels = list(fns)
+        ts = chip_smoke.host_call_ms(*fns.values(), lib)
+        row = {f"{k}_host_ms": t for k, t in zip(labels, ts)}
+        row["library_host_ms"] = ts[-1]
+        row["device_ms"] = chip_smoke._device_ms(fns["this"], kname)
+        row["library_device_ms"] = chip_smoke._device_ms(lib, lib_op)
+        out[case] = row
+        print(f"launch {case}: " + "; ".join(
+            f"{k} {v:.4f}" for k, v in row.items()), flush=True)
+    return out
 
 
 def _kernels(mods, ops):
@@ -349,9 +423,12 @@ def main() -> int:
                          "onephase_tpu_torch/, timed in turns with this one")
     ap.add_argument("--out", type=Path,
                     help="also write the JSON report to this file")
-    ap.add_argument("--only", choices=("dense", "tridiag", "tri_inv"),
-                    help="profile K1-K3 (dense), K7/K5 (tridiag) or K3's "
-                         "halves with its inverse's phases (tri_inv) alone")
+    ap.add_argument("--only", choices=("dense", "tridiag", "tri_inv",
+                                       "chol", "launch"),
+                    help="profile K1-K3 (dense), K7/K5 (tridiag), K3's "
+                         "halves with its inverse's phases (tri_inv), K2 "
+                         "(chol) or K1's and K2's launch path (launch) "
+                         "alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("mode_profile: no CUDA device; the kernels run only "
@@ -375,15 +452,23 @@ def main() -> int:
         report["tri_inv"] = profile_tri_inv(this, other, dev)
     if args.only in (None, "tridiag"):
         report["tridiag"] = profile_tridiag(this, other, dev)
-    for n, m, B in SHAPES if args.only in (None, "dense") else ():
+    if args.only in (None, "launch"):
+        report["launch"] = profile_launch(this, other, dev)
+    for n, m, B in SHAPES if args.only in (None, "dense", "chol") else ():
         ops = _operands(n, m, B, dev, this)
         key = f"{n}/{m}/{B}"
-        res = {"yardsticks": _yardsticks(ops, n, m, B)}
+        res = {"yardsticks": _yardsticks(ops, n, m, B)
+               if args.only != "chol" else
+               {"cholesky_ex": _time([lambda: torch.linalg.cholesky_ex(
+                   ops[3])])[0]}}
         print(f"{key} yardsticks (ms): {json.dumps(res['yardsticks'])}",
               flush=True)
-        rows = _time_rows(_kernels(this, ops),
-                          _kernels(other, ops) if other else None,
-                          this, other)
+        keep = (lambda k: k == "chol") if args.only == "chol" else \
+            (lambda k: True)
+        rows = _time_rows(
+            {k: f for k, f in _kernels(this, ops).items() if keep(k)},
+            {k: f for k, f in _kernels(other, ops).items() if keep(k)}
+            if other else None, this, other)
         _print_rows(key, rows)
         res.update(rows)
         split = {}
@@ -404,6 +489,7 @@ def main() -> int:
                     for p, v in s["share"].items())
                     + f" (cluster {s['cluster']})", flush=True)
         res["chol_phases"] = split
+        res["chol_f64"] = profile_chol_f64(this, other, ops[3])
         report["shapes"][key] = res
         del ops
         torch.cuda.empty_cache()
